@@ -11,14 +11,26 @@ Phases (each prints its numbers; any failure exits non-zero):
 2. build: compiles the CUDA kernels from ``falcon_genome_tpu_torch/csrc``
    (nvcc, sm_90a) and reports build time, registers and spills;
 3. kernels vs their plain PyTorch versions on the card at the main
-   path's shapes: Smith-Waterman K1-K3 bit-equal, PairHMM K4 within 1e-4
-   log10 with the same -inf lanes; median times of both;
+   path's shapes: Smith-Waterman K1-K3 bit-equal, PairHMM K4 (scalar
+   transitions) and K5 (per-base transition planes) within 1e-4 log10
+   with the same -inf lanes; median times of both;
 4. ``germline`` end to end through the CLI (``--device cuda``) on a
    simulated 1 Mb contig at 30x (150 bp pairs), with per-stage wall time,
    reads/s, kernel launch counts (each must be > 0) and call accuracy
    against the planted truth (SNP sensitivity and precision >= 0.98);
 5. the same slice on a 50 kb cut with ``--device cpu`` and ``--device
-   cuda``: BAMs record-equivalent, VCF with 0 non-concordant records.
+   cuda``: BAMs record-equivalent, VCF with 0 non-concordant records;
+6. the multi-device path: (a) on a 4-shard mesh over the visible cards
+   (``cuda:(i % count)``) the sharded steps (K5 on every shard plus the
+   summed BQSR histogram) and ``pairhmm_logp`` with planes equal the
+   single-device K5 call, and ``accumulate_table`` / ``coordinate_order``
+   equal their single-device results on the 50 kb sample's records;
+   (b) ``bqsr`` and ``htc`` through the CLI in two ``gloo`` processes
+   (``tpu.dist.*``) equal a single-process run: recal table and BAM,
+   VCF records; (c) only where more than one card is visible (``chiprun
+   --chips 4``), ``germline`` on 50 kb with the CLI's default mesh over
+   every card against one card (``-O tpu.mesh.data=1``): record-equal,
+   with both walls.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -29,7 +41,10 @@ from __future__ import annotations
 
 import json
 import logging
+import os
+import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -49,6 +64,8 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
                          f"{SW_SRC}:944"),
     "fgt_pairhmm": ("falcon_genome_tpu_torch/csrc/pairhmm.cu",
                     "falcon_genome_tpu/ops/pairhmm.py:238"),
+    "fgt_pairhmm_pb": ("falcon_genome_tpu_torch/csrc/pairhmm.cu",
+                       "falcon_genome_tpu/ops/pairhmm.py:79"),
 }
 
 
@@ -63,6 +80,33 @@ def check(cond: bool, what: str) -> None:
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def ptxas_summary(report: str) -> list[str]:
+    """``name: N registers, S B spill stores, L B spill loads`` for every
+    kernel in an ``nvcc -Xptxas -v`` report (names demangled with
+    c++filt where it exists)."""
+    rows, name, spill = [], None, ""
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            spill = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows.append([name, f"{m.group(1)} registers, {spill}"])
+            name, spill = None, ""
+    if rows and shutil.which("c++filt"):
+        res = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True)
+        if res.returncode == 0:
+            for r, d in zip(rows, res.stdout.splitlines()):
+                r[0] = re.sub(r"\(.*\)$", "", d.replace(
+                    "(anonymous namespace)::", ""))
+    return [f"{n}: {v}" for n, v in rows]
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -124,6 +168,35 @@ def hap_lanes(rng, B, R, W):
         read[b, :len(hap)] = hap
         rl[b] = len(hap)
     return read, rl, win, wl
+
+
+def indel_planes(rng, rlen, R):
+    """Per-base insertion/deletion phreds 25-45 varying along each read
+    (as BQSR's BI/BD tags), gap continuation 10, phred 0 past rlen."""
+    B = len(rlen)
+    ins = rng.integers(25, 46, (B, R)).astype(np.uint8)
+    dele = rng.integers(25, 46, (B, R)).astype(np.uint8)
+    gcp = np.full((B, R), 10, np.uint8)
+    pad = np.arange(R)[None, :] >= rlen[:, None]
+    for x in (ins, dele, gcp):
+        x[pad] = 0
+    return ins, dele, gcp
+
+
+def pad_row_pairs(rng, n, R, H):
+    """Pairs only the rescale keeps finite, with pad rows (see
+    tests/test_torch_kernels.pad_row_pairs): quality-0 reads of R-10 to
+    R-1 bases against 12-20 base haplotypes, gap continuation phred 5."""
+    reads = np.ones((n, R), np.uint8)
+    q = np.zeros((n, R), np.uint8)
+    rl = rng.integers(R - 10, R, n).astype(np.int32)
+    hl = rng.integers(12, 21, n).astype(np.int32)
+    haps = np.zeros((n, H), np.uint8)
+    for b in range(n):
+        haps[b, hl[b]:] = 4
+    ins, dele, gcp = indel_planes(rng, rl, R)
+    gcp[gcp > 0] = 5
+    return reads, q, ins, dele, gcp, rl, haps, hl
 
 
 def phase_kernels(torch, S, P, results) -> None:
@@ -245,6 +318,46 @@ def phase_kernels(torch, S, P, results) -> None:
         f" plain {t4p:.3f} ms")
     results["fgt_pairhmm"] = dict(max_abs_err=e4, ms=t4, plain_ms=t4p)
 
+    # K5: the same pairs with per-base transition planes; the last 64
+    # lanes are pad-row pairs that only the rescale keeps finite
+    ins, dele, gcp = indel_planes(rng, rlen, R)
+    lanes = [reads, quals, ins, dele, gcp, rlen, haps, hl]
+    for x, c in zip(lanes, pad_row_pairs(rng, 64, R, H)):
+        x[resc] = c
+    k5_args = to(*lanes)
+
+    def plain5(a):
+        return P._pairhmm_plain(a[0].T, a[1].T, a[2].T, a[3].T, a[4].T,
+                                a[5][None], a[7][None], a[6].T, R=R, H=H)
+
+    kl = P.pairhmm_pb(*k5_args)
+    pl = plain5(k5_args)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(pl)
+    check(torch.equal(fin, torch.isfinite(kl)),
+          "K5 -inf lanes differ from the plain version")
+    e5 = float((kl[fin] - pl[fin]).abs().max())
+    check(e5 <= 1e-4, f"K5 differs from the plain version by {e5}")
+    n_craft = int(fin.cpu().numpy()[resc].sum())
+    check(n_craft == len(resc), "K5 crafted pad-row pairs floored to -inf")
+    thresh = P.RESCALE_THRESH
+    P.RESCALE_THRESH = 0.0
+    try:
+        craft = plain5([a[resc[0]:] for a in k5_args])
+    finally:
+        P.RESCALE_THRESH = thresh
+    check(not bool(torch.isfinite(craft).any()),
+          "K5 crafted pairs are finite without the rescale")
+    t5 = cuda_ms(torch, lambda: P.pairhmm_pb(*k5_args), 5)
+    t5p = cuda_ms(torch, lambda: plain5(k5_args), 2)
+    say(f"K5 fgt_pairhmm_pb R={R} H={H} B={B}, ins/del phreds 25-45 along "
+        f"each read, gcp 10, phred 0 past rlen: max |dlog10| {e5:.3g} on "
+        f"{int(fin.sum())} finite pairs; -inf lanes equal: "
+        f"{int((~fin).sum())}; {n_craft} crafted pad-row pairs finite, "
+        f"-inf without the rescale; kernel {t5:.3f} ms, plain {t5p:.3f} ms")
+    results["fgt_pairhmm_pb"] = dict(max_abs_err=e5, ms=t5, plain_ms=t5p)
+    return k5_args
+
 
 # ---------------------------------------------------------------------------
 # phases 4-5: the germline slice through the CLI
@@ -304,7 +417,9 @@ def phase_germline(torch, cli, S, P, validate, work: Path, results) -> None:
     torch.cuda.synchronize()
     r = run_germline(cli, sample, work / "1mb" / "calls.vcf.gz", "cuda")
     torch.cuda.synchronize()
-    launches = {**S.LAUNCHES, **P.LAUNCHES}
+    # germline runs K1-K4; K5 (per-base planes) is phase 6's
+    launches = {k: n for k, n in {**S.LAUNCHES, **P.LAUNCHES}.items()
+                if k != "fgt_pairhmm_pb"}
     for name, sec in r["stages"].items():
         say(f"germline stage {name}: {sec:.2f} s, "
             f"{n_reads / max(sec, 1e-9):.0f} reads/s")
@@ -338,6 +453,224 @@ def phase_germline(torch, cli, S, P, validate, work: Path, results) -> None:
           "50 kb BAMs differ between --device cpu and --device cuda")
     check(cmp_["vcf_equivalent"] and cmp_["vcf_non_concordant"] == 0,
           "50 kb VCFs differ between --device cpu and --device cuda")
+    return sample, Path(str(out["cuda"]) + ".work")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the multi-device path
+# ---------------------------------------------------------------------------
+
+def phase_mesh(torch, P, validate, sample, run_dir: Path, k5_args, results,
+               devs) -> None:
+    """(a): a 4-shard mesh over ``devs`` against one device."""
+    from falcon_genome_tpu_torch import parallel as TP
+    from falcon_genome_tpu_torch.bqsr import (
+        MAX_CYCLE, N_CONTEXT, accumulate_table)
+
+    mesh = TP.make_mesh(TP.MeshSpec(data=4, region=1), devs)
+    R, H = k5_args[0].shape[1], k5_args[6].shape[1]
+    read, bq, iq, dq, gq, rl, hp, hl = k5_args
+    B = read.shape[0]
+    rng = np.random.default_rng(11)
+    n_cov = 1 << 20
+    cov = [torch.from_numpy(x).to(devs[0]) for x in (
+        np.zeros(n_cov, np.int32),
+        rng.integers(0, 41, n_cov).astype(np.int32),
+        rng.integers(0, MAX_CYCLE, n_cov).astype(np.int32),
+        rng.integers(0, N_CONTEXT, n_cov).astype(np.int32),
+        (rng.random(n_cov) < 0.01).astype(np.float32))]
+    host = [t.cpu().numpy() for t in k5_args]
+    params = P.PairHMMParams(max_read_len=R, max_hap_len=H, device=devs[0])
+
+    def logp_planes():
+        return P.pairhmm_logp(host[0], host[1], host[2], host[3], host[4],
+                              host[5], host[6], host[7], params)
+
+    cols, covs, rgs = validate.bam_covariates(str(run_dir / "dedup.bam"),
+                                              sample.ref)
+
+    # single-device results (comparisons: their launches do not count)
+    want = P.pairhmm_pb(read, bq, iq, dq, gq, rl, hp, hl)
+    with TP.use_mesh(None):
+        want_logp = logp_planes()
+        want_order = TP.coordinate_order(cols)
+        want_table = accumulate_table(covs, rgs)
+    torch.cuda.synchronize()
+
+    for k in P.LAUNCHES:
+        P.LAUNCHES[k] = 0
+    t0 = time.time()
+    step = TP.sharded_pairhmm_step(mesh, R, H)
+    got = step(read, bq, iq, dq, gq, rl, hl, hp)
+    logp, hist = TP.germline_train_step(mesh, R, H)(
+        read, bq, iq, dq, gq, rl, hl, hp, *cov)
+    with TP.use_mesh(mesh):
+        got_logp = logp_planes()
+        got_order = TP.coordinate_order(cols)
+        got_table = accumulate_table(covs, rgs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = P.LAUNCHES["fgt_pairhmm_pb"]
+    check(torch.equal(got, want) and torch.equal(logp, want),
+          "sharded K5 steps differ from the single-device K5 call")
+    check(float(hist.sum()) == n_cov,
+          "germline_train_step histogram sum differs from the count")
+    check(np.array_equal(got_logp, want_logp),
+          "pairhmm_logp with planes differs under the mesh")
+    check(np.array_equal(got_order, want_order),
+          "coordinate_order differs under the mesh")
+    same_table = all(np.array_equal(getattr(got_table, f),
+                                    getattr(want_table, f))
+                     for f in ("qual_obs", "qual_err", "cycle_obs",
+                               "cycle_err", "ctx_obs", "ctx_err"))
+    check(same_table, "accumulate_table differs under the mesh")
+    check(launches > 0, "K5 was not launched by the mesh path")
+    t_mesh = cuda_ms(torch, lambda: step(read, bq, iq, dq, gq, rl, hl, hp),
+                     3)
+    t_one = cuda_ms(torch, lambda: P.pairhmm_pb(read, bq, iq, dq, gq, rl,
+                                                hp, hl), 3)
+    say(f"mesh 4 shards over {[str(d) for d in devs]}: sharded_pairhmm_step"
+        f" and germline_train_step R={R} H={H} B={B} bit-equal to one K5 "
+        f"call ({int(torch.isfinite(want).sum())} finite); histogram "
+        f"{n_cov} covariates summed exactly; pairhmm_logp with planes "
+        f"bit-equal; coordinate_order of {len(cols)} records and "
+        f"accumulate_table of {len(covs['rg'])} bases equal; K5 launches "
+        f"{launches}; {wall:.2f} s; sharded_pairhmm_step {t_mesh:.3f} ms "
+        f"vs one K5 call {t_one:.3f} ms")
+    results["fgt_pairhmm_pb"]["launches"] = launches
+
+
+def run_processes(argvs, log_dir: Path, timeout: float) -> list[str]:
+    """Run the commands together; every process is ended before this
+    returns.  Returns their combined output."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(a, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, env=env,
+                              cwd=str(log_dir))
+             for a in argvs]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=timeout)
+            outs.append(out.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        (log_dir / f"process{i}.log").write_text(out)
+        check(p.returncode == 0,
+              f"process {i} exited {p.returncode}: {out[-2000:]}")
+    return outs
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist(torch, cli, validate, sample, run_dir: Path, work: Path,
+               device: str = "cuda") -> None:
+    """(b): bqsr and htc through the CLI in two gloo processes vs one."""
+    from falcon_genome_tpu_torch.bqsr import RecalTable
+
+    work.mkdir(parents=True, exist_ok=True)
+    common = ["-r", sample.ref, "-f", "-O", "gatk.ncontigs=8",
+              "-O", "gatk.nprocs=1"]
+    dedup = str(run_dir / "dedup.bam")
+
+    def argv(cmd, inp, out, extra=()):
+        return [cmd, "-i", inp, "-o", str(out), *common, *extra]
+
+    t0 = time.time()
+    one = work / "one"
+    one.mkdir(exist_ok=True)
+    for cmd, inp, out, extra in (
+            ("bqsr", dedup, one / "recal.bam", ()),
+            ("htc", str(one / "recal.bam"), one / "calls.vcf", ("-v",))):
+        rc = cli.main(["--device", device, *argv(cmd, inp, out, extra),
+                       "-O", f"log_dir={one / 'log'}"])
+        check(rc == 0, f"single-process {cmd} exited {rc}")
+    t1 = time.time()
+    two = work / "two"
+    two.mkdir(exist_ok=True)
+    logs = []
+    for cmd, inp, out, extra in (
+            ("bqsr", dedup, two / "recal.bam", ()),
+            ("htc", str(one / "recal.bam"), two / "calls.vcf", ("-v",))):
+        port = free_port()
+        logs.append(run_processes([
+            [sys.executable, "-m", "falcon_genome_tpu_torch.cli",
+             "--device", device, *argv(cmd, inp, out, extra),
+             "-O", f"log_dir={two / f'log{i}'}",
+             "-O", "tpu.dist.num_processes=2",
+             "-O", f"tpu.dist.process_id={i}",
+             "-O", f"tpu.dist.coordinator=localhost:{port}"]
+            for i in range(2)], two, 600))
+    t2 = time.time()
+    for outs in logs:
+        for i, out in enumerate(outs):
+            check(f"local to process {i}/2" in out,
+                  f"process {i} logged no task split")
+    ta = RecalTable.load(str(one / "recal.recal.npz"))
+    tb = RecalTable.load(str(two / "recal.recal.npz"))
+    check(all(np.array_equal(getattr(ta, f), getattr(tb, f))
+              for f in ("qual_obs", "qual_err", "cycle_obs", "cycle_err",
+                        "ctx_obs", "ctx_err")),
+          "two-process recal table differs from one process")
+    d = validate.compare_bam(str(one / "recal.bam"), str(two / "recal.bam"),
+                             compare_tags=True)
+    check(d.equivalent, "two-process recalibrated BAM differs")
+    va = validate.vcf_records(str(one / "calls.vcf"))
+    vb = validate.vcf_records(str(two / "calls.vcf"))
+    check(va == vb and len(va) > 0,
+          "two-process VCF records differ from one process")
+    n = max(1, torch.cuda.device_count())
+    say(f"two gloo processes on {device}:{0 % n} and {device}:{1 % n}: "
+        f"bqsr + htc "
+        f"of the 50 kb sample, 8 shards split 4/4 per process; recal table "
+        f"equal ({int(ta.qual_obs.sum())} bases), recalibrated BAM equal "
+        f"({d.matching} records), VCF record-equal ({len(va)} records); "
+        f"one process {t1 - t0:.2f} s, two processes {t2 - t1:.2f} s "
+        f"(process start-up included)")
+
+
+def phase_cards(cli, validate, sample, work: Path, count: int,
+                device: str = "cuda") -> None:
+    """(c), with more than one card: ``germline`` on the 50 kb sample with
+    the CLI's default mesh (every card) against ``-O tpu.mesh.data=1``,
+    run in the order one, mesh, mesh, one after the kernels are built;
+    the outputs are record-equal and both walls are printed."""
+    if count < 2:
+        say("germline mesh over several cards vs one card: skipped, "
+            "1 card visible")
+        return
+    work.mkdir(parents=True, exist_ok=True)
+    out, walls = {}, {"one": [], "mesh": []}
+    for i, tag in enumerate(("one", "mesh", "mesh", "one")):
+        out[tag] = work / f"{tag}{i}.vcf.gz"
+        single = ("-O", "tpu.mesh.data=1") if tag == "one" else ()
+        r = run_germline(cli, sample, out[tag], device,
+                         ("-O", "gatk.nprocs=1", *single))
+        walls[tag].append(r)
+        say(f"50 kb germline, {tag} ({count} cards visible): wall "
+            f"{r['wall']:.3f} s, htc {r['stages']['htc']:.3f} s "
+            f"(stages {json.dumps(r['stages'])})")
+    cmp_ = validate.compare_runs(
+        str(out["one"]) + ".work", str(out["mesh"]) + ".work",
+        str(out["one"]), str(out["mesh"]))
+    check(all(same for same, _ in cmp_["bam"].values())
+          and cmp_["vcf_equivalent"] and cmp_["vcf_non_concordant"] == 0,
+          "germline over the multi-card mesh differs from one card")
+    med = {t: (statistics.median(r["wall"] for r in rs),
+               statistics.median(r["stages"]["htc"] for r in rs))
+           for t, rs in walls.items()}
+    say(f"germline mesh over {count} cards vs one card: record-equal "
+        f"({json.dumps(cmp_)}); median wall {med['mesh'][0]:.3f} s vs "
+        f"{med['one'][0]:.3f} s, htc {med['mesh'][1]:.3f} s vs "
+        f"{med['one'][1]:.3f} s")
 
 
 def main() -> int:
@@ -374,16 +707,24 @@ def main() -> int:
         so = _build.build()
         _build.load()
         report = so.with_name(so.stem + ".ptxas.txt").read_text()
-        regs = [ln.split("ptxas info    : ")[-1] for ln in report.splitlines()
-                if "registers" in ln]
-        say(f"kernels built in {time.time() - t0:.1f} s → {so.name}; "
-            f"ptxas: {'; '.join(regs)}")
+        say(f"kernels built in {time.time() - t0:.1f} s → {so.name} "
+            f"(one nvcc per source, in parallel); ptxas -v:")
+        for row in ptxas_summary(report):
+            say(f"  {row}")
 
         results: dict[str, dict] = {}
-        phase_kernels(torch, S, P, results)
+        k5_args = phase_kernels(torch, S, P, results)
         work = REPO / "build" / "chip_smoke"
         shutil.rmtree(work, ignore_errors=True)
-        phase_germline(torch, cli, S, P, validate, work, results)
+        sample, run_dir = phase_germline(torch, cli, S, P, validate, work,
+                                         results)
+        t6 = time.time()
+        count = torch.cuda.device_count()
+        phase_mesh(torch, P, validate, sample, run_dir, k5_args, results,
+                   [torch.device("cuda", i % count) for i in range(4)])
+        phase_dist(torch, cli, validate, sample, run_dir, work / "dist")
+        phase_cards(cli, validate, sample, work / "cards", count)
+        say(f"phase 6 (multi-device) {time.time() - t6:.1f} s")
         shutil.rmtree(work, ignore_errors=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

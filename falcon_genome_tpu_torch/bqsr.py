@@ -1,11 +1,12 @@
 """Base-quality score recalibration (BQSR): covariate histogram + remap.
 
-Port of ``falcon_genome_tpu/bqsr.py``, its single-device host path: the
-hot loop is a pure reduction — a segmented histogram of (observations,
-errors) over covariate bins — counted on the host (the fgio extension's
-one-pass histogram, else ``np.bincount``), and the gather step of the
-reference (BQSRGatherWorker merging per-contig tables,
-BQSRWorker.cpp:111-150) is exactly ``+`` on the histogram arrays.
+Port of ``falcon_genome_tpu/bqsr.py``: the hot loop is a pure reduction
+— a segmented histogram of (observations, errors) over covariate bins —
+counted on the host (the fgio extension's one-pass histogram, else
+``np.bincount``; under an active device mesh, split over its devices and
+summed), and the gather step of the reference (BQSRGatherWorker merging
+per-contig tables, BQSRWorker.cpp:111-150) is exactly ``+`` on the
+histogram arrays.
 
 Covariates (GATK's standard set):
   * read group
@@ -488,8 +489,14 @@ def apply_bqsr_columns(cols, model: "RecalModel",
 
 def accumulate_table(cov: dict[str, np.ndarray],
                      read_groups: list[str]) -> RecalTable:
-    """Histogram the covariate arrays into a RecalTable (host bincount:
-    integer counts and f64 error sums, exact)."""
+    """Histogram the covariate arrays into a RecalTable (integer counts
+    and f64 error sums, exact).
+
+    Single device: host bincount.  Under an active multi-device mesh the
+    histogram splits over the mesh's devices and the per-device tables
+    are summed (``parallel.sharded_bqsr_histogram``, the reference's
+    psum); the qual-level tables are the cycle tables' marginals (every
+    base lands in exactly one cycle bin).  Both give the same table."""
     nrg = max(1, len(read_groups))
     n = len(cov["rg"])
     if n == 0:
@@ -502,6 +509,20 @@ def accumulate_table(cov: dict[str, np.ndarray],
     # the deterministic "top bin" semantics instead
     qual = np.minimum(cov["qual"].astype(np.int64), MAX_QUAL - 1)
     err = cov["is_error"].astype(np.float64)
+    from .parallel.mesh import get_active_mesh
+    mesh = get_active_mesh()
+    if mesh is not None and mesh.size > 1:
+        import torch
+
+        from .parallel.sharded import sharded_bqsr_histogram
+        cyc_obs, cyc_err, ctx_obs, ctx_err = (
+            t.cpu().numpy() for t in sharded_bqsr_histogram(mesh, nrg)(
+                *(torch.from_numpy(np.ascontiguousarray(a, np.int64))
+                  for a in (rg, qual, cov["cycle"], cov["context"])),
+                torch.from_numpy(err)))
+        return RecalTable(read_groups or ["default"],
+                          cyc_obs.sum(axis=2), cyc_err.sum(axis=2),
+                          cyc_obs, cyc_err, ctx_obs, ctx_err)
     qf = rg * MAX_QUAL + qual
 
     def hist(key, size):

@@ -9,6 +9,14 @@ internal error 255).  One global option is added:
   ``cuda`` without a card is an error (exit 1), never a move to the CPU;
   ``cpu`` runs the kernels' plain PyTorch versions.
 
+Before a command that runs kernels, the device mesh comes up as in the
+reference (``parallel.mesh.initialize_from_conf``): one process shards
+over every visible card (``tpu.mesh.*``); several processes
+(``-O tpu.dist.num_processes=N -O tpu.dist.process_id=i
+-O tpu.dist.coordinator=host:port``, or the matching
+``FCS_TPU__DIST__*`` environment variables) join one ``gloo`` group and
+split each stage's tasks; process i runs on ``cuda:(i % device_count)``.
+
 Ported: align, markdup, bqsr, htc, germline.  Every other subcommand of
 the reference exits with the invalid-parameter code: not yet ported.
 """
@@ -37,6 +45,9 @@ COMMANDS = {
     "htc": "call germline variants with the HaplotypeCaller model",
     "germline": "one-command germline pipeline (align → markdup → bqsr → htc)",
 }
+# commands whose stages launch kernels: they bring up the device mesh
+# and the process group first (the reference's DEVICE_COMMANDS)
+DEVICE_COMMANDS = {"align", "bqsr", "htc", "germline"}
 NOT_PORTED = ("baserecal", "printreads", "mutect2", "indel", "joint", "ug",
               "gatk", "depth", "vcf_filter", "concat", "conf")
 
@@ -62,6 +73,12 @@ def dispatch(args: argparse.Namespace, conf, device: torch.device) -> None:
         conf.set(k, v)
 
     cmd = args.command
+    if cmd in DEVICE_COMMANDS:
+        from .parallel.mesh import initialize_from_conf, process_device
+        initialize_from_conf(conf, device)
+        device = process_device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
     if cmd == "align":
         stages.run_align(conf, args.ref, args.output,
                          fastq1=args.fastq1, fastq2=args.fastq2,
@@ -117,7 +134,12 @@ def main(argv: list[str] | None = None) -> int:
             raise InvalidParam(f"unknown command {argv[0]!r}")
         conf = config_mod.init()
         args = build_parser().parse_args(argv)
-        dispatch(args, conf, resolve_device(ns.device))
+        try:
+            dispatch(args, conf, resolve_device(ns.device))
+        finally:
+            from .parallel.mesh import set_active_mesh, shutdown
+            set_active_mesh(None)
+            shutdown()
         return 0
     except (HelpRequest, SilentExit) as e:
         msg = str(e)

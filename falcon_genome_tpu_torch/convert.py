@@ -10,7 +10,10 @@ packages compute from identical state:
   nested ones included; a reference ``backend`` field becomes the given
   ``torch.device``;
 * the genome (int8 codes), padded read tables and the BQSR
-  recalibration table as tensors on a given device.
+  recalibration table as tensors on a given device;
+* the reference's time-major example batch of its sharded steps
+  (``parallel.sharded.make_example_batch``) as the port's lane-major
+  tensors, and a ``jax.sharding.Mesh``'s shape as a ``MeshSpec``.
 
 The reference objects are read by attribute only; nothing here imports
 the reference's JAX modules.
@@ -31,6 +34,7 @@ from .ops.pairhmm import PairHMMParams
 from .ops.smith_waterman import PairPolicy, SWBucket, device_genome, \
     device_reads
 from .ops.sw_ref import SWParams
+from .parallel.mesh import MeshSpec
 
 # port class of each nested dataclass field, by field name
 _NESTED = {"index": IndexParams, "sw": SWParams, "active": ActiveRegionParams,
@@ -99,3 +103,27 @@ def recal_tensors(table, device: torch.device) -> dict[str, torch.Tensor]:
                                            np.float64)).to(device)
             for f in ("qual_obs", "qual_err", "cycle_obs", "cycle_err",
                       "ctx_obs", "ctx_err")}
+
+
+def example_batch(ref_batch, device: torch.device
+                  ) -> tuple[torch.Tensor, ...]:
+    """The reference's sharded-step batch → the port's.
+
+    In: (read (R, B), base_q, ins_q, del_q, gcp (R, B) phreds, rlen
+    (1, B), hlen (1, B), hap (H, B), then the flat covariates rg, qual,
+    cycle, context, is_error).  Out: read (B, R) uint8, phred planes
+    (B, R) uint8, rlen/hlen (B,) int32, hap (B, H) uint8, and the
+    covariates unchanged, all on ``device``."""
+    read, bq, iq, dq, gq, rlen, hlen, hap, *cov = (np.asarray(a)
+                                                   for a in ref_batch)
+    lanes = [x.T.astype(np.uint8) for x in (read, bq, iq, dq, gq)]
+    lanes += [rlen[0].astype(np.int32), hlen[0].astype(np.int32),
+              hap.T.astype(np.uint8)]
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (*lanes, *cov))
+
+
+def mesh_spec(ref_mesh) -> MeshSpec:
+    """The (data, region) shape of a reference mesh."""
+    return MeshSpec(data=int(ref_mesh.shape["data"]),
+                    region=int(ref_mesh.shape["region"]))

@@ -1,10 +1,17 @@
-// PairHMM forward likelihood for NVIDIA Hopper (sm_90a), scalar
-// insertion/deletion/gap-continuation penalties (GATK HaplotypeCaller).
+// PairHMM forward likelihood for NVIDIA Hopper (sm_90a).
 //
-// Replaces K4, _pairhmm_kernel_sc of falcon_genome_tpu/ops/pairhmm.py
-// (the Pallas kernel both HTC entry points reach).  Semantics follow the
-// reference's portable wavefront _pairhmm_jax, which the tests hold this
-// kernel's plain PyTorch twin to:
+// Two entry points share one kernel template:
+//   fgt_pairhmm     replaces K4, _pairhmm_kernel_sc of
+//                   falcon_genome_tpu/ops/pairhmm.py: scalar insertion,
+//                   deletion and gap-continuation penalties (GATK
+//                   HaplotypeCaller runs 45/45/gcp);
+//   fgt_pairhmm_pb  replaces K5, _pairhmm_kernel of the same file: per-base
+//                   p_ins, p_del, p_cont planes (B, R), as BQSR's BI/BD
+//                   tags give them.
+// Semantics follow the reference's portable wavefront _pairhmm_jax, which
+// the tests hold the kernels' plain PyTorch twin to.  Every transition is
+// indexed by the DESTINATION row i (a_mm = 1 - min(1, p_ins + p_del) and
+// a_im = 1 - p_cont per row, in float32):
 //   M(i,j) = prior * (M(i-1,j-1) a_mm + (I(i-1,j-1) + D(i-1,j-1)) a_im)
 //   I(i,j) = M(i-1,j) p_ins + I(i-1,j) p_cont
 //   D(i,j) = M(i,j-1) p_del + D(i,j-1) p_cont
@@ -32,6 +39,10 @@
 // so the state lives in registers); the warp sweeps anti-diagonals and
 // passes the only cross-thread values -- the last row's M, I, D -- to the
 // next thread with __shfl_up_sync.  The haplotype sits in shared memory.
+// K5 keeps each thread's rows' five transition constants in registers
+// beside the state; a pad row past rlen (phred 0: p_ins = p_cont = 1,
+// a_mm = a_im = 0) is computed like any other row, as in the plain version,
+// so its overflow reaches the rescale test the same way.
 // The rescale test is a warp max-reduction with shuffles, at the same
 // diagonals and with the same threshold and factor as the reference; no
 // float64 anywhere.
@@ -49,14 +60,21 @@ __device__ __forceinline__ float flush(float x) {
   return fabsf(x) < kFltMin ? 0.0f : x;
 }
 
-template <int NR>
+// Transition constants: scalars (K4) or (B, R) probability planes (K5).
+struct Trans {
+  float p_ins, p_del, p_cont, a_mm, a_im;
+  const float* ins;  // planes; null for K4
+  const float* del;
+  const float* cont;
+};
+
+template <int NR, bool kPerBase>
 __global__ void __launch_bounds__(kWarps * 32)
 pairhmm_kernel(const uint8_t* __restrict__ read,
                const float* __restrict__ p_err,
                const int* __restrict__ rlen, const uint8_t* __restrict__ hap,
-               const int* __restrict__ hlen, int B, int R, int H,
-               float p_ins, float p_del, float p_cont, float a_mm,
-               float a_im, float* __restrict__ acc_out,
+               const int* __restrict__ hlen, int B, int R, int H, Trans tr,
+               float* __restrict__ acc_out,
                float* __restrict__ shift_out) {
   extern __shared__ uint8_t hs_all[];
   const int lane = threadIdx.x & 31;
@@ -76,15 +94,25 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   int rc[NR];
   float pm[NR], pmm[NR];
   float M1[NR], I1[NR], D1[NR], M2[NR], I2[NR], D2[NR];
+  // K5's per-row constants (unused, and eliminated, for K4)
+  float ti[NR], td[NR], tc[NR], tmm[NR], tim[NR];
 #pragma unroll
   for (int k = 0; k < NR; ++k) {
     const int r = lane * NR + k;
     const bool row = r < R;
-    const float pe = row ? p_err[(size_t)b * R + r] : 0.0f;
-    rc[k] = row ? (int)read[(size_t)b * R + r] : 4;
+    const size_t at = (size_t)b * R + r;
+    const float pe = row ? p_err[at] : 0.0f;
+    rc[k] = row ? (int)read[at] : 4;
     pm[k] = 1.0f - pe;
     pmm[k] = pe / 3.0f;
     M1[k] = I1[k] = D1[k] = M2[k] = I2[k] = D2[k] = 0.0f;
+    if constexpr (kPerBase) {
+      ti[k] = row ? tr.ins[at] : 0.0f;
+      td[k] = row ? tr.del[at] : 0.0f;
+      tc[k] = row ? tr.cont[at] : 0.0f;
+      tmm[k] = 1.0f - fminf(1.0f, ti[k] + td[k]);
+      tim[k] = 1.0f - tc[k];
+    }
   }
   float bound = 0x1p120f / fmaxf((float)hl, 1.0f);
   float acc = 0.0f, sh = 0.0f;
@@ -122,6 +150,11 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
         const int c = hs[min(j, H) - 1];
         const bool match = rc[k] == c || rc[k] >= 4 || c >= 4;
         const float prior = match ? pm[k] : pmm[k];
+        const float p_ins = kPerBase ? ti[k] : tr.p_ins;
+        const float p_del = kPerBase ? td[k] : tr.p_del;
+        const float p_cont = kPerBase ? tc[k] : tr.p_cont;
+        const float a_mm = kPerBase ? tmm[k] : tr.a_mm;
+        const float a_im = kPerBase ? tim[k] : tr.a_im;
         Mn[k] = flush(prior * (m2u * a_mm + (i2u + d2u) * a_im));
         In[k] = flush(m1u * p_ins + i1u * p_cont);
         Dn[k] = flush(M1[k] * p_del + D1[k] * p_cont);
@@ -180,27 +213,51 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   }
 }
 
-template <int NR>
+template <int NR, bool kPerBase>
 int launch_pairhmm(const void* read, const void* p_err, const void* rlen,
                    const void* hap, const void* hlen, int B, int R, int H,
-                   float p_ins, float p_del, float p_cont, float a_mm,
-                   float a_im, void* acc_out, void* shift_out,
+                   const Trans& tr, void* acc_out, void* shift_out,
                    void* stream) {
   const size_t smem = (size_t)kWarps * H;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        pairhmm_kernel<NR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        pairhmm_kernel<NR, kPerBase>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int grid = (B + kWarps - 1) / kWarps;
   if (grid > 0) {
-    pairhmm_kernel<NR><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)read, (const float*)p_err, (const int*)rlen,
-        (const uint8_t*)hap, (const int*)hlen, B, R, H, p_ins, p_del,
-        p_cont, a_mm, a_im, (float*)acc_out, (float*)shift_out);
+    pairhmm_kernel<NR, kPerBase>
+        <<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+            (const uint8_t*)read, (const float*)p_err, (const int*)rlen,
+            (const uint8_t*)hap, (const int*)hlen, B, R, H, tr,
+            (float*)acc_out, (float*)shift_out);
   }
   return (int)cudaGetLastError();
+}
+
+template <bool kPerBase>
+int dispatch_rows(const void* read, const void* p_err, const void* rlen,
+                  const void* hap, const void* hlen, int B, int R, int H,
+                  const Trans& tr, void* acc_out, void* shift_out,
+                  void* stream) {
+  switch ((R + 31) / 32) {
+#define FGT_CASE(N)                                                        \
+  case N:                                                                  \
+    return launch_pairhmm<N, kPerBase>(read, p_err, rlen, hap, hlen, B, R, \
+                                       H, tr, acc_out, shift_out, stream);
+    FGT_CASE(1)
+    FGT_CASE(2)
+    FGT_CASE(3)
+    FGT_CASE(4)
+    FGT_CASE(5)
+    FGT_CASE(6)
+    FGT_CASE(7)
+    FGT_CASE(8)
+#undef FGT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;  // R > 256: the wrapper refuses it
+  }
 }
 
 }  // namespace
@@ -211,23 +268,20 @@ extern "C" int fgt_pairhmm(const void* read, const void* p_err,
                            float p_ins, float p_del, float p_cont,
                            float a_mm, float a_im, void* acc_out,
                            void* shift_out, void* stream) {
-  const int nr = (R + 31) / 32;
-#define FGT_CASE(N)                                                       \
-  case N:                                                                 \
-    return launch_pairhmm<N>(read, p_err, rlen, hap, hlen, B, R, H, p_ins, \
-                             p_del, p_cont, a_mm, a_im, acc_out,          \
-                             shift_out, stream);
-  switch (nr) {
-    FGT_CASE(1)
-    FGT_CASE(2)
-    FGT_CASE(3)
-    FGT_CASE(4)
-    FGT_CASE(5)
-    FGT_CASE(6)
-    FGT_CASE(7)
-    FGT_CASE(8)
-    default:
-      return (int)cudaErrorInvalidValue;  // R > 256: the wrapper refuses it
-  }
-#undef FGT_CASE
+  const Trans tr{p_ins, p_del, p_cont, a_mm, a_im, nullptr, nullptr,
+                 nullptr};
+  return dispatch_rows<false>(read, p_err, rlen, hap, hlen, B, R, H, tr,
+                              acc_out, shift_out, stream);
+}
+
+extern "C" int fgt_pairhmm_pb(const void* read, const void* p_err,
+                              const void* p_ins, const void* p_del,
+                              const void* p_cont, const void* rlen,
+                              const void* hap, const void* hlen, int B,
+                              int R, int H, void* acc_out, void* shift_out,
+                              void* stream) {
+  const Trans tr{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, (const float*)p_ins,
+                 (const float*)p_del, (const float*)p_cont};
+  return dispatch_rows<true>(read, p_err, rlen, hap, hlen, B, R, H, tr,
+                             acc_out, shift_out, stream);
 }

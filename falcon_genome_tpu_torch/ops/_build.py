@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded with ``ctypes``.  The build runs
+The sources compile with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
+per source, all started together, and link into one shared library with a
+plain C interface, loaded with ``ctypes``.  The build runs
 at first use and is keyed on a hash of the sources and flags, so a fresh
 checkout builds everything on its first kernel launch and a stale library
 is never loaded.  Output goes to ``build/torch_kernels/`` at the repository
@@ -28,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
 SOURCES = ("smith_waterman.cu", "pairhmm.cu")
 TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +50,10 @@ SIGNATURES = {
     # a_im, acc_out, shift_out, stream
     "fgt_pairhmm": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
                     _P, _P, _P),
+    # read, p_err, p_ins, p_del, p_cont, rlen, hap, hlen, B, R, H,
+    # acc_out, shift_out, stream
+    "fgt_pairhmm_pb": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                       _P),
 }
 
 
@@ -88,24 +93,42 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless a library of this digest exists."""
+    """Compile the sources unless a library of this digest exists: one
+    ``nvcc -c`` per source in parallel, then one link."""
     so = library_path()
     if so.exists():
         return so
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    report = BUILD_DIR / f"{so.stem}.ptxas.txt"
-    report.write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stderr[-4000:]}")
-    os.replace(tmp, so)
+    tag = f"{os.getpid()}.tmp"
+    objs = [so.with_name(f"{so.stem}-{Path(s).stem}.{tag}.o")
+            for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    tmp = so.with_name(f"{so.name}.{tag}")
+    cmds.append([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds[:-1]]
+        results = []
+        for c, p in zip(cmds, procs):
+            out, err = p.communicate()
+            results.append((c, p.returncode, out, err))
+        if all(rc == 0 for _, rc, _, _ in results):
+            res = subprocess.run(cmds[-1], capture_output=True, text=True)
+            results.append((cmds[-1], res.returncode, res.stdout,
+                            res.stderr))
+        report = BUILD_DIR / f"{so.stem}.ptxas.txt"
+        report.write_text("".join(out + err for _, _, out, err in results))
+        for cmd, rc, _, err in results:
+            if rc != 0:
+                raise KernelBuildError(
+                    f"nvcc failed ({rc}): {' '.join(cmd)}\n{err[-4000:]}")
+        os.replace(tmp, so)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return so
 
 

@@ -1,9 +1,10 @@
 """Batched PairHMM forward likelihood on PyTorch tensors.
 
 Port of ``falcon_genome_tpu/ops/pairhmm.py``: log10 P(read | haplotype)
-per read x haplotype pair, GATK's forward model with constant insertion,
-deletion and gap-continuation penalties (HaplotypeCaller runs 45/45/gcp)
-and per-base base qualities.
+per read x haplotype pair, GATK's forward model with per-base base
+qualities and insertion, deletion and gap-continuation penalties that
+are either constants (HaplotypeCaller runs 45/45/gcp) or per-base planes
+(BQSR's BI/BD tags).
 
 The forward runs in float32 from the initial condition 2^120 / hap_len,
 with the reference's per-pair rescaling (x 2^100 every 64 anti-diagonals
@@ -13,12 +14,14 @@ backends do, so a pair whose mass underflows float32 anyway floors to
 -inf, as in the reference; callers floor every likelihood at the read's
 best minus a cap.
 
-:func:`pairhmm_sc` is the kernel wrapper (kernel K4,
-``csrc/pairhmm.cu``): CPU tensors run the plain version
+Two kernel wrappers (``csrc/pairhmm.cu``): :func:`pairhmm_sc` (kernel K4,
+scalar transitions) and :func:`pairhmm_pb` (kernel K5, per-base
+transition planes).  CPU tensors run the plain version
 (:func:`_pairhmm_plain`, the twin of the reference's ``_pairhmm_jax``),
-CUDA tensors launch the kernel or raise.  Per-base insertion/deletion
-qualities (the reference's general kernel) are not ported yet; the entry
-points here take scalar transition qualities only.
+CUDA tensors launch the kernel or raise.  :func:`pairhmm_logp` routes as
+the reference does: all three transitions scalar → K4, any of them a
+plane → K5 with the scalars broadcast to planes; under an active device
+mesh (``parallel.mesh``) it splits the pairs over the mesh's devices.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ MAX_PAIRS_PER_CALL = 8192
 MAX_KERNEL_READ_LEN = 256        # 32 lanes x 8 rows per lane
 
 # kernel launches since the last reset
-LAUNCHES = {"fgt_pairhmm": 0}
+LAUNCHES = {"fgt_pairhmm": 0, "fgt_pairhmm_pb": 0}
 _launch_lock = threading.Lock()
 
 
@@ -190,27 +193,67 @@ def pairhmm_sc(read, base_q, rlen, hap, hlen, ins_q: int, del_q: int,
         if t.dtype != dt or t.device != read.device:
             raise TypeError(f"pairhmm_sc: expected {dt} on {read.device}")
     dev = read.device
-    read, hap, rlen, hlen = (t.contiguous() for t in (read, hap, rlen, hlen))
-    p_err = _phred_to_prob(base_q).contiguous()
-    acc = torch.empty(B, dtype=torch.float32, device=dev)
-    sh = torch.empty(B, dtype=torch.float32, device=dev)
-    err = _build.load().fgt_pairhmm(
-        read.data_ptr(), p_err.data_ptr(), rlen.data_ptr(), hap.data_ptr(),
-        hlen.data_ptr(), B, R, H, *_transitions(ins_q, del_q, gcp),
-        acc.data_ptr(), sh.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "fgt_pairhmm")
-    with _launch_lock:
-        LAUNCHES["fgt_pairhmm"] += 1
-    return _finish(acc, sh)
+    with torch.cuda.device(dev):
+        read, hap, rlen, hlen = (t.contiguous()
+                                 for t in (read, hap, rlen, hlen))
+        p_err = _phred_to_prob(base_q).contiguous()
+        acc = torch.empty(B, dtype=torch.float32, device=dev)
+        sh = torch.empty(B, dtype=torch.float32, device=dev)
+        err = _build.load().fgt_pairhmm(
+            read.data_ptr(), p_err.data_ptr(), rlen.data_ptr(),
+            hap.data_ptr(), hlen.data_ptr(), B, R, H,
+            *_transitions(ins_q, del_q, gcp), acc.data_ptr(), sh.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "fgt_pairhmm")
+        with _launch_lock:
+            LAUNCHES["fgt_pairhmm"] += 1
+        return _finish(acc, sh)
 
 
-def _scalar_phred(name: str, q) -> int:
-    if np.ndim(q) != 0:
-        raise ValueError(
-            f"{name}: per-base transition qualities are not ported yet; "
-            "pass a scalar phred")
-    return int(q)
+def pairhmm_pb(read, base_q, ins_q, del_q, gcp, rlen, hap, hlen
+               ) -> torch.Tensor:
+    """PairHMM with per-base transition phreds (kernel K5).
+
+    Lane-major inputs on one device: read (B, R) uint8 codes; base_q,
+    ins_q, del_q, gcp (B, R) uint8 phreds; rlen (B,) int32; hap (B, H)
+    uint8; hlen (B,) int32.  Returns (B,) float32 log10 likelihoods on
+    that device."""
+    B, R = read.shape
+    H = hap.shape[1]
+    planes = (base_q, ins_q, del_q, gcp)
+    if any(q.shape != (B, R) for q in planes) or hap.shape[0] != B or \
+            rlen.shape != (B,) or hlen.shape != (B,):
+        raise ValueError("pairhmm_pb: inconsistent shapes")
+    if read.device.type == "cpu":
+        return _pairhmm_plain(read.T, base_q.T, ins_q.T, del_q.T, gcp.T,
+                              rlen[None], hlen[None], hap.T, R=R, H=H)
+    if read.device.type != "cuda":
+        raise ValueError(f"no PairHMM kernel for device {read.device}")
+    if R > MAX_KERNEL_READ_LEN:
+        raise ValueError(f"pairhmm_pb: read bucket {R} exceeds the "
+                         f"kernel's {MAX_KERNEL_READ_LEN} rows")
+    for t, dt in ((read, torch.uint8), (hap, torch.uint8),
+                  (rlen, torch.int32), (hlen, torch.int32),
+                  *((q, torch.uint8) for q in planes)):
+        if t.dtype != dt or t.device != read.device:
+            raise TypeError(f"pairhmm_pb: expected {dt} on {read.device}")
+    dev = read.device
+    with torch.cuda.device(dev):
+        read, hap, rlen, hlen = (t.contiguous()
+                                 for t in (read, hap, rlen, hlen))
+        p_err, p_ins, p_del, p_cont = (_phred_to_prob(q).contiguous()
+                                       for q in planes)
+        acc = torch.empty(B, dtype=torch.float32, device=dev)
+        sh = torch.empty(B, dtype=torch.float32, device=dev)
+        err = _build.load().fgt_pairhmm_pb(
+            read.data_ptr(), p_err.data_ptr(), p_ins.data_ptr(),
+            p_del.data_ptr(), p_cont.data_ptr(), rlen.data_ptr(),
+            hap.data_ptr(), hlen.data_ptr(), B, R, H, acc.data_ptr(),
+            sh.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "fgt_pairhmm_pb")
+        with _launch_lock:
+            LAUNCHES["fgt_pairhmm_pb"] += 1
+        return _finish(acc, sh)
 
 
 def _padded(x, rows: int, cols: int, fill: int, device) -> torch.Tensor:
@@ -220,17 +263,31 @@ def _padded(x, rows: int, cols: int, fill: int, device) -> torch.Tensor:
     return torch.from_numpy(out).to(device)
 
 
+def _is_plane(q) -> bool:
+    return np.ndim(q) != 0
+
+
+def _plane(q, rows: int, cols: int, device) -> torch.Tensor:
+    """A quality phred as a (rows, cols) uint8 plane on ``device``: a
+    scalar fills every row (the reference broadcasts it to the bucket),
+    an array is padded with phred 0 (the reference's blob padding)."""
+    if not _is_plane(q):
+        return torch.full((rows, cols), int(q), dtype=torch.uint8,
+                          device=device)
+    return _padded(q, rows, cols, 0, device)
+
+
 def pairhmm_logp(read_codes, base_q, ins_q, del_q, gcp, read_lens,
                  hap_codes, hap_lens,
                  params: PairHMMParams = PairHMMParams()) -> np.ndarray:
     """log10 P(read | hap) for a batch of pairs.
 
-    Batch-major host arrays: reads (B, R') codes and base-quality phreds,
-    haps (B, H'), per-pair lengths; ins_q/del_q/gcp scalar phreds.  Reads
-    and haps are padded to the bucket (N codes, quality 0), as the
-    reference does."""
-    ins_q, del_q, gcp = (_scalar_phred(n, q) for n, q in (
-        ("ins_q", ins_q), ("del_q", del_q), ("gcp", gcp)))
+    Batch-major host arrays: reads (B, R') codes, haps (B, H'), per-pair
+    lengths; base_q/ins_q/del_q/gcp each a scalar phred or a (B, R')
+    phred array.  Reads and haps are padded to the bucket (N codes), quality
+    planes with phred 0, as the reference does; calls hold at most 8192
+    pairs.  All transitions scalar → kernel K4, else K5.  Under an active
+    mesh each call's pairs split evenly over the mesh's devices."""
     B, Rin = read_codes.shape
     Hin = hap_codes.shape[1]
     R, H = params.max_read_len, params.max_hap_len
@@ -238,18 +295,40 @@ def pairhmm_logp(read_codes, base_q, ins_q, del_q, gcp, read_lens,
         raise ValueError(f"read bucket {Rin} exceeds {R}")
     if Hin > H:
         raise ValueError(f"hap bucket {Hin} exceeds {H}")
+    from ..parallel.mesh import get_active_mesh, lane_splits
+    trans = (ins_q, del_q, gcp)
+    per_base = any(_is_plane(q) for q in trans)
+    mesh = get_active_mesh()
+    devices = mesh.flat if mesh is not None else [params.device]
+    parts = []
+    for s0 in range(0, B, MAX_PAIRS_PER_CALL):
+        chunk = lane_splits(min(B, s0 + MAX_PAIRS_PER_CALL) - s0,
+                            len(devices))
+        for dev, (s, e) in zip(devices, chunk):
+            s, e = s0 + s, s0 + e
+            if e == s:
+                continue
+
+            def cut(q):     # scalar phreds pass through unsliced
+                return q[s:e] if _is_plane(q) else q
+
+            n = e - s
+            read = _padded(read_codes[s:e], n, R, 4, dev)
+            bq = _plane(cut(base_q), n, R, dev)
+            rl = torch.from_numpy(np.asarray(read_lens[s:e], np.int32)).to(
+                dev)
+            hap = _padded(hap_codes[s:e], n, H, 4, dev)
+            hl = torch.from_numpy(np.asarray(hap_lens[s:e], np.int32)).to(
+                dev)
+            if per_base:
+                logp = pairhmm_pb(read, bq, *(_plane(cut(q), n, R, dev)
+                                              for q in trans), rl, hap, hl)
+            else:
+                logp = pairhmm_sc(read, bq, rl, hap, hl,
+                                  *(int(q) for q in trans))
+            parts.append((s, e, logp))
     out = np.zeros(B, np.float32)
-    dev = params.device
-    for s in range(0, B, MAX_PAIRS_PER_CALL):
-        e = min(B, s + MAX_PAIRS_PER_CALL)
-        n = e - s
-        logp = pairhmm_sc(
-            _padded(read_codes[s:e], n, R, 4, dev),
-            _padded(base_q[s:e], n, R, 0, dev),
-            torch.from_numpy(np.asarray(read_lens[s:e], np.int32)).to(dev),
-            _padded(hap_codes[s:e], n, H, 4, dev),
-            torch.from_numpy(np.asarray(hap_lens[s:e], np.int32)).to(dev),
-            ins_q, del_q, gcp)
+    for s, e, logp in parts:     # launches on every device, then gather
         out[s:e] = logp.cpu().numpy()
     return out
 
@@ -266,10 +345,20 @@ def pairhmm_logp_pairs(reads, quals, read_lens, haps, hap_lens,
     the (B, R) / (B, H) pair tiles are gathered on the device.
     reads (NR, R') codes, quals (NR, R') phreds, haps (NH, H'),
     read_lens (NR,), hap_lens (NH,), pair_read/pair_hap (B,) with
-    B <= 8192 (callers chunk)."""
+    B <= 8192 (callers chunk).  Under an active mesh the pairs are
+    expanded and go through :func:`pairhmm_logp`."""
     B = len(pair_read)
     if B == 0:
         return np.zeros(0, np.float32)
+    from ..parallel.mesh import get_active_mesh
+    if get_active_mesh() is not None:
+        # the index tables cannot split over lanes: expand the pairs on the
+        # host and split them over the mesh (the reference does the same)
+        pr = np.asarray(pair_read)
+        ph = np.asarray(pair_hap)
+        return pairhmm_logp(reads[pr], quals[pr], ins_q, del_q, gcp,
+                            np.asarray(read_lens)[pr], haps[ph],
+                            np.asarray(hap_lens)[ph], params)
     if B > MAX_PAIRS_PER_CALL:
         raise ValueError("pairhmm_logp_pairs: chunk pairs to <= 8192")
     NR, Rin = reads.shape

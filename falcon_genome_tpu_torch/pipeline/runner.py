@@ -20,7 +20,10 @@ Semantics carried over from the reference's Executor (src/Executor.cpp):
 
 Concurrency is a thread pool (tasks are IO + device-dispatch bound; the
 GIL is released inside native code); ``nprocs`` mirrors
-``gatk.<stage>.nprocs``.
+``gatk.<stage>.nprocs``.  Under several processes (``tpu.dist.*``) each
+process owns a stage's tasks round-robin by index when every task has an
+output, runs them under ``use_mesh(None)``, and after an end-of-stage
+barrier adopts its peers' artifacts from the shared file system.
 
 Port of ``falcon_genome_tpu/pipeline/runner.py``.
 """
@@ -41,6 +44,7 @@ from falcon_genome_tpu.utils.common import rss_suffix
 from falcon_genome_tpu.utils.errors import FailedCommand
 from falcon_genome_tpu.utils.logutils import find_error
 
+from ..parallel.mesh import process_info, sync_processes, use_mesh
 
 log = logging.getLogger("falcon_genome_tpu")
 
@@ -116,25 +120,45 @@ class PipelineRunner:
             # hand the deterministic artifacts to downstream gather steps
             return (list(s.outputs)
                     if len(s.outputs) == len(s.tasks) else [])
+        # multi-process scatter: each process owns tasks round-robin by
+        # index and picks up its peers' artifacts from the shared file
+        # system after the end-of-stage barrier (the reference's per-host
+        # task dispatch, src/Executor.cpp:231-267).  Needs per-task outputs.
+        pid, pcount = process_info()
+        dist = (pcount > 1 and len(s.tasks) > 1
+                and all(t.output is not None for t in s.tasks))
         t0 = time.time()
         ts = int(t0)
-        log.info("[%s] %s: %d task(s), %d worker(s)", self.name, s.name,
-                 len(s.tasks), s.nprocs)
+        n_local = sum(1 for i in range(len(s.tasks))
+                      if not dist or i % pcount == pid)
+        log.info("[%s] %s: %d task(s), %d worker(s)%s",
+                 self.name, s.name, len(s.tasks), s.nprocs,
+                 (f" ({n_local} local to process {pid}/{pcount})"
+                  if dist else ""))
         log_paths: dict[int, Path] = {}
         if self.log_dir:
             Path(self.log_dir).mkdir(parents=True, exist_ok=True)
 
         n_resumed = 0
+        peer = object()
 
         def run_task(i: int, t: Task):
             nonlocal n_resumed
+            if dist and i % pcount != pid:
+                return peer        # a peer process owns this task
             if (not self.force and t.output is not None
                     and Path(t.output).exists()):
                 n_resumed += 1
                 return t.output
             t_start = time.time()
             try:
-                out = t.fn()
+                if dist:
+                    # each process computes its own tasks on its own
+                    # device (the mesh is thread-local: set per task)
+                    with use_mesh(None):
+                        out = t.fn()
+                else:
+                    out = t.fn()
             except Exception:
                 tb = traceback.format_exc()
                 if self.log_dir:
@@ -172,6 +196,15 @@ class PipelineRunner:
                    if n_resumed else "")
         log.info("[%s] %s finishes in %d seconds%s%s", self.name, s.name,
                  int(elapsed), resumed, rss_suffix())
+        if dist and not errors:
+            # barrier, then adopt peers' artifacts from the shared FS
+            sync_processes(f"{self.name}:{s.name}")
+            for i, t in enumerate(s.tasks):
+                if results[i] is peer:
+                    if not Path(t.output).exists():
+                        errors.append((t.label, f"peer artifact missing: "
+                                                f"{t.output}"))
+                    results[i] = t.output
         if errors:
             # operative diagnosis: scrape the per-task logs, de-duplicated
             # across shards (Executor.cpp:74-99 + LogUtils::findError)

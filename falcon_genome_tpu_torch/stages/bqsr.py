@@ -11,7 +11,8 @@ the ``.bai`` stream (BamInputSource), covariates extract vectorized
 (bqsr.extract_covariates_columns), and ApplyBQSR rewrites the qual blob in
 one vectorized remap — no per-record/per-base Python in the hot path.
 
-Port of ``falcon_genome_tpu/stages/bqsr.py``: host code, single process.
+Port of ``falcon_genome_tpu/stages/bqsr.py``: host code.  Under several
+processes the runner splits the shard scatter and the primary gathers.
 """
 from __future__ import annotations
 

@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 
 from falcon_genome_tpu.io import native_ext
+from falcon_genome_tpu.io.bam import read_bam_columns
 from falcon_genome_tpu.io.dna import decode_seq
 from falcon_genome_tpu.io.fasta import write_fasta
 from falcon_genome_tpu.io.vcf import read_vcf
@@ -181,6 +182,29 @@ def score_calls(vcf_path: str, sample: Sample) -> dict[str, float]:
         snp_sensitivity=len(snp_hit) / max(1, len(sample.snps)),
         indel_sensitivity=len(indel_hit) / max(1, len(sample.indels)),
         precision=good / max(1, len(calls)))
+
+
+def bam_covariates(bam_path: str, ref_path: str):
+    """A BAM's record columns and BQSR covariates (no known sites), as
+    ``baserecal`` extracts them: ``(columns, covariates, read_groups)``."""
+    from .bqsr import extract_covariates_columns
+    from .stages.common import load_fasta
+    header, cols = read_bam_columns(bam_path)
+    fa = load_fasta(ref_path)
+    ref_by_tid = {i: fa.contig_codes(name)
+                  for i, (name, _) in enumerate(header.contigs)}
+    rgs = [rg["ID"] for rg in header.read_groups] or ["default"]
+    covs = extract_covariates_columns(cols, ref_by_tid, None,
+                                      {g: i for i, g in enumerate(rgs)})
+    return cols, covs, rgs
+
+
+def vcf_records(path: str) -> list[tuple]:
+    """A VCF's records as comparable tuples (contig, pos, ref, alts,
+    qual, samples)."""
+    _, recs = read_vcf(path)
+    return [(r.contig, r.pos, r.ref, tuple(r.alts), r.qual, r.samples)
+            for r in recs]
 
 
 def compare_runs(work_a: str, work_b: str, vcf_a: str, vcf_b: str

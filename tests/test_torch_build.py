@@ -43,7 +43,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
-@pytest.mark.parametrize("op", ["sw_score", "sw_full", "pairhmm"])
+@pytest.mark.parametrize("op", ["sw_score", "sw_full", "pairhmm",
+                                "pairhmm_pb"])
 def test_wrappers_refuse_non_cuda_devices(op):
     meta = torch.device("meta")
     if op == "pairhmm":
@@ -53,6 +54,14 @@ def test_wrappers_refuse_non_cuda_devices(op):
             torch.zeros(4, dtype=torch.int32, device=meta)]
         with pytest.raises(ValueError, match="no PairHMM kernel"):
             pairhmm.pairhmm_sc(*t, 45, 45, 10)
+        return
+    if op == "pairhmm_pb":
+        t = [torch.zeros((4, 8), dtype=torch.uint8, device=meta)] * 5 + [
+            torch.zeros(4, dtype=torch.int32, device=meta),
+            torch.zeros((4, 16), dtype=torch.uint8, device=meta),
+            torch.zeros(4, dtype=torch.int32, device=meta)]
+        with pytest.raises(ValueError, match="no PairHMM kernel"):
+            pairhmm.pairhmm_pb(*t)
         return
     read = torch.zeros((4, 8), dtype=torch.int8, device=meta)
     lens = torch.zeros(4, dtype=torch.int32, device=meta)
@@ -102,3 +111,20 @@ def test_convert_arrays():
     for f in ("qual_obs", "qual_err", "cycle_obs", "cycle_err", "ctx_obs",
               "ctx_err"):
         assert np.array_equal(ten[f].numpy(), getattr(jt, f))
+
+
+def test_chip_smoke_imports_only_the_port():
+    """``chip_smoke.py`` reaches the reference's host modules only through
+    the port: it imports neither ``jax`` nor ``falcon_genome_tpu``."""
+    import ast
+    from pathlib import Path
+    src = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    names = []
+    for node in ast.walk(ast.parse(src.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    top = {n.split(".")[0] for n in names}
+    assert "falcon_genome_tpu_torch" in top
+    assert not top & {"jax", "jaxlib", "falcon_genome_tpu"}, sorted(top)

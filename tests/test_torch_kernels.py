@@ -91,6 +91,44 @@ def rescale_pairs(seed, n, R, H):
     return reads, q, rl, haps, hl
 
 
+def indel_planes(seed, rl, R):
+    """Per-base transition phreds as BQSR's BI/BD tags give them:
+    insertion and deletion phreds 25-45 varying along each read, gap
+    continuation 10; rows past the read's length are phred 0 (the pad
+    value of the reference's blob: p_ins = p_cont = 1, a_mm = a_im = 0)."""
+    rng = np.random.default_rng(seed)
+    B = len(rl)
+    ins = rng.integers(25, 46, (B, R)).astype(np.uint8)
+    dele = rng.integers(25, 46, (B, R)).astype(np.uint8)
+    gcp = np.full((B, R), GCP, np.uint8)
+    pad = np.arange(R)[None, :] >= rl[:, None]
+    for x in (ins, dele, gcp):
+        x[pad] = 0
+    return ins, dele, gcp
+
+
+def pad_row_pairs(seed, n, R, H):
+    """Pairs that only the rescale keeps finite, with per-base transitions
+    and pad rows.  Quality-0 reads of R-10 to R-1 bases (the rows past
+    rlen are phred 0) against haplotypes of 12-20 bases: every path runs
+    ~140 rows through the insertion state at gap continuation phred 5, so
+    the state falls below 2^-60 and is rescaled.  The live band of a
+    diagonal is one haplotype wide, so no cell that carries mass reaches
+    the subnormal flush: float32 stays within ~1e-5 of float64.  Returns
+    (reads, q, ins, del, gcp, rlen, haps, hlen)."""
+    rng = np.random.default_rng(seed)
+    reads = np.ones((n, R), np.uint8)
+    q = np.zeros((n, R), np.uint8)
+    rl = rng.integers(R - 10, R, n).astype(np.int32)
+    hl = rng.integers(12, 21, n).astype(np.int32)
+    haps = np.zeros((n, H), np.uint8)
+    for b in range(n):
+        haps[b, hl[b]:] = 4
+    ins, dele, gcp = indel_planes(seed + 1, rl, R)
+    gcp[gcp > 0] = 5
+    return reads, q, ins, dele, gcp, rl, haps, hl
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -129,3 +167,19 @@ def test_pairhmm_kernel_matches_plain_on_card(cuda_device):
     np.testing.assert_array_equal(np.isfinite(got), fin)
     np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-4)
     assert fin[512:-1].all() and not fin[-1]   # rescaled; subnormal
+
+
+@pytest.mark.cuda
+def test_pairhmm_pb_kernel_matches_plain_on_card(cuda_device):
+    reads, q, rl, haps, hl = make_pairs(7, 512, 160, 384)
+    planes = indel_planes(8, rl, 160)
+    cr, cq, ci, cd, cg, crl, chp, chl = pad_row_pairs(9, 64, 160, 384)
+    args = [torch.from_numpy(np.concatenate(x)) for x in (
+        (reads, cr), (q, cq), (planes[0], ci), (planes[1], cd),
+        (planes[2], cg), (rl, crl), (haps, chp), (hl, chl))]
+    want = P.pairhmm_pb(*args).numpy()
+    got = P.pairhmm_pb(*[a.to(cuda_device) for a in args]).cpu().numpy()
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-4)
+    assert fin[512:].all()
