@@ -13,7 +13,8 @@ Phases (each prints its numbers; any failure exits non-zero):
 3. kernels vs their plain PyTorch versions on the card at the main
    path's shapes: Smith-Waterman K1-K3 bit-equal, PairHMM K4 (scalar
    transitions) and K5 (per-base transition planes) within 1e-4 log10
-   with the same -inf lanes; median times of both;
+   with the same -inf lanes, also on quality-0 rescue pairs whose mass
+   passes through float32's subnormal range; median times of both;
 4. ``germline`` end to end through the CLI (``--device cuda``) on a
    simulated 1 Mb contig at 30x (150 bp pairs), with per-stage wall time,
    reads/s, kernel launch counts (each must be > 0) and call accuracy
@@ -30,15 +31,25 @@ Phases (each prints its numbers; any failure exits non-zero):
    VCF records; (c) only where more than one card is visible (``chiprun
    --chips 4``), ``germline`` on 50 kb with the CLI's default mesh over
    every card against one card (``-O tpu.mesh.data=1``): record-equal,
-   with both walls.
+   with both walls;
+7. the benchmark path: kernel K6 (the FMA ceiling) bit-equal to its plain
+   version on random inputs, its FFMA count per trip in the built library's
+   SASS (``cuobjdump``) and its rate at most 105% of the card's published
+   float32 peak; kernel K7 (the Smith-Waterman ablation) bit-equal to its
+   plain version in all four variants, its base equal to K1; then
+   ``python -m falcon_genome_tpu_torch.bench`` (its JSON line is printed)
+   and the ablation script, each through its ``main``.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
-or outside a checkout of the repository, it exits non-zero and prints no
-result.
+The line before the last is a JSON object with one entry per kernel (its
+launches on its path, error against the plain version, kernel, plain and
+bound times); the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or outside a checkout of the repository, it exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import logging
 import os
@@ -66,7 +77,25 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
                     "falcon_genome_tpu/ops/pairhmm.py:238"),
     "fgt_pairhmm_pb": ("falcon_genome_tpu_torch/csrc/pairhmm.cu",
                        "falcon_genome_tpu/ops/pairhmm.py:79"),
+    "fgt_fma_ceiling": ("falcon_genome_tpu_torch/csrc/bench_kernels.cu",
+                        "bench.py:161"),
+    "fgt_sw_score_ablate": ("falcon_genome_tpu_torch/csrc/bench_kernels.cu",
+                            "benchmarks/ablate_sw.py:25"),
 }
+# Published peaks of one H100 SXM at its 700 W limit: float32 outside the
+# tensor cores (NVIDIA's data sheet) and HBM3.  For int32 the issue
+# limit: one warp instruction per SM sub-partition per clock, 128 lanes
+# per SM (integer adds, moves and IMADs also run on the FMA pipe, beside
+# the 64 INT32 lanes), x 132 SMs x 1.98 GHz.
+PEAK_F32 = 67e12
+PEAK_INT32 = 128 * 132 * 1.98e9
+PEAK_BYTES = 3.35e12
+# operations per cell counted from the sources: Smith-Waterman E 3, F 3,
+# substitution 2, H 4 (csrc/smith_waterman.cu, bench_kernels.cu);
+# PairHMM M 5 (add, mul, fma, mul), I 3, D 3, an FMA counted as two
+# (csrc/pairhmm.cu)
+SW_OPS_PER_CELL = 12
+PAIRHMM_FLOPS_PER_CELL = 11
 
 
 class SmokeFailure(Exception):
@@ -107,6 +136,22 @@ def ptxas_summary(report: str) -> list[str]:
                 r[0] = re.sub(r"\(.*\)$", "", d.replace(
                     "(anonymous namespace)::", ""))
     return [f"{n}: {v}" for n, v in rows]
+
+
+def bound(nbytes: float, ops: float, rate: float) -> dict:
+    """The least time the card could take: the bytes the function must
+    move over the memory rate, or its operations over ``rate``,
+    whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / rate
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def sw_cells(rl, wl, R: int, W: int) -> int:
+    """Cells a score sweep needs: min(rlen, R) x min(wlen, W) per lane."""
+    rl = np.minimum(rl.cpu().numpy().astype(np.int64), R)
+    wl = np.minimum(wl.cpu().numpy().astype(np.int64), W)
+    return int((rl * wl).sum())
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -221,7 +266,10 @@ def phase_kernels(torch, S, P, results) -> None:
     t_p = cuda_ms(torch, lambda: S._plain_scan(read, rl, win, wl, p), 2)
     say(f"K1 fgt_sw_score R=160 W=256 B=8192: bit-equal scores+bestpos, "
         f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
-    results["fgt_sw_score"] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p)
+    results["fgt_sw_score"] = dict(
+        max_abs_err=err, ms=t_k, plain_ms=t_p,
+        **bound(read.numel() + win.numel() + 16 * read.shape[0],
+                SW_OPS_PER_CELL * sw_cells(rl, wl, 160, 256), PEAK_INT32))
 
     # K2 + K3: aligner winners, mate rescue, HaplotypeCaller hap → ref
     shapes = [
@@ -255,19 +303,29 @@ def phase_kernels(torch, S, P, results) -> None:
         t2p = cuda_ms(torch, lambda: S._plain_scan(read, rl, win, wl, p), 1)
         t3p = cuda_ms(torch, lambda: S._traceback_core(
             pptr, pbest[0], ppos[0], max_steps=steps), 1)
+        # K2 writes (R + W) * R pointer bytes per lane; K3 reads one
+        # pointer byte per step it walks (the 2-bit ops it emits)
+        packed = kout[0].cpu().numpy()
+        walked = int(sum(((packed >> s) & 3 != 0).sum() for s in (0, 2, 4, 6)))
+        b2 = bound(read.numel() + win.numel() + 16 * B + (R + W) * R * B,
+                   SW_OPS_PER_CELL * sw_cells(rl, wl, R, W), PEAK_INT32)
+        b3 = bound(walked + packed.size + 24 * B, 0, PEAK_INT32)
         say(f"K2+K3 {label} R={R} W={W} B={B} params={tuple(vars(p).values())}"
             f": bit-equal best, bestpos, op streams, coords; "
-            f"K2 kernel {t2:.3f} ms plain {t2p:.3f} ms; "
-            f"K3 kernel {t3:.3f} ms plain {t3p:.3f} ms "
-            f"(max_steps {steps}, mapped {int((kbest > 0).sum())}/{B})")
-        k2.append((e2, t2, t2p))
-        k3.append((e3, t3, t3p))
+            f"K2 kernel {t2:.3f} ms plain {t2p:.3f} ms bound "
+            f"{b2['bound_ms']:.3f} ms; K3 kernel {t3:.3f} ms plain "
+            f"{t3p:.3f} ms bound {b3['bound_ms']:.4f} ms "
+            f"(max_steps {steps}, {walked} steps walked, mapped "
+            f"{int((kbest > 0).sum())}/{B})")
+        k2.append((e2, t2, t2p, b2))
+        k3.append((e3, t3, t3p, b3))
         del kptr, pptr
     # the aligner-winner shape is the main path's; the others are printed
-    results["fgt_sw_full"] = dict(max_abs_err=max(e for e, _, _ in k2),
-                                  ms=k2[0][1], plain_ms=k2[0][2])
-    results["fgt_sw_traceback"] = dict(max_abs_err=max(e for e, _, _ in k3),
-                                       ms=k3[0][1], plain_ms=k3[0][2])
+    results["fgt_sw_full"] = dict(max_abs_err=max(k[0] for k in k2),
+                                  ms=k2[0][1], plain_ms=k2[0][2], **k2[0][3])
+    results["fgt_sw_traceback"] = dict(max_abs_err=max(k[0] for k in k3),
+                                       ms=k3[0][1], plain_ms=k3[0][2],
+                                       **k3[0][3])
 
     # K4: HaplotypeCaller PairHMM, R=160, H=384, 8192 pairs, 45/45/10
     B, R, H = 8192, 160, 384
@@ -316,7 +374,12 @@ def phase_kernels(torch, S, P, results) -> None:
         f"unrelated, {inf_related} -inf among related); {n_resc} pairs "
         f"finite only through rescaling; kernel {t4:.3f} ms,"
         f" plain {t4p:.3f} ms")
-    results["fgt_pairhmm"] = dict(max_abs_err=e4, ms=t4, plain_ms=t4p)
+    cells = int((rlen.astype(np.int64) * hl).sum())
+    results["fgt_pairhmm"] = dict(
+        max_abs_err=e4, ms=t4, plain_ms=t4p,
+        **bound(2 * B * R + B * H + 12 * B, PAIRHMM_FLOPS_PER_CELL * cells,
+                PEAK_F32))
+    e_crafted = crafted_pairs(torch, P, rng, R, H, to)
 
     # K5: the same pairs with per-base transition planes; the last 64
     # lanes are pad-row pairs that only the rescale keeps finite
@@ -355,8 +418,63 @@ def phase_kernels(torch, S, P, results) -> None:
         f"{int(fin.sum())} finite pairs; -inf lanes equal: "
         f"{int((~fin).sum())}; {n_craft} crafted pad-row pairs finite, "
         f"-inf without the rescale; kernel {t5:.3f} ms, plain {t5p:.3f} ms")
-    results["fgt_pairhmm_pb"] = dict(max_abs_err=e5, ms=t5, plain_ms=t5p)
+    cells = int((lanes[5].astype(np.int64) * lanes[7]).sum())
+    results["fgt_pairhmm_pb"] = dict(
+        max_abs_err=max(e5, e_crafted), ms=t5, plain_ms=t5p,
+        **bound(5 * B * R + B * H + 12 * B, PAIRHMM_FLOPS_PER_CELL * cells,
+                PEAK_F32))
+    results["fgt_pairhmm"]["max_abs_err"] = max(e4, e_crafted)
     return k5_args
+
+
+def rescale_pairs(rng, n, R, H):
+    """PR 1's quality-0 rescue pairs (tests/test_torch_kernels.
+    rescale_pairs): reads of quality 0 that mismatch every base of a
+    haplotype a little longer than themselves, so the state falls below
+    2^-60, through float32's subnormal range, before the rescale; the
+    last pair's likelihood is subnormal itself."""
+    reads = np.ones((n, R), np.uint8)
+    q = np.zeros((n, R), np.uint8)
+    rl = rng.integers(R - 4, R + 1, n).astype(np.int32)
+    hl = rng.integers(170, 201, n).astype(np.int32)
+    rl[-1], hl[-1] = 155, H
+    haps = np.zeros((n, H), np.uint8)
+    for b in range(n):
+        haps[b, hl[b]:] = 4
+    return reads, q, rl, haps, hl
+
+
+def crafted_pairs(torch, P, rng, R, H, to) -> float:
+    """K4 (45/45/10) and K5 (BI/BD-like planes) on the rescue pairs
+    against their plain versions, which flush every operation as the
+    reference does: within 1e-4 log10, the same -inf lanes."""
+    reads, q, rl, haps, hl = rescale_pairs(rng, 64, R, H)
+    a = to(reads, q, rl, haps, hl)
+    pl = to(*indel_planes(rng, rl, R))
+    worst = 0.0
+    for name, kern, plain in (
+            ("K4 45/45/10", lambda: P.pairhmm_sc(*a, 45, 45, 10),
+             lambda: P._pairhmm_plain(a[0].T, a[1].T, 45, 45, 10,
+                                      a[2][None], a[4][None], a[3].T,
+                                      R=R, H=H)),
+            ("K5 planes", lambda: P.pairhmm_pb(a[0], a[1], *pl, a[2], a[3],
+                                               a[4]),
+             lambda: P._pairhmm_plain(a[0].T, a[1].T, *(x.T for x in pl),
+                                      a[2][None], a[4][None], a[3].T,
+                                      R=R, H=H))):
+        kl, want = kern(), plain()
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want)
+        check(torch.equal(fin, torch.isfinite(kl)),
+              f"{name}: -inf lanes differ on the rescue pairs")
+        check(bool(fin.any()), f"{name}: every rescue pair is -inf")
+        e = float((kl[fin] - want[fin]).abs().max())
+        check(e <= 1e-4, f"{name} differs on the rescue pairs by {e}")
+        say(f"{name} on 64 quality-0 rescue pairs (mass through float32's "
+            f"subnormal range): max |dlog10| {e:.3g} on {int(fin.sum())} "
+            f"finite pairs, -inf lanes equal")
+        worst = max(worst, e)
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -673,6 +791,156 @@ def phase_cards(cli, validate, sample, work: Path, count: int,
         f"{med['one'][1]:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the benchmark path (kernels K6, K7)
+# ---------------------------------------------------------------------------
+
+def sass_ffma_per_trip(so: Path, kernel: str, unroll: int) -> tuple[int, int]:
+    """(FFMAs in the body of ``kernel``'s loop, FFMAs per trip) in the
+    SASS of the built library: the body runs from a backward branch's
+    target to the branch; it holds ``unroll`` trips."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
+    funcs = re.split(r"\n\s*Function : ", res.stdout)
+    body = next((f for f in funcs[1:] if kernel in f.splitlines()[0]), None)
+    check(body is not None, f"no {kernel} in the SASS of {so.name}")
+    ins = [(int(a, 16), t) for a, t in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    loop = 0
+    for addr, text in ins:
+        m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            lo = int(m.group(1), 16)
+            loop = max(loop, sum(1 for a, t in ins if lo <= a <= addr
+                                 and re.search(r"\bFFMA\b", t)))
+    check(loop > 0, f"no loop with FFMAs in {kernel}'s SASS")
+    return loop, loop // unroll
+
+
+def phase_bench(torch, S, BK, results, so: Path, work: Path) -> None:
+    from falcon_genome_tpu_torch import bench
+    from falcon_genome_tpu_torch.benchmarks import ablate_sw
+    from falcon_genome_tpu_torch.ops import pairhmm as P
+    dev = torch.device("cuda")
+
+    # K6 at the bench's shape: K4's (160 rows, 2048 pairs) tile, 272
+    # trips; random x, so a wrong row, lane or chain update shows
+    R, B, trips = bench.BUCKET_R, bench.B, bench.fma_trips()
+    x = torch.from_numpy(np.random.default_rng(6).uniform(
+        0.5, 2.0, (R, B)).astype(np.float32)).to(dev)
+    got = BK.fma_ceiling(x, trips)
+    want = BK._fma_ceiling_plain(x, trips)
+    torch.cuda.synchronize()
+    e6 = float((got - want).abs().max())
+    check(torch.equal(got, want),
+          f"K6 differs from its plain version by {e6}")
+    body, per_trip = sass_ffma_per_trip(so, "fma_ceiling_kernel",
+                                        BK.FMA_UNROLL)
+    check(per_trip >= BK.FMA_CHAINS,
+          f"K6's loop issues {per_trip} FFMAs per trip, not "
+          f"{BK.FMA_CHAINS}: the chains were folded")
+    t6 = cuda_ms(torch, lambda: BK.fma_ceiling(x, trips), 20)
+    t6p = cuda_ms(torch, lambda: BK._fma_ceiling_plain(x, trips), 2)
+    flops = BK.fma_ceiling_flops(R, B, trips)
+    rate = flops / (t6 / 1e3)
+    check(rate <= 1.05 * PEAK_F32,
+          f"K6 measured {rate / 1e12:.1f} TFLOP/s, above 105% of the "
+          f"{PEAK_F32 / 1e12:.0f} TFLOP/s float32 peak")
+    say(f"K6 fgt_fma_ceiling R={R} B={B} trips={trips}, x uniform in "
+        f"[0.5, 2): bit-equal to the plain version; {body} FFMAs in the "
+        f"loop body, {per_trip} per trip; "
+        f"kernel {t6:.4f} ms = {rate / 1e12:.2f} TFLOP/s "
+        f"({rate / PEAK_F32:.1%} of {PEAK_F32 / 1e12:.0f}), plain "
+        f"{t6p:.3f} ms")
+    results["fgt_fma_ceiling"] = dict(
+        max_abs_err=e6, ms=t6, plain_ms=t6p,
+        **bound(4 * R * B + 4 * B, flops, PEAK_F32))
+
+    # K7 at the ablation's shape, every variant, against the plain sweep
+    # on the same card
+    args = ablate_sw.inputs(np.random.default_rng(0), dev)
+    read, rlen, win, wlen = args
+    p = S.SWParams()
+    k1 = S.sw_score(*args, p)
+    flags = dict(no_best=False, no_mask=False, no_window=False)
+
+    def plain7(kw):
+        return BK._sw_ablate_plain(read.T.int(), rlen[None], win.T.int(),
+                                   wlen[None], p, **{**flags, **kw})
+
+    cells = (ablate_sw.R + ablate_sw.W) * ablate_sw.R * ablate_sw.B
+    for name, kw in ablate_sw.VARIANTS:
+        ks, kp = BK.sw_score_ablate(*args, p, **kw)
+        ps, pp = plain7(kw)
+        torch.cuda.synchronize()
+        check(torch.equal(ks, ps) and torch.equal(kp, pp),
+              f"K7 {name} differs from its plain version")
+        if name == "base":
+            check(torch.equal(ks, k1[0]) and torch.equal(kp, k1[1]),
+                  "K7 base differs from K1")
+        t7 = cuda_ms(torch, lambda kw=kw: BK.sw_score_ablate(*args, p, **kw),
+                     10)
+        t7p = cuda_ms(torch, lambda kw=kw: plain7(kw), 1)
+        say(f"K7 fgt_sw_score_ablate {name} R={ablate_sw.R} W={ablate_sw.W}"
+            f" B={ablate_sw.B}: bit-equal to the plain sweep"
+            f"{' and to K1' if name == 'base' else ''}; kernel {t7:.3f} ms,"
+            f" plain {t7p:.3f} ms")
+        if name == "base":
+            results["fgt_sw_score_ablate"] = dict(
+                max_abs_err=0, ms=t7, plain_ms=t7p,
+                **bound(read.numel() + win.numel() + 16 * ablate_sw.B,
+                        SW_OPS_PER_CELL * cells, PEAK_INT32))
+
+    # the entry points, each through its main, with the counts at 0
+    for d in (S.LAUNCHES, P.LAUNCHES, BK.LAUNCHES):
+        for k in d:
+            d[k] = 0
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--work", str(work)])
+    torch.cuda.synchronize()
+    check(rc == 0, f"python -m falcon_genome_tpu_torch.bench exited {rc}")
+    line = out.getvalue().strip().splitlines()[-1]
+    res = json.loads(line)
+    ex = res["extras"]
+    check(res["metric"] == "pairhmm_forward_gcups" and res["value"] > 0
+          and res["backend"] == "cuda"
+          and res["device"] == torch.cuda.get_device_name(0)
+          and all(ex[k] > 0 for k in ("sw_score_gcups",
+                                      "align_pair_reads_per_s",
+                                      "fma_ceiling_gflops", "pairhmm_mfu")),
+          f"the bench's JSON line lacks a metric: {line}")
+    check(ex["germline_e2e_sensitivity"] >= 0.98
+          and ex["align_pair_mapped_frac"] >= 0.98,
+          f"the bench's runs lost accuracy: {line}")
+    launches = {k: n for d in (S.LAUNCHES, P.LAUNCHES, BK.LAUNCHES)
+                for k, n in d.items() if n}
+    check(BK.LAUNCHES["fgt_fma_ceiling"] > 0
+          and BK.LAUNCHES["fgt_sw_score_ablate"] == 0,
+          f"the bench did not launch K6 alone of the bench kernels: "
+          f"{launches}")
+    results["fgt_fma_ceiling"]["launches"] = BK.LAUNCHES["fgt_fma_ceiling"]
+    say(f"bench ({time.time() - t0:.1f} s, kernel launches {launches}):")
+    say(line)
+
+    for k in BK.LAUNCHES:
+        BK.LAUNCHES[k] = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = ablate_sw.main()
+    torch.cuda.synchronize()
+    check(rc == 0, f"the ablation script exited {rc}")
+    n7 = BK.LAUNCHES["fgt_sw_score_ablate"]
+    check(n7 > 0, "the ablation script did not launch K7")
+    results["fgt_sw_score_ablate"]["launches"] = n7
+    say(f"ablation (K7 launches {n7}):")
+    for ln in out.getvalue().strip().splitlines():
+        say(f"  {ln}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -682,6 +950,7 @@ def main() -> int:
     try:
         from falcon_genome_tpu_torch import cli, validate
         from falcon_genome_tpu_torch.ops import _build
+        from falcon_genome_tpu_torch.ops import bench_kernels as BK
         from falcon_genome_tpu_torch.ops import pairhmm as P
         from falcon_genome_tpu_torch.ops import smith_waterman as S
     except ImportError as e:
@@ -726,15 +995,21 @@ def main() -> int:
         phase_cards(cli, validate, sample, work / "cards", count)
         say(f"phase 6 (multi-device) {time.time() - t6:.1f} s")
         shutil.rmtree(work, ignore_errors=True)
+        t7 = time.time()
+        work.mkdir(parents=True)
+        phase_bench(torch, S, BK, results, so, work)
+        shutil.rmtree(work, ignore_errors=True)
+        say(f"phase 7 (benchmark path) {time.time() - t7:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     say(f"chip_smoke total {time.time() - t_start:.1f} s")
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by")
+    # no single PyTorch call computes any of these functions
     say(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,
-             launches=results[k]["launches"],
-             max_abs_err=results[k]["max_abs_err"], ms=results[k]["ms"],
-             plain_ms=results[k]["plain_ms"])
+             **{f: results[k][f] for f in keys}, library_ms=None)
         for k, (src, rep) in KERNELS.items()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,14 +14,16 @@ What runs where:
   use (``ops/_build.py``); each has a plain PyTorch version beside it,
   which runs for tensors that lie on the CPU;
 * seeding, chaining, pairing, duplicate marking, BQSR, assembly and
-  genotyping are host code (numpy, plus the reference's ``fgio`` C++
-  extension through ``falcon_genome_tpu.io.native_ext``);
+  genotyping are host code (numpy, plus the ``fgio`` C++ extension of
+  ``native/`` through ``io.native_ext``);
 * a ``torch.device`` chosen at the entry point (``cli --device``) is
   threaded down to every op; nothing probes for a default backend.
 
-The package imports ``torch`` and never ``jax``.  Of the reference it
-imports only its jax-free host modules: ``io``, ``config``, ``utils``,
-``samples``, ``bamops`` and ``cli.build_parser``.
+The package imports ``torch`` and never ``jax``, and nothing of
+``falcon_genome_tpu``: the host modules it shares with the reference
+(``io``, ``config``, ``utils``, ``samples``, ``bamops`` and the CLI's
+``build_parser``) are copies under the same relative paths, cut to what
+the port reaches.
 """
 
 __version__ = "0.1.0"

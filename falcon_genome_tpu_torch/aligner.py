@@ -19,10 +19,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from falcon_genome_tpu.io import native_ext
-from falcon_genome_tpu.io.columns import RecordColumns
-from falcon_genome_tpu.io.dna import _COMP_LUT, BASE_N, revcomp_codes
-from falcon_genome_tpu.io.sam import (
+from .io import native_ext
+from .io.columns import RecordColumns
+from .io.dna import _COMP_LUT, BASE_N, revcomp_codes
+from .io.sam import (
     CIGAR_D, CIGAR_I, CIGAR_M, CIGAR_S,
     FLAG_MATE_REVERSE, FLAG_MATE_UNMAPPED, FLAG_PAIRED,
     FLAG_PROPER_PAIR, FLAG_READ1, FLAG_READ2, FLAG_REVERSE, FLAG_UNMAPPED,

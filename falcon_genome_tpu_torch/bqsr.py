@@ -235,7 +235,7 @@ def read_gatk_report(path: str) -> RecalTable:
 def _rg_array(cols, idx: np.ndarray,
               rg_index: dict[str, int] | None) -> np.ndarray:
     """Per-record read-group index for the records in ``idx``."""
-    from falcon_genome_tpu.io.columns import tag_string_values
+    from .io.columns import tag_string_values
     if not rg_index or len(rg_index) <= 1:
         return np.zeros(len(idx), np.int32)
     vals = tag_string_values(cols, b"RG", idx=idx)
@@ -269,11 +269,11 @@ def baserecal_shard_table(cols, ref_codes_by_tid: dict[int, np.ndarray],
     when the extension is built (~40× the numpy expansion at WGS shard
     scale), else the chunked python extraction.  Both paths produce
     identical tables (test-gated)."""
-    from falcon_genome_tpu.io import native_ext
+    from .io import native_ext
 
     rgs = read_groups or ["default"]
     if native_ext.available() and ref_codes_by_tid and len(cols):
-        from falcon_genome_tpu.io.columns import (F_FLAG, F_LSEQ, F_QSTAR, F_TID,
+        from .io.columns import (F_FLAG, F_LSEQ, F_QSTAR, F_TID,
                                  qual_phred_blob, seq_codes_blob)
         refcat, tid_ok, tid_len, tid_off, max_tid = _ref_layout(
             ref_codes_by_tid)
@@ -337,7 +337,7 @@ def extract_covariates_columns(cols,
 
     Skips unmapped/dup/secondary/supplementary reads, soft-clipped and N
     bases, quals < MIN_USABLE_QUAL, and known-site positions."""
-    from falcon_genome_tpu.io.columns import (
+    from .io.columns import (
         F_FLAG, F_LSEQ, F_QSTAR, F_TID, expand_match_bases, qual_phred_blob,
         seq_codes_blob)
 
@@ -431,7 +431,7 @@ def apply_bqsr_columns(cols, model: "RecalModel",
                        preserve_below: int | None = None):
     """Vectorized ApplyBQSR on RecordColumns: one recalibrate() over every
     base of every record, written back into a fresh qual blob."""
-    from falcon_genome_tpu.io.columns import (
+    from .io.columns import (
         F_FLAG, F_LSEQ, F_QSTAR, qual_phred_blob, seq_codes_blob)
 
     f = cols.fixed
@@ -439,7 +439,7 @@ def apply_bqsr_columns(cols, model: "RecalModel",
     if len(sel) == 0:
         return cols
 
-    from falcon_genome_tpu.io import native_ext
+    from .io import native_ext
     if native_ext.available():
         # lookup-table fast path: one gather per base in C (the numpy
         # expansion below — the correctness reference — materialises

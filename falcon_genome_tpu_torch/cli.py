@@ -1,7 +1,7 @@
 """CLI of the port: ``python -m falcon_genome_tpu_torch.cli [--device D] <cmd>``.
 
-The subcommands, their options and the exit-code policy are the
-reference's (``falcon_genome_tpu.cli.build_parser``; helpRequest 0,
+The subcommands, their options (:func:`build_parser`, a copy of the
+reference's) and the exit-code policy are the reference's (helpRequest 0,
 invalidParam 1, argparse error 2, fileNotFound 3, failedCommand 4,
 internal error 255).  One global option is added:
 
@@ -28,13 +28,10 @@ import sys
 
 import torch
 
-from falcon_genome_tpu import config as config_mod
-from falcon_genome_tpu.cli import build_parser
-from falcon_genome_tpu.utils.errors import (
-    FGError, HelpRequest, InvalidParam, SilentExit, exit_code_for)
-
-from . import __version__
+from . import __version__, config as config_mod
 from .device import resolve_device
+from .utils.errors import (
+    FGError, HelpRequest, InvalidParam, SilentExit, exit_code_for)
 
 log = logging.getLogger("falcon_genome_tpu")
 
@@ -61,6 +58,139 @@ def print_help() -> None:
     for name, desc in COMMANDS.items():
         print(f"  {name:12s} {desc}")
     print(f"\nNot yet ported: {', '.join(NOT_PORTED)}")
+
+
+def _base(p: argparse.ArgumentParser, ref=True, output=True):
+    if ref:
+        p.add_argument("-r", "--ref", required=True, help="reference FASTA")
+    if output:
+        p.add_argument("-o", "--output", required=True)
+    p.add_argument("-f", "--force", action="store_true",
+                   help="overwrite outputs")
+    p.add_argument("-O", "--option", action="append", default=[],
+                   metavar="KEY=VALUE", help="config override")
+    p.add_argument("--extra-options", action="append", default=[],
+                   help="per-tool flag overrides, GATK-style "
+                   "(e.g. \"-ERC NONE -stand_call_conf 30\"); "
+                   "override-wins vs stage defaults")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="falcon-genome-tpu", add_help=False)
+    sub = ap.add_subparsers(dest="command")
+
+    p = sub.add_parser("align")
+    _base(p)
+    p.add_argument("-1", "--fastq1")
+    p.add_argument("-2", "--fastq2")
+    p.add_argument("-F", "--sample-sheet")
+    p.add_argument("-S", "--sample-id", default="sample")
+    p.add_argument("-R", "--rg", default="rg0", help="read group id")
+    p.add_argument("-L", "--library", default="lib0")
+    p.add_argument("-P", "--platform", default="illumina")
+    p.add_argument("--disable-merge", action="store_true")
+    p.add_argument("--num-buckets", type=int, default=0)
+    p.add_argument("--long-reads", action="store_true",
+                   help="minimap-class long-read alignment "
+                        "(gap-cost chaining, single-end records)")
+
+    p = sub.add_parser("markdup")
+    _base(p, ref=False)
+    p.add_argument("-i", "--input", required=True)
+
+    for name in ("baserecal", "printreads", "bqsr"):
+        p = sub.add_parser(name)
+        _base(p)
+        p.add_argument("-i", "--input", required=True)
+        p.add_argument("-K", "--knownSites", action="append", default=[])
+        if name == "printreads":
+            p.add_argument("-b", "--bqsr", required=True,
+                           help="recalibration table path")
+
+    p = sub.add_parser("htc")
+    _base(p)
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-v", "--produce-vcf", action="store_true")
+    p.add_argument("-L", "--intervals")
+    p.add_argument("-S", "--sample-id", default="SAMPLE")
+
+    p = sub.add_parser("mutect2")
+    _base(p)
+    p.add_argument("-t", "--tumor", required=True)
+    p.add_argument("-n", "--normal")
+    p.add_argument("-L", "--intervals")
+    p.add_argument("--skip-filter", action="store_true")
+    # resource surface (ref worker-mutect2.cpp:64-72)
+    p.add_argument("-d", "--dbsnp", action="append", default=[])
+    p.add_argument("-c", "--cosmic", action="append", default=[])
+    p.add_argument("-m", "--germline")
+    p.add_argument("-p", "--panels_of_normals", "--panel-of-normals",
+                   dest="panels_of_normals")
+    p.add_argument("--contamination_table", "--contamination-table",
+                   dest="contamination_table")
+    p.add_argument("-a", "--normal_name", default="NORMAL")
+    p.add_argument("-b", "--tumor_name", default="TUMOR")
+
+    p = sub.add_parser("indel")
+    _base(p)
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-K", "--knownSites", action="append", default=[])
+
+    p = sub.add_parser("joint")
+    _base(p)
+    p.add_argument("-i", "--input-dir", required=True)
+
+    p = sub.add_parser("ug")
+    _base(p)
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-L", "--intervals")
+    p.add_argument("-S", "--sample-id", default="SAMPLE")
+
+    p = sub.add_parser("gatk")
+    p.add_argument("gatk_args", nargs=argparse.REMAINDER)
+
+    p = sub.add_parser("depth")
+    _base(p)
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-L", "--intervals")
+    p.add_argument("-S", "--sample-id", default="SAMPLE")
+    # ref worker-depth.cpp:29-35
+    p.add_argument("-g", "--geneList", dest="gene_list")
+    p.add_argument("-b", "--omitBaseOutput", dest="omit_base",
+                   action="store_true", default=None,
+                   help="omit per-base coverage output")
+    p.add_argument("--emitBaseOutput", dest="omit_base",
+                   action="store_false",
+                   help="write per-base coverage (large)")
+    p.add_argument("-v", "--omitIntervals", dest="omit_intervals",
+                   action="store_true")
+    p.add_argument("-s", "--omitSampleSummary", dest="omit_summary",
+                   action="store_true")
+
+    p = sub.add_parser("vcf_filter")
+    _base(p)
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("--filter-expression", required=True)
+    p.add_argument("--filter-name", default="FILTERED")
+
+    p = sub.add_parser("germline")
+    _base(p)
+    p.add_argument("-1", "--fastq1")
+    p.add_argument("-2", "--fastq2")
+    p.add_argument("-F", "--sample-sheet")
+    p.add_argument("-S", "--sample-id", default="sample")
+    p.add_argument("-R", "--rg", default="rg0")
+    p.add_argument("-v", "--produce-vcf", action="store_true")
+    p.add_argument("--long-reads", action="store_true",
+                   help="minimap-class long-read alignment (the fast-"
+                        "germline driver's Minimap2Worker path)")
+
+    p = sub.add_parser("concat")
+    _base(p, ref=False)
+    p.add_argument("-i", "--input-dir", required=True)
+
+    sub.add_parser("conf")
+    return ap
 
 
 def dispatch(args: argparse.Namespace, conf, device: torch.device) -> None:

@@ -13,10 +13,13 @@ packages compute from identical state:
   recalibration table as tensors on a given device;
 * the reference's time-major example batch of its sharded steps
   (``parallel.sharded.make_example_batch``) as the port's lane-major
-  tensors, and a ``jax.sharding.Mesh``'s shape as a ``MeshSpec``.
+  tensors, and a ``jax.sharding.Mesh``'s shape as a ``MeshSpec``;
+* host objects of the modules the port keeps its own copies of: a
+  ``Config`` (its machine and every value set on it), ``SamRecord``s
+  and ``RecordColumns``.
 
 The reference objects are read by attribute only; nothing here imports
-the reference's JAX modules.
+the reference.
 """
 from __future__ import annotations
 
@@ -27,6 +30,9 @@ import torch
 
 from .aligner import AlignerParams, IndexParams
 from .bqsr import RecalTable
+from .config import Config, Machine
+from .io.columns import RecordColumns
+from .io.sam import SamRecord
 from .models.activeregion import ActiveRegionParams
 from .models.assembly import AssemblyParams
 from .models.haplotypecaller import HTCParams
@@ -127,3 +133,35 @@ def mesh_spec(ref_mesh) -> MeshSpec:
     """The (data, region) shape of a reference mesh."""
     return MeshSpec(data=int(ref_mesh.shape["data"]),
                     region=int(ref_mesh.shape["region"]))
+
+
+def config(ref) -> Config:
+    """A reference ``Config`` as the port's: the same machine, root and
+    temp directories, hosts, and every value it holds (from the
+    environment and conf files, and set explicitly), as they stand."""
+    c = Config(root_dir=ref.root_dir,
+               machine=Machine(ref.machine.cpu_num, ref.machine.memory_gb),
+               environ={}, load_files=False)
+    c._values = dict(ref._values)
+    c._explicit = dict(ref._explicit)
+    c.temp_dir = ref.temp_dir
+    c.host_list = list(ref.host_list)
+    return c
+
+
+def sam_records(refs) -> list[SamRecord]:
+    """Reference ``SamRecord``s as the port's, field by field (tags
+    decoded)."""
+    return [SamRecord(r.qname, r.flag, r.tid, r.pos, r.mapq,
+                      list(r.cigar), r.mtid, r.mpos, r.tlen, r.seq, r.qual,
+                      dict(r.tags))
+            for r in refs]
+
+
+def record_columns(ref) -> RecordColumns:
+    """A reference ``RecordColumns`` as the port's (arrays copied)."""
+    return RecordColumns(**{
+        f.name: (np.array(getattr(ref, f.name))
+                 if isinstance(getattr(ref, f.name), np.ndarray)
+                 else getattr(ref, f.name))
+        for f in dataclasses.fields(RecordColumns)})

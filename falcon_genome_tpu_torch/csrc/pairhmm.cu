@@ -25,8 +25,11 @@
 //   2^100 (state, boundary and acc), the shift kept in log10; a NaN in
 //   that state (0 * inf once the boundary has overflowed) stops it, as
 //   the reference's NaN-propagating max does;
-//   subnormal results are flushed to zero, cell by cell and in acc, as
-//   the reference's backends (XLA on the CPU, the TPU) do.
+//   float32 arithmetic as the reference's CPU backend runs it: every
+//   result subnormal-flushed (this source is built with -ftz=true), and
+//   a * b + c * d as fma(a, b, c * d) with no other contraction (built
+//   with --fmad=false; the FMAs below are explicit), and the mismatch
+//   prior err / 3 as err * float(1/3).
 // The kernel returns acc and the shift; the wrapper forms
 // log10(acc) - shift - 120 log10(2), or -inf where acc is 0.
 //
@@ -54,11 +57,6 @@ namespace {
 constexpr int kWarps = 4;  // pairs (warps) per block
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRescaleEvery = 64;
-constexpr float kFltMin = 0x1p-126f;  // smallest normal float
-
-__device__ __forceinline__ float flush(float x) {
-  return fabsf(x) < kFltMin ? 0.0f : x;
-}
 
 // Transition constants: scalars (K4) or (B, R) probability planes (K5).
 struct Trans {
@@ -104,7 +102,7 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
     const float pe = row ? p_err[at] : 0.0f;
     rc[k] = row ? (int)read[at] : 4;
     pm[k] = 1.0f - pe;
-    pmm[k] = pe / 3.0f;
+    pmm[k] = pe * (1.0f / 3.0f);
     M1[k] = I1[k] = D1[k] = M2[k] = I2[k] = D2[k] = 0.0f;
     if constexpr (kPerBase) {
       ti[k] = row ? tr.ins[at] : 0.0f;
@@ -155,10 +153,10 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
         const float p_cont = kPerBase ? tc[k] : tr.p_cont;
         const float a_mm = kPerBase ? tmm[k] : tr.a_mm;
         const float a_im = kPerBase ? tim[k] : tr.a_im;
-        Mn[k] = flush(prior * (m2u * a_mm + (i2u + d2u) * a_im));
-        In[k] = flush(m1u * p_ins + i1u * p_cont);
-        Dn[k] = flush(M1[k] * p_del + D1[k] * p_cont);
-        if (r + 1 == rl && j <= hl) acc = flush(acc + (Mn[k] + In[k]));
+        Mn[k] = prior * __fmaf_rn(m2u, a_mm, (i2u + d2u) * a_im);
+        In[k] = __fmaf_rn(m1u, p_ins, i1u * p_cont);
+        Dn[k] = __fmaf_rn(M1[k], p_del, D1[k] * p_cont);
+        if (r + 1 == rl && j <= hl) acc += Mn[k] + In[k];
       } else {
         Mn[k] = In[k] = Dn[k] = 0.0f;
       }

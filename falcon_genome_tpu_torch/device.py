@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from falcon_genome_tpu.utils.errors import InvalidParam
+from .utils.errors import InvalidParam
 
 
 class DeviceUnavailable(InvalidParam):

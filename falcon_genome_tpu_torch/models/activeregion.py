@@ -15,8 +15,8 @@ import dataclasses
 
 import numpy as np
 
-from falcon_genome_tpu.io.dna import encode_seq
-from falcon_genome_tpu.io.sam import CIGAR_D, CIGAR_I, CIGAR_M, CIGAR_S, SamRecord
+from ..io.dna import encode_seq
+from ..io.sam import CIGAR_D, CIGAR_I, CIGAR_M, CIGAR_S, SamRecord
 
 
 @dataclasses.dataclass

@@ -121,7 +121,7 @@ def assemble_region(ref: np.ndarray, reads: list[np.ndarray],
     reads = [np.asarray(r, np.uint8) for r in reads]
 
     def once(mult: int) -> AssemblyResult:
-        from falcon_genome_tpu.io import native_ext
+        from ..io import native_ext
         nat = native_ext.assemble_region(
             ref, reads, params.kmer_sizes, mult, params.max_haplotypes)
         if nat is not None:

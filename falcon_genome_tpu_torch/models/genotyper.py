@@ -17,9 +17,9 @@ import itertools
 
 import numpy as np
 
-from falcon_genome_tpu.io.dna import decode_seq
-from falcon_genome_tpu.io.sam import CIGAR_D, CIGAR_I, CIGAR_M, CIGAR_S
-from falcon_genome_tpu.io.vcf import VcfRecord
+from ..io.dna import decode_seq
+from ..io.sam import CIGAR_D, CIGAR_I, CIGAR_M, CIGAR_S
+from ..io.vcf import VcfRecord
 from ..ops.sw_ref import SWResult
 
 

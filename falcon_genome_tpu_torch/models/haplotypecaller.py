@@ -20,9 +20,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from falcon_genome_tpu.io.dna import decode_seq, encode_seq
-from falcon_genome_tpu.io.sam import CIGAR_D, CIGAR_M, SamRecord, cigar_ref_len
-from falcon_genome_tpu.io.vcf import VcfRecord
+from ..io.dna import decode_seq, encode_seq
+from ..io.sam import CIGAR_D, CIGAR_M, SamRecord, cigar_ref_len
+from ..io.vcf import VcfRecord
 
 from ..ops.pairhmm import PairHMMParams, pairhmm_logp, pairhmm_logp_pairs
 from ..ops.smith_waterman import SWBucket, sw_extend_batch
@@ -47,7 +47,7 @@ def clip_read_to_region(rec: SamRecord, rstart: int, rend: int
     without this, the out-of-region tail mismatches every haplotype and
     destroys the likelihood's dynamic range.
     """
-    from falcon_genome_tpu.io.sam import (
+    from ..io.sam import (
         CIGAR_EQ, CIGAR_I as CI, CIGAR_S as CS, CIGAR_X)
     seq, qual = rec.seq, rec.qual
     qlo, qhi = 0, len(seq)

@@ -26,10 +26,14 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
     "torch_kernels"
-SOURCES = ("smith_waterman.cu", "pairhmm.cu")
+SOURCES = ("smith_waterman.cu", "pairhmm.cu", "bench_kernels.cu")
 TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source only: PairHMM flushes every float32 result and
+# contracts no multiply-add the plain version does not fuse; the FMA
+# ceiling (bench_kernels.cu) keeps nvcc's defaults
+SOURCE_FLAGS = {"pairhmm.cu": ("-ftz=true", "--fmad=false")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +58,12 @@ SIGNATURES = {
     # acc_out, shift_out, stream
     "fgt_pairhmm_pb": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                        _P),
+    # x, R, B, trips, a, b, zero, out, stream
+    "fgt_fma_ceiling": (_P, _I, _I, _I, _F, _F, _F, _P, _P),
+    # read, win, rlen, wlen, B, R, W, match, mismatch, go, ge, flags,
+    # score_out, pos_out, stream
+    "fgt_sw_score_ablate": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P, _P, _P),
 }
 
 
@@ -82,6 +92,7 @@ def find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -103,7 +114,8 @@ def build() -> Path:
     tag = f"{os.getpid()}.tmp"
     objs = [so.with_name(f"{so.stem}-{Path(s).stem}.{tag}.o")
             for s in SOURCES]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+    cmds = [[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(s, ()), "-c", "-o",
+             str(o), str(CSRC / s)]
             for s, o in zip(SOURCES, objs)]
     tmp = so.with_name(f"{so.name}.{tag}")
     cmds.append([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])

@@ -9,10 +9,12 @@ are either constants (HaplotypeCaller runs 45/45/gcp) or per-base planes
 The forward runs in float32 from the initial condition 2^120 / hap_len,
 with the reference's per-pair rescaling (x 2^100 every 64 anti-diagonals
 for a pair whose live state has fallen below 2^-60, the shift kept in
-log10).  Subnormal values are flushed to zero, as the reference's
-backends do, so a pair whose mass underflows float32 anyway floors to
--inf, as in the reference; callers floor every likelihood at the read's
-best minus a cap.
+log10).  Every float32 operation flushes a subnormal result to zero and
+fuses multiply-adds where the reference's CPU backend does, so a pair
+whose mass underflows float32 floors to -inf, and a pair whose mass
+passes through the subnormal range loses the same mass, as in the
+reference; callers floor every likelihood at the read's best minus a
+cap.
 
 Two kernel wrappers (``csrc/pairhmm.cu``): :func:`pairhmm_sc` (kernel K4,
 scalar transitions) and :func:`pairhmm_pb` (kernel K5, per-base
@@ -74,9 +76,30 @@ def _transitions(ins_q: int, del_q: int, gcp: int
 def _flush(x: torch.Tensor) -> torch.Tensor:
     """Subnormal float32 values to zero.  The reference's backends (XLA on
     the CPU, the TPU) flush subnormals, so a pair whose mass falls below
-    the smallest normal float32 ends at -inf there; the port flushes every
-    cell and the sum the same way, on any device."""
+    the smallest normal float32 ends at -inf there."""
     return torch.where(x.abs() < FLT_MIN, 0.0, x)
+
+
+# The recurrence's float32 arithmetic as XLA's CPU backend runs the
+# reference's ``_pairhmm_jax``: every result is flushed (FTZ; since no
+# flushed result can be subnormal, later inputs never are, which is DAZ),
+# and ``a * b + c * d`` is one fused multiply-add of the first product
+# onto the rounded second, ``fma(a, b, c * d)``.  The kernels follow the
+# same order with ``-ftz=true --fmad=false`` and explicit FMAs.
+
+def _mul(a, b):
+    return _flush(a * b)
+
+
+def _add(a, b):
+    return _flush(a + b)
+
+
+def _fma(a, b, c):
+    """float32 ``a * b + c`` rounded once: the product is exact in float64
+    and the sum rounds there first (a double rounding that differs from a
+    single one with probability ~2^-29 per operation)."""
+    return _flush((a.double() * b.double() + c.double()).float())
 
 
 def _finish(acc: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
@@ -117,7 +140,8 @@ def _pairhmm_plain(read_codes, base_q, ins_q, del_q, gcp, rlen, hlen,
     zero_row = torch.zeros((1, B), dtype=f32, device=dev)
     zeros = torch.zeros((R, B), dtype=f32, device=dev)
     prior_match = 1.0 - p_err
-    prior_mismatch = p_err / 3.0
+    # XLA divides by the constant 3 as a multiply by float32(1/3)
+    prior_mismatch = p_err * torch.tensor(1.0 / 3.0, dtype=f32, device=dev)
     read_is_n = read_codes >= 4
     last_row = rvec + 1 == rlen
 
@@ -127,7 +151,7 @@ def _pairhmm_plain(read_codes, base_q, ins_q, del_q, gcp, rlen, hlen,
     def cell(x, live):
         # masks select rather than multiply: a rescaled boundary overflows
         # to inf, and inf * 0 must not reach the sums
-        return _flush(torch.where(live, x, 0.0))
+        return torch.where(live, x, 0.0)
 
     m1 = i1 = d1 = m2 = i2 = d2 = zeros
     hapd = torch.zeros((R, B), dtype=torch.int32, device=dev)
@@ -143,14 +167,14 @@ def _pairhmm_plain(read_codes, base_q, ins_q, del_q, gcp, rlen, hlen,
         live = jvec >= 1
         match = (read_codes == hapd) | read_is_n | (hapd >= 4)
         prior = torch.where(match, prior_match, prior_mismatch)
-        m_new = cell(prior * (shift(m2, zero_row) * a_mm
-                              + (shift(i2, zero_row) + shift(d2, bound))
-                              * a_im), live)
-        i_new = cell(shift(m1, zero_row) * p_ins
-                     + shift(i1, zero_row) * p_cont, live)
-        d_new = cell(m1 * p_del + d1 * p_cont, live)
+        gap2 = _add(shift(i2, zero_row), shift(d2, bound))
+        m_new = cell(_mul(prior, _fma(shift(m2, zero_row), a_mm,
+                                      _mul(gap2, a_im))), live)
+        i_new = cell(_fma(shift(m1, zero_row), p_ins,
+                          _mul(shift(i1, zero_row), p_cont)), live)
+        d_new = cell(_fma(m1, p_del, _mul(d1, p_cont)), live)
         amask = last_row & live & (jvec <= hlen)
-        acc = _flush(acc + torch.where(amask, m_new + i_new, 0.0).sum(
+        acc = _add(acc, torch.where(amask, _add(m_new, i_new), 0.0).sum(
             dim=0, keepdim=True))
         m1, i1, d1, m2, i2, d2 = m_new, i_new, d_new, m1, i1, d1
         if d % RESCALE_EVERY == 0:

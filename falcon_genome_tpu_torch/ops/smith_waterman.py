@@ -38,8 +38,8 @@ import threading
 import numpy as np
 import torch
 
-from falcon_genome_tpu.io import native_ext
-from falcon_genome_tpu.io.sam import CIGAR_S, Cigar
+from ..io import native_ext
+from ..io.sam import CIGAR_S, Cigar
 
 from . import _build
 from .sw_ref import NEG, SWParams, SWResult

@@ -1,14 +1,13 @@
 """Smith-Waterman parameter and result types.
 
-Copied from ``falcon_genome_tpu/ops/sw_ref.py`` (whose package import
-pulls in JAX): bwa-mem default scoring, and the per-alignment result with
+Copied from ``falcon_genome_tpu/ops/sw_ref.py``: bwa-mem default scoring, and the per-alignment result with
 soft clips covering the full read.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from falcon_genome_tpu.io.sam import Cigar
+from ..io.sam import Cigar
 
 NEG = -(1 << 28)
 

@@ -11,8 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from falcon_genome_tpu.io.columns import F_FLAG, F_POS, F_TID
-from falcon_genome_tpu.io.sam import FLAG_UNMAPPED
+from ..io.columns import F_FLAG, F_POS, F_TID
+from ..io.sam import FLAG_UNMAPPED
 
 from .mesh import (
     Mesh, MeshSpec, distributed_initialize, get_active_mesh,
@@ -36,8 +36,8 @@ __all__ = [
 
 def coordinate_order(cols) -> np.ndarray:
     """Permutation for coordinate sort of RecordColumns: (tid, pos),
-    unmapped last — ``falcon_genome_tpu.io.columns.RecordColumns.
-    coordinate_order``.  Under an active multi-device mesh with a data
+    unmapped last (``RecordColumns.coordinate_order`` calls this).
+    Under an active multi-device mesh with a data
     axis the argsort is the sample-sort of :func:`mesh_coordinate_order`
     (unmapped reads keyed as tid 0xFE, positions clipped to uint32);
     the host lexsort is the single-device path and the fallback when the

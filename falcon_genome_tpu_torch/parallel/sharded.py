@@ -6,8 +6,10 @@ runs one piece per mesh device and combines the pieces explicitly:
 
 * pair lanes split evenly over the mesh's devices in ``Mesh.flat`` order
   (the reference's fused ``(data, region)`` lane sharding); every piece
-  runs kernel K5 (:func:`..ops.pairhmm.pairhmm_pb`) on its device, and the
-  per-pair results are gathered back to the inputs' device;
+  runs kernel K5 (:func:`..ops.pairhmm.pairhmm_pb`), or K4
+  (:func:`..ops.pairhmm.pairhmm_sc`) for scalar transitions, on its
+  device, and the per-pair results are gathered back to the inputs'
+  device;
 * a ``psum`` of histograms is the sum of the per-device tables;
 * the sample-sort's ``all_gather`` of samples is a gather, and its
   ``all_to_all`` is one copy per (source, destination) bucket.
@@ -22,31 +24,39 @@ import numpy as np
 import torch
 
 from ..bqsr import MAX_CYCLE, MAX_QUAL, N_CONTEXT
-from ..ops.pairhmm import pairhmm_pb
+from ..ops.pairhmm import pairhmm_pb, pairhmm_sc
 from .mesh import Mesh, lane_splits
 
 
 def _pairhmm_shards(mesh: Mesh, read, base_q, ins_q, del_q, gcp, rlen,
-                    hlen, hap) -> torch.Tensor:
-    """K5 on every mesh device's slice of the lanes; (B,) on the inputs'
-    device."""
+                    hlen, hap, scalar_trans=None) -> torch.Tensor:
+    """K5 (K4 with ``scalar_trans``) on every mesh device's slice of the
+    lanes; (B,) on the inputs' device."""
     B = read.shape[0]
     outs = []
     for dev, (s, e) in zip(mesh.flat, lane_splits(B, mesh.size)):
         if e == s:
             continue
-        r, bq, iq, dq, gq, rl, hl, hp = (
-            t[s:e].to(dev, non_blocking=True)
-            for t in (read, base_q, ins_q, del_q, gcp, rlen, hlen, hap))
+        r, bq, rl, hl, hp = (t[s:e].to(dev, non_blocking=True)
+                             for t in (read, base_q, rlen, hlen, hap))
+        if scalar_trans is not None:
+            outs.append(pairhmm_sc(r, bq, rl, hp, hl, *scalar_trans))
+            continue
+        iq, dq, gq = (t[s:e].to(dev, non_blocking=True)
+                      for t in (ins_q, del_q, gcp))
         outs.append(pairhmm_pb(r, bq, iq, dq, gq, rl, hp, hl))
     if not outs:
         return torch.zeros(0, dtype=torch.float32, device=read.device)
     return torch.cat([o.to(read.device) for o in outs])
 
 
-def sharded_pairhmm_step(mesh: Mesh, R: int, H: int):
+def sharded_pairhmm_step(mesh: Mesh, R: int, H: int,
+                         scalar_trans: tuple[int, int, int] | None = None):
     """The production kernel K5 on every shard; lanes split over the
-    fused (data, region) mesh.
+    fused (data, region) mesh.  With ``scalar_trans`` = (ins, del, gcp)
+    phreds, the scalar-transition kernel K4 instead, and the step's
+    ins_q/del_q/gcp planes are not read (the reference's
+    ``_pairhmm_sharded(..., scalar_trans=...)``).
 
     The step takes (read, base_q, ins_q, del_q, gcp, rlen, hlen, hap):
     (B, R) uint8 codes and phred planes, (B,) int32 lengths, (B, H) uint8
@@ -55,7 +65,7 @@ def sharded_pairhmm_step(mesh: Mesh, R: int, H: int):
     def step(read, base_q, ins_q, del_q, gcp, rlen, hlen, hap):
         _check_bucket(read, hap, R, H)
         return _pairhmm_shards(mesh, read, base_q, ins_q, del_q, gcp, rlen,
-                               hlen, hap)
+                               hlen, hap, scalar_trans)
     return step
 
 

@@ -40,9 +40,9 @@ from typing import Callable
 
 import torch
 
-from falcon_genome_tpu.utils.common import rss_suffix
-from falcon_genome_tpu.utils.errors import FailedCommand
-from falcon_genome_tpu.utils.logutils import find_error
+from ..utils.common import rss_suffix
+from ..utils.errors import FailedCommand
+from ..utils.logutils import find_error
 
 from ..parallel.mesh import process_info, sync_processes, use_mesh
 

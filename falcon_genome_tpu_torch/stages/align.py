@@ -26,17 +26,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from falcon_genome_tpu.config import Config
-from falcon_genome_tpu.io import native_ext
-from falcon_genome_tpu.io.bam import BamColumnsWriter, write_bam_columns
-from falcon_genome_tpu.io.columns import F_FLAG, F_POS, F_TID, RecordColumns
-from falcon_genome_tpu.io.fastq import FastqReader
-from falcon_genome_tpu.io.sam import FLAG_UNMAPPED
-from falcon_genome_tpu.samples import SampleDetails, load_sample_sheet
-from falcon_genome_tpu.utils.common import (
+from ..config import Config
+from ..io import native_ext
+from ..io.bam import BamColumnsWriter, write_bam_columns
+from ..io.columns import F_FLAG, F_POS, F_TID, RecordColumns
+from ..io.fastq import FastqReader
+from ..io.sam import FLAG_UNMAPPED
+from ..samples import SampleDetails, load_sample_sheet
+from ..utils.common import (
     check_input, check_output, get_bucket_fname)
-from falcon_genome_tpu.utils.errors import InvalidParam, MissingParam
-from falcon_genome_tpu.utils.extraopts import ExtraOpts
+from ..utils.errors import InvalidParam, MissingParam
+from ..utils.extraopts import ExtraOpts
 
 from ..aligner import AlignerEngine, AlignerParams, alignments_to_columns
 from ..parallel import coordinate_order

@@ -19,15 +19,15 @@ from pathlib import Path
 
 import numpy as np
 
-from falcon_genome_tpu.bamops import mark_duplicates_columns
-from falcon_genome_tpu.config import Config
-from falcon_genome_tpu.io.bam import (
+from ..bamops import mark_duplicates_columns
+from ..config import Config
+from ..io.bam import (
     BamColumnsWriter, BamReader, read_bam_columns, read_bam_region_columns,
     write_bam_columns)
-from falcon_genome_tpu.io.columns import (
+from ..io.columns import (
     F_ENDPOS, F_FLAG, F_LNAME, F_POS, F_TID, RecordColumns)
-from falcon_genome_tpu.io.sam import FLAG_DUP, FLAG_UNMAPPED
-from falcon_genome_tpu.utils.common import (
+from ..io.sam import FLAG_DUP, FLAG_UNMAPPED
+from ..utils.common import (
     check_input, check_output, get_input_list, rss_suffix)
 
 from ..parallel import coordinate_order
@@ -88,7 +88,7 @@ class BamInputSource:
                 for ext in (".list", ".bed"):
                     side = Path(part).with_suffix(ext)
                     if side.exists():
-                        from falcon_genome_tpu.io.intervals import read_interval_list
+                        from ..io.intervals import read_interval_list
                         have = read_interval_list(side)
                         break
                 regions.append(have)
@@ -267,11 +267,11 @@ def _stream_markdup(parts: list[str], output: str,
     import shutil
     import tempfile
 
-    from falcon_genome_tpu.bamops import (
+    from ..bamops import (
         DupMetrics, _dup_decide, _estimate_library_size, dup_scan_columns,
         name_key_columns)
-    from falcon_genome_tpu.bamops import _name_group_aggregate
-    from falcon_genome_tpu.io import native_ext
+    from ..bamops import _name_group_aggregate
+    from ..io import native_ext
 
     if not native_ext.available():
         return None
@@ -496,7 +496,7 @@ def _stream_markdup_inner(parts, output, rg_to_lib, remove_dups,
 def run_markdup(conf: Config, input_path: str, output: str,
                 force: bool = False,
                 extra_opts: list[str] | None = None) -> str:
-    from falcon_genome_tpu.utils.extraopts import ExtraOpts
+    from ..utils.extraopts import ExtraOpts
     xo = ExtraOpts(extra_opts)
     # sambamba markdup surface (SambambaWorker.cpp:74-91): -r removes
     # duplicate records instead of flagging them

@@ -19,9 +19,9 @@ from __future__ import annotations
 import logging
 from pathlib import Path
 
-from falcon_genome_tpu.config import Config
-from falcon_genome_tpu.io.bam import write_bam_columns
-from falcon_genome_tpu.utils.common import (
+from ..config import Config
+from ..io.bam import write_bam_columns
+from ..utils.common import (
     check_input, check_output, check_vcf_index, get_contig_fname)
 
 from ..bqsr import (
@@ -53,7 +53,7 @@ class KnownSites:
             # config.cpp:776-824); strict for .gz (the .tbi is needed
             # to stream), advisory for plain .vcf (re-indexed below)
             check_vcf_index(p, strict=str(p).endswith(".gz"))
-            from falcon_genome_tpu.io.vcf import ensure_indexed_vcf
+            from ..io.vcf import ensure_indexed_vcf
             self.paths.append(ensure_indexed_vcf(check_input(p), work_dir))
 
     def __bool__(self) -> bool:
@@ -63,7 +63,7 @@ class KnownSites:
         """{tid: sorted per-base 0-based positions} for the shard."""
         import numpy as np
 
-        from falcon_genome_tpu.io.tabix import query_vcf_positions
+        from ..io.tabix import query_vcf_positions
         out: dict[int, list] = {}
         for iv in shard:
             tid = self.header.tid(iv.contig)
@@ -89,7 +89,7 @@ def run_baserecal(conf: Config, ref: str, input_path: str, output: str,
                   force: bool = False,
                   extra_opts: list[str] | None = None) -> str:
     """Scatter + gather the recalibration table; writes <output>.npz."""
-    from falcon_genome_tpu.utils.extraopts import ExtraOpts
+    from ..utils.extraopts import ExtraOpts
     xo = ExtraOpts(extra_opts)
     # GATK BaseRecalibrator accepts repeated -knownSites through
     # --extra-options too (Worker.h:38-58 forwards every key verbatim)
@@ -170,7 +170,7 @@ def run_printreads(conf: Config, ref: str, input_path: str, table: str,
                    output: str, force: bool = False,
                    extra_opts: list[str] | None = None) -> str:
     """ApplyBQSR per shard → bucketed BAM shards, or one merged BAM."""
-    from falcon_genome_tpu.utils.extraopts import ExtraOpts
+    from ..utils.extraopts import ExtraOpts
     xo = ExtraOpts(extra_opts)
     preserve_below = xo.get_int(
         "-preserveQ", "--preserve_qscores_less_than",
@@ -213,7 +213,7 @@ def run_printreads(conf: Config, ref: str, input_path: str, table: str,
         if out_is_dir:
             # sidecar .list with the shard's regions (PRWorker writes
             # .bed/.list shard metadata, BQSRWorker.cpp:180-228)
-            from falcon_genome_tpu.io.intervals import write_interval_list
+            from ..io.intervals import write_interval_list
             write_interval_list(get_contig_fname(output, idx, "list"),
                                 shard)
         return path

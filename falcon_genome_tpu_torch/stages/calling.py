@@ -14,13 +14,13 @@ from pathlib import Path
 
 import torch
 
-from falcon_genome_tpu.config import Config
-from falcon_genome_tpu.io.intervals import (
+from ..config import Config
+from ..io.intervals import (
     Interval, intersect_intervals, read_interval_list)
-from falcon_genome_tpu.io.vcf import (
+from ..io.vcf import (
     STANDARD_META, VcfHeader, concat_vcfs, write_vcf)
-from falcon_genome_tpu.utils.common import check_output, get_contig_fname
-from falcon_genome_tpu.utils.extraopts import ExtraOpts
+from ..utils.common import check_output, get_contig_fname
+from ..utils.extraopts import ExtraOpts
 
 from ..models.haplotypecaller import HaplotypeCaller, HTCParams
 from ..parallel import is_primary, sync_processes

@@ -9,11 +9,11 @@ from pathlib import Path
 import numpy as np
 
 from ..aligner import IndexParams, MinimizerIndex
-from falcon_genome_tpu.config import Config
-from falcon_genome_tpu.io.fasta import FastaFile
-from falcon_genome_tpu.io.intervals import Interval, split_equal_bp
-from falcon_genome_tpu.io.sam import SamHeader
-from falcon_genome_tpu.utils.common import check_input
+from ..config import Config
+from ..io.fasta import FastaFile
+from ..io.intervals import Interval, split_equal_bp
+from ..io.sam import SamHeader
+from ..utils.common import check_input
 
 log = logging.getLogger("falcon_genome_tpu")
 

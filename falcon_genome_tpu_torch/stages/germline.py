@@ -23,8 +23,8 @@ from pathlib import Path
 
 import torch
 
-from falcon_genome_tpu.config import Config
-from falcon_genome_tpu.utils.common import check_output
+from ..config import Config
+from ..utils.common import check_output
 
 from .align import run_align
 from .bamstages import run_markdup

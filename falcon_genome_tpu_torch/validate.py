@@ -16,12 +16,12 @@ from pathlib import Path
 
 import numpy as np
 
-from falcon_genome_tpu.io import native_ext
-from falcon_genome_tpu.io.bam import read_bam_columns
-from falcon_genome_tpu.io.dna import decode_seq
-from falcon_genome_tpu.io.fasta import write_fasta
-from falcon_genome_tpu.io.vcf import read_vcf
-from falcon_genome_tpu.utils.compare import compare_bam, compare_vcf
+from .io import native_ext
+from .io.bam import read_bam_columns
+from .io.dna import decode_seq
+from .io.fasta import write_fasta
+from .io.vcf import read_vcf
+from .utils.compare import compare_bam, compare_vcf
 
 _ASCII = np.frombuffer(b"ACGTN", np.uint8)
 
@@ -37,7 +37,7 @@ class Sample:
 
 
 def host_extension_available() -> bool:
-    """Whether the reference's fgio C++ host extension built here."""
+    """Whether the fgio C++ host extension (``native/``) built here."""
     return native_ext.available()
 
 

@@ -13,6 +13,7 @@ from falcon_genome_tpu.config import Config, Machine
 from falcon_genome_tpu.io import native_ext
 from falcon_genome_tpu.stages import bamstages as J
 from falcon_genome_tpu.utils.compare import compare_bam
+from falcon_genome_tpu_torch import convert
 from falcon_genome_tpu_torch.stages import bamstages as T
 
 sys.path.insert(0, str(Path(__file__).parent))
@@ -38,11 +39,12 @@ def test_markdup_bucket_tree_matches_reference(bucket_world, tmp_path,
     conf.set("tpu.bam.stream_mb", 0 if streamed else 64)
     extra = ["-r"] if remove else None
     out = {}
-    for name, run in (("ref", J.run_markdup), ("port", T.run_markdup)):
+    for name, run, c in (("ref", J.run_markdup, conf),
+                         ("port", T.run_markdup, convert.config(conf))):
         out[name] = str(tmp_path / f"{name}.bam")
         caplog.clear()
         with caplog.at_level("INFO", logger="falcon_genome_tpu"):
-            run(conf, str(folder), out[name], force=True, extra_opts=extra)
+            run(c, str(folder), out[name], force=True, extra_opts=extra)
         assert ("markdup (streamed" in caplog.text) == streamed
     d = compare_bam(out["ref"], out["port"], compare_tags=True)
     assert d.equivalent and d.matching > 1000, d

@@ -17,7 +17,7 @@ from falcon_genome_tpu.io.dna import decode_seq, revcomp_codes
 from falcon_genome_tpu.io.fasta import write_fasta
 from falcon_genome_tpu.io.fastq import write_fastq
 from falcon_genome_tpu.utils.compare import compare_bam, compare_vcf
-from falcon_genome_tpu_torch import cli, stages as tstages
+from falcon_genome_tpu_torch import cli, convert, stages as tstages
 from falcon_genome_tpu_torch.device import DeviceUnavailable, resolve_device
 
 torch.set_num_threads(1)
@@ -74,12 +74,12 @@ def _parts(d: Path) -> list[str]:
 
 def test_germline_matches_reference(world, conf):
     out = {}
-    for name, run, extra in (
-            ("ref", jstages.run_germline, {}),
-            ("port", tstages.run_germline,
+    for name, run, c, extra in (
+            ("ref", jstages.run_germline, conf, {}),
+            ("port", tstages.run_germline, convert.config(conf),
              {"device": torch.device("cpu")})):
         vcf = world["tmp"] / f"{name}.vcf.gz"
-        run(conf, world["ref"], str(vcf), fastq1=world["fq1"],
+        run(c, world["ref"], str(vcf), fastq1=world["fq1"],
             fastq2=world["fq2"], sample_id="s1", produce_vcf=True,
             force=True, **extra)
         out[name] = (vcf, Path(str(vcf) + ".work"))
@@ -95,6 +95,13 @@ def test_germline_matches_reference(world, conf):
     assert d.equivalent and d.matching > 1000
     c = compare_vcf(str(rv), str(pv))
     assert c.equivalent and c.concordant == 2
+    # the port's own copy of the gates gives the same verdicts
+    from falcon_genome_tpu_torch.utils import compare as tcompare
+    td = tcompare.compare_bam(str(rw / "dedup.bam"), str(pw / "dedup.bam"),
+                              compare_tags=True)
+    assert td.equivalent and td.matching == d.matching
+    tc = tcompare.compare_vcf(str(rv), str(pv))
+    assert tc.equivalent and tc.concordant == c.concordant
 
 
 # Blocks every import of jax, then imports each module of the port and

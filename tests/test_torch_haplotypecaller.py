@@ -55,7 +55,7 @@ def test_call_interval_matches_reference(name, gvcf):
     want = JH.HaplotypeCaller(jp).call_interval(recs, ref, "chr1", 0, 600)
     got = TH.HaplotypeCaller(
         convert.htc_params(jp, torch.device("cpu"))).call_interval(
-        recs, ref, "chr1", 0, 600)
+        convert.sam_records(recs), ref, "chr1", 0, 600)
     assert [vars(g) for g in got] == [vars(w) for w in want]
     if name != "clean":
         assert any(not v.is_gvcf_block for v in got)

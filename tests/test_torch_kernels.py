@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from falcon_genome_tpu_torch.ops import bench_kernels as BK
 from falcon_genome_tpu_torch.ops import pairhmm as P
 from falcon_genome_tpu_torch.ops import smith_waterman as S
 
@@ -183,3 +184,56 @@ def test_pairhmm_pb_kernel_matches_plain_on_card(cuda_device):
     np.testing.assert_array_equal(np.isfinite(got), fin)
     np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-4)
     assert fin[512:].all()
+
+
+@pytest.mark.cuda
+def test_pairhmm_kernels_flush_as_plain_on_card(cuda_device):
+    """The quality-0 rescue pairs, whose mass passes through float32's
+    subnormal range, with 45/45/10 (K4) and BI/BD-like planes (K5)."""
+    reads, q, rl, haps, hl = rescale_pairs(3, 64, 160, 384)
+    args = [torch.from_numpy(x) for x in (reads, q, rl, haps, hl)]
+    planes = [torch.from_numpy(x) for x in indel_planes(12, rl, 160)]
+    for name, run in (
+            ("K4", lambda a, p: P.pairhmm_sc(*a, INS, DEL, GCP)),
+            ("K5", lambda a, p: P.pairhmm_pb(a[0], a[1], *p, a[2], a[3],
+                                             a[4]))):
+        want = run(args, planes).numpy()
+        got = run([a.to(cuda_device) for a in args],
+                  [p.to(cuda_device) for p in planes]).cpu().numpy()
+        fin = np.isfinite(want)
+        np.testing.assert_array_equal(np.isfinite(got), fin, err_msg=name)
+        assert fin[:-1].any(), name
+        np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+def test_fma_ceiling_kernel_matches_plain_on_card(cuda_device):
+    """Bit-equal at the bench's shape (160, 2048, 272 trips): the plain
+    version rounds each chain update once, as the kernel's FFMA."""
+    x = torch.from_numpy(np.random.default_rng(10).uniform(
+        0.5, 2.0, (160, 2048)).astype(np.float32)).to(cuda_device)
+    want = BK._fma_ceiling_plain(x, 272)
+    got = BK.fma_ceiling(x, 272)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["base", "no_best", "no_mask",
+                                     "no_window"])
+def test_sw_ablate_kernel_matches_plain_on_card(cuda_device, variant):
+    read, rl, win, wl = sw_lanes(11, 160, 416, 256)
+    lanes = [torch.from_numpy(np.ascontiguousarray(x)) for x in (
+        read.T.astype(np.int8), rl[0], win.T.astype(np.int8), wl[0])]
+    kw = {} if variant == "base" else {variant: True}
+    p = S.SWParams()
+    want = BK.sw_score_ablate(*lanes, p, **kw)
+    dev = [x.to(cuda_device) for x in lanes]
+    got = BK.sw_score_ablate(*dev, p, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    if variant == "base":
+        k1 = S.sw_score(*dev, p)
+        assert torch.equal(got[0], k1[0]) and torch.equal(got[1], k1[1])

@@ -87,6 +87,38 @@ def test_plain_wavefront_rescales_as_reference(monkeypatch):
     assert not np.isfinite(plain()).any()
 
 
+@pytest.mark.parametrize("trans", ["45/45/10", "planes"])
+def test_plain_flushes_every_operation_as_reference(trans):
+    """The quality-0 rescue pairs carry mass through float32's subnormal
+    range before the rescale.  The reference's CPU backend flushes every
+    operation's result (and fuses multiply-adds); a port that flushed
+    only each cell and the sum differed by up to 1e-3 log10 there with
+    BI/BD-like planes.  Held to the reference's tolerance between its
+    dispatch paths (tests/test_pairhmm.py), with the same -inf lanes."""
+    R, H = 160, 384
+    reads, q, rl, haps, hl = rescale_pairs(3, 16, R, H)
+    tr = (INS, DEL, GCP) if trans == "45/45/10" else indel_planes(12, rl, R)
+
+    def time_major(x):
+        return x.T if np.ndim(x) else x
+
+    got = T._pairhmm_plain(
+        torch.from_numpy(reads.T), torch.from_numpy(q.T),
+        *(torch.from_numpy(time_major(x)) if np.ndim(x) else x for x in tr),
+        torch.from_numpy(rl[None]), torch.from_numpy(hl[None]),
+        torch.from_numpy(haps.T), R=R, H=H).numpy()
+    want = np.asarray(J._pairhmm_jax(
+        jnp.asarray(reads.T), jnp.asarray(q.T),
+        *(jnp.asarray(time_major(x)) if np.ndim(x) else jnp.uint8(x)
+          for x in tr),
+        jnp.asarray(rl[None]), jnp.asarray(hl[None]), jnp.asarray(haps.T),
+        R=R, H=H))
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    assert fin.sum() == len(want) - 1      # the last pair is subnormal
+    np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-4)
+
+
 def test_pairhmm_logp_matches_reference():
     R, H = 32, 64
     reads, q, rl, haps, hl = make_pairs(1, 20, 30, 60)

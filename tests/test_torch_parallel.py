@@ -26,8 +26,8 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from falcon_genome_tpu.config import Config, Machine  # noqa: E402
 from falcon_genome_tpu_torch import convert  # noqa: E402
+from falcon_genome_tpu_torch.config import Config, Machine  # noqa: E402
 from falcon_genome_tpu_torch import parallel as TP  # noqa: E402
 from falcon_genome_tpu_torch.parallel import mesh as TM  # noqa: E402
 from falcon_genome_tpu_torch.parallel import sharded as TS  # noqa: E402
@@ -97,6 +97,27 @@ class TestShardedSteps:
         r, bq, iq, dq, gq, rl, hl, hp = targs[:8]
         np.testing.assert_array_equal(
             got, pairhmm_pb(r, bq, iq, dq, gq, rl, hp, hl).numpy())
+
+    def test_pairhmm_scalar_transitions(self):
+        """With ``scalar_trans`` every shard runs K4 (the reference's
+        ``_pairhmm_sharded(..., scalar_trans=...)``, the bench's mesh
+        path): equal to one unsharded K4 call, and to the reference's step
+        given the same phreds as planes."""
+        from falcon_genome_tpu_torch.ops.pairhmm import pairhmm_sc
+        jmesh, tmesh, JS = _mesh_pair(4, 2)
+        R, H, B = 16, 24, 64
+        args = [np.asarray(a) for a in JS.make_example_batch(B, R, H, 8)[:8]]
+        for i, q in zip((2, 3, 4), (45, 45, 10)):
+            args[i] = np.full_like(args[i], q)
+        want = np.asarray(JS.sharded_pairhmm_step(jmesh, R, H)(*args))
+        r, bq, _, _, _, rl, hl, hp = convert.example_batch(args, CPU)
+        step = TS.sharded_pairhmm_step(tmesh, R, H,
+                                       scalar_trans=(45, 45, 10))
+        got = step(r, bq, bq, bq, bq, rl, hl, hp).numpy()
+        np.testing.assert_array_equal(
+            got, pairhmm_sc(r, bq, rl, hp, hl, 45, 45, 10).numpy())
+        assert np.isfinite(want).all()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
     def test_bqsr_histogram_reduction(self):
         mesh = TM.make_mesh(TM.MeshSpec(data=8, region=1), CPU8)
@@ -183,7 +204,7 @@ class TestActiveMeshPipeline:
         (more, smaller kernel calls), and the VCF equals the
         single-device run's."""
         import falcon_genome_tpu_torch.ops.pairhmm as TPH
-        from falcon_genome_tpu.io.vcf import read_vcf
+        from falcon_genome_tpu_torch.io.vcf import read_vcf
         _htc_world(tmp_path)
         conf = _conf(tmp_path, 4, "mesh")
         conf.set("gatk.htc.nprocs", 2)
@@ -211,11 +232,13 @@ class TestActiveMeshPipeline:
         assert sum(calls["mesh"]) == sum(calls["single"])
 
     def test_mesh_from_conf(self):
+        from falcon_genome_tpu.config import Config as JConfig
         JM, _, devices = _jax()
-        conf = Config(load_files=False, environ={})
+        jconf = JConfig(load_files=False, environ={})
+        conf = convert.config(jconf)
         mesh = TM.mesh_from_conf(conf, CPU8)   # all devices on data
         assert mesh is not None and mesh.size == 8
-        assert mesh.shape == dict(JM.mesh_from_conf(conf, devices).shape)
+        assert mesh.shape == dict(JM.mesh_from_conf(jconf, devices).shape)
         assert TM.mesh_from_conf(conf, [CPU]) is None
         conf.set("tpu.mesh.data", 1)
         conf.set("tpu.mesh.region", 1)
@@ -266,6 +289,7 @@ class TestActiveMeshPipeline:
 
 
 def _cols(rng, n):
+    """The reference's ``RecordColumns`` of ``n`` records."""
     from falcon_genome_tpu.io.columns import (
         F_FLAG, F_POS, F_TID, RecordColumns)
     fixed = np.zeros((n, 12), np.int32)
@@ -320,8 +344,9 @@ class TestDistributedSort:
             np.full(4, 0xFF, np.uint64), pos[:4], self.MESH) is None
 
     def test_columns_coordinate_order_uses_mesh(self, monkeypatch):
-        cols = _cols(np.random.default_rng(0), 500)
-        want = cols.coordinate_order()     # the reference, no mesh
+        jcols = _cols(np.random.default_rng(0), 500)
+        want = jcols.coordinate_order()    # the reference, no mesh
+        cols = convert.record_columns(jcols)
         calls = []
         real = TS.mesh_coordinate_order
         monkeypatch.setattr(TP, "mesh_coordinate_order",
@@ -387,10 +412,11 @@ def _run_workers(kind: str, work: Path, cli: bool = False) -> list[str]:
 
 def _htc_world(work: Path) -> None:
     """12 kb, 100 bp reads every 9 bp, a het SNP every 2.2 kb."""
-    from falcon_genome_tpu.io.bam import write_bam
-    from falcon_genome_tpu.io.dna import decode_seq
-    from falcon_genome_tpu.io.fasta import write_fasta
-    from falcon_genome_tpu.io.sam import SamHeader, SamRecord, cigar_from_str
+    from falcon_genome_tpu_torch.io.bam import write_bam
+    from falcon_genome_tpu_torch.io.dna import decode_seq
+    from falcon_genome_tpu_torch.io.fasta import write_fasta
+    from falcon_genome_tpu_torch.io.sam import (
+        SamHeader, SamRecord, cigar_from_str)
     rng = np.random.default_rng(9)
     G, L = 12_000, 100
     ref = rng.integers(0, 4, G).astype(np.uint8)
@@ -409,10 +435,11 @@ def _htc_world(work: Path) -> None:
 
 def _bqsr_world(work: Path) -> None:
     """12 kb, 600 80 bp reads with 3% substitutions, one read group."""
-    from falcon_genome_tpu.io.bam import write_bam
-    from falcon_genome_tpu.io.dna import decode_seq
-    from falcon_genome_tpu.io.fasta import write_fasta
-    from falcon_genome_tpu.io.sam import SamHeader, SamRecord, cigar_from_str
+    from falcon_genome_tpu_torch.io.bam import write_bam
+    from falcon_genome_tpu_torch.io.dna import decode_seq
+    from falcon_genome_tpu_torch.io.fasta import write_fasta
+    from falcon_genome_tpu_torch.io.sam import (
+        SamHeader, SamRecord, cigar_from_str)
     rng = np.random.default_rng(17)
     G, L = 12_000, 80
     ref = rng.integers(0, 4, G).astype(np.uint8)
@@ -480,7 +507,7 @@ class TestMultiProcessStage:
         gloo processes (started through ``run_htc`` or the CLI's
         ``tpu.dist.*`` options); process 0's gathered VCF is record-equal
         to a single-process run."""
-        from falcon_genome_tpu.io.vcf import read_vcf
+        from falcon_genome_tpu_torch.io.vcf import read_vcf
         _htc_world(tmp_path)
         single = tmp_path / "single.vcf"
         _run_stage("htc", _conf(tmp_path, 8, "1p"), tmp_path, single)
