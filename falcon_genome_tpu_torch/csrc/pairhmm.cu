@@ -59,6 +59,12 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRescaleEvery = 64;
 
 // Transition constants: scalars (K4) or (B, R) probability planes (K5).
+// A base code as a mask: two bases match (equal, or either one is not
+// A/C/G/T) exactly when their masks share a bit.
+__device__ __forceinline__ unsigned base_mask(unsigned code) {
+  return code < 4u ? 1u << code : 15u;
+}
+
 struct Trans {
   float p_ins, p_del, p_cont, a_mm, a_im;
   const float* ins;  // planes; null for K4
@@ -79,8 +85,13 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   const int wib = threadIdx.x >> 5;
   const int b = blockIdx.x * kWarps + wib;
   if (b >= B) return;  // uniform across the warp
-  uint8_t* hs = hs_all + wib * H;
-  for (int j = lane; j < H; j += 32) hs[j] = hap[(size_t)b * H + j];
+  constexpr int kPad = 32 * NR;  // bytes in front of the haplotype
+  const int span = kPad + H + R;
+  uint8_t* hs = hs_all + wib * span;
+  for (int p = lane; p < span; p += 32)
+    hs[p] = p < kPad
+                ? 0
+                : base_mask(hap[(size_t)b * H + min(p - kPad, H - 1)]);
   __syncwarp();
 
   const int rl = rlen[b];
@@ -89,7 +100,8 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   const float factor = 0x1p100f;
   const float shift_step = 30.102999566398120f;  // 100 log10(2)
 
-  int rc[NR];
+  unsigned rmask = 0u, win = 0u;
+  const uint8_t* hp = hs + kPad - lane * NR - 2;
   float pm[NR], pmm[NR];
   float M1[NR], I1[NR], D1[NR], M2[NR], I2[NR], D2[NR];
   // K5's per-row constants (unused, and eliminated, for K4)
@@ -100,7 +112,7 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
     const bool row = r < R;
     const size_t at = (size_t)b * R + r;
     const float pe = row ? p_err[at] : 0.0f;
-    rc[k] = row ? (int)read[at] : 4;
+    rmask |= base_mask(row ? read[at] : 4u) << (4 * k);
     pm[k] = 1.0f - pe;
     pmm[k] = pe * (1.0f / 3.0f);
     M1[k] = I1[k] = D1[k] = M2[k] = I2[k] = D2[k] = 0.0f;
@@ -115,7 +127,7 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   float bound = 0x1p120f / fmaxf((float)hl, 1.0f);
   float acc = 0.0f, sh = 0.0f;
   float pM = 0.0f, pI = 0.0f, pD = 0.0f;  // row above, diagonal d - 2
-  const int dmax = rl + hl;
+  const int dmax = min(rl + hl, R + H);
   for (int d = 1; d <= dmax; ++d) {
     // row above this thread's first row: d - 1 from the shuffle, d - 2
     // from the previous step's shuffle; row 0 sees the DP boundary
@@ -135,6 +147,7 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
     pI = uI1;
     pD = uD1;
     float Mn[NR], In[NR], Dn[NR];
+    win = (win << 4) | hp[d];
 #pragma unroll
     for (int k = 0; k < NR; ++k) {
       const int r = lane * NR + k;
@@ -145,8 +158,7 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
       const float m1u = k == 0 ? uM1 : M1[k - 1];
       const float i1u = k == 0 ? uI1 : I1[k - 1];
       if (j >= 1 && r < R) {
-        const int c = hs[min(j, H) - 1];
-        const bool match = rc[k] == c || rc[k] >= 4 || c >= 4;
+        const bool match = (win & rmask & (15u << (4 * k))) != 0u;
         const float prior = match ? pm[k] : pmm[k];
         const float p_ins = kPerBase ? ti[k] : tr.p_ins;
         const float p_del = kPerBase ? td[k] : tr.p_del;
@@ -216,7 +228,7 @@ int launch_pairhmm(const void* read, const void* p_err, const void* rlen,
                    const void* hap, const void* hlen, int B, int R, int H,
                    const Trans& tr, void* acc_out, void* shift_out,
                    void* stream) {
-  const size_t smem = (size_t)kWarps * H;
+  const size_t smem = (size_t)kWarps * (32 * NR + H + R);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         pairhmm_kernel<NR, kPerBase>,
