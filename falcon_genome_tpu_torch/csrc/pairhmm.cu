@@ -34,18 +34,49 @@
 // log10(acc) - shift - 120 log10(2), or -inf where acc is 0.
 //
 // What bounds it on the H100: a serial f32 recurrence over rlen + hlen
-// anti-diagonals per pair, with a handful of FMAs per cell and ~1 KB of
-// input per pair -- latency- and issue-bound, never DRAM-bound.
+// anti-diagonals per pair, 8 floating-point instructions per cell and
+// ~1 KB of input per pair -- bound by instruction issue and by the latency
+// of one dependent chain per diagonal, never by DRAM.
 //
-// Design (after gpuPairHMM): one warp per read x haplotype pair.  Thread t
-// owns NR consecutive read rows (NR = ceil(R / 32), a template parameter,
-// so the state lives in registers); the warp sweeps anti-diagonals and
-// passes the only cross-thread values -- the last row's M, I, D -- to the
-// next thread with __shfl_up_sync.  The haplotype sits in shared memory.
-// K5 keeps each thread's rows' five transition constants in registers
-// beside the state; a pad row past rlen (phred 0: p_ins = p_cont = 1,
-// a_mm = a_im = 0) is computed like any other row, as in the plain version,
-// so its overflow reaches the rescale test the same way.
+// Design: one warp per read x haplotype pair.  Thread t owns NR
+// consecutive read rows (NR = ceil(R / 32), a template parameter, so the
+// state lives in registers); the warp sweeps anti-diagonals and passes the
+// only cross-thread values -- the last row's M, I, D -- to the next thread
+// with __shfl_up_sync.
+//
+// The sweep must stay a wavefront over ALL rows of a pair: the rescale test
+// takes the largest |M|+|I|+|D| over every row of diagonals d and d - 1 at
+// each d that is a multiple of 64, and a pair that fires is flushed
+// differently from one that does not.  A column-per-thread skew (one
+// column per thread per step, as gpuPairHMM sweeps) puts the cells of one
+// diagonal at different steps and cannot give the same rescale decisions.
+// Cells right of the haplotype (j > hlen) and pad rows past rlen (phred 0:
+// p_ins = p_cont = 1, a_mm = a_im = 0) feed that maximum too, so they are
+// computed like any other cell, as in the plain version.
+//
+// What the design does about the issue bound (per diagonal of a thread's
+// NR rows: 3 shuffles, one shared-memory byte, and per cell 8 float
+// instructions, one AND and one select):
+//   * bases are 4-bit masks (A, C, G, T = 1, 2, 4, 8; any other code 15),
+//     so "equal, or either is N" is one AND.  The haplotype enters shared
+//     memory as masks, padded in front by 32 NR bytes and behind by R
+//     repeats of its last base, so the byte of diagonal d is at a fixed
+//     offset from d with no clipping.  Row k of a thread needs at diagonal
+//     d the byte row k - 1 used at d - 1: the thread's NR masks live in one
+//     32-bit window that shifts by 4 bits per diagonal and takes one new
+//     byte;
+//   * the sweep is unrolled by two diagonals with the two state sets
+//     swapping roles by name, so no register moves from "d - 1" to "d - 2";
+//   * no per-cell test of j >= 1: a cell left of the matrix has only zero
+//     inputs (the one exception, row 0 at d = 1, is cut by starting the
+//     boundary one diagonal late), and zero inputs give exact zeros;
+//   * every row keeps its own sum of M + I over all diagonals; only row
+//     rlen - 1's is the pair's (it sees exactly j in [1, hlen] by the time
+//     the sweep ends at d = rlen + hlen, and +0 before), the others are
+//     dropped.  This takes the test of "last row, inside the haplotype"
+//     out of the cell;
+//   * rows past R (R not 32 NR) are cut by a select, in an instantiation
+//     of its own (kRagged) that the full buckets do not pay for.
 // The rescale test is a warp max-reduction with shuffles, at the same
 // diagonals and with the same threshold and factor as the reference; no
 // float64 anywhere.
@@ -59,12 +90,6 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRescaleEvery = 64;
 
 // Transition constants: scalars (K4) or (B, R) probability planes (K5).
-// A base code as a mask: two bases match (equal, or either one is not
-// A/C/G/T) exactly when their masks share a bit.
-__device__ __forceinline__ unsigned base_mask(unsigned code) {
-  return code < 4u ? 1u << code : 15u;
-}
-
 struct Trans {
   float p_ins, p_del, p_cont, a_mm, a_im;
   const float* ins;  // planes; null for K4
@@ -72,7 +97,80 @@ struct Trans {
   const float* cont;
 };
 
-template <int NR, bool kPerBase>
+// A base code as a mask: two bases match (equal, or either one is not
+// A/C/G/T) exactly when their masks share a bit.
+__device__ __forceinline__ unsigned base_mask(unsigned code) {
+  return code < 4u ? 1u << code : 15u;
+}
+
+// One thread's rows of one anti-diagonal, and the row above its first row.
+template <int NR>
+struct Diag {
+  float M[NR], I[NR], D[NR];
+};
+struct Above {
+  float M, I, D;
+};
+
+// One thread's per-row constants, in registers.
+template <int NR>
+struct Rows {
+  float pm[NR], pmm[NR];  // prior on a match, on a mismatch
+  // K5's transitions (unused, and eliminated, for K4)
+  float ti[NR], td[NR], tc[NR], tmm[NR], tim[NR];
+  unsigned rmask;  // the rows' read-base masks, 4 bits each
+  unsigned inside; // bit k: row k < R (kRagged only)
+};
+
+// Diagonal d from X (diagonal d - 1) and Y (d - 2); the result overwrites
+// Y, rows last to first, so that row k - 1 of Y is still d - 2 when row k
+// reads it.  uX receives the row above at d - 1 (the next step's d - 2),
+// uY holds the one the previous step received.
+template <int NR, bool kPerBase, bool kRagged>
+__device__ __forceinline__ void sweep_step(
+    const Rows<NR>& c, const Trans& tr, bool lane0, float bound,
+    unsigned hap_byte, unsigned& win, const Diag<NR>& X, Diag<NR>& Y,
+    Above& uX, const Above& uY, float& acc, int lane, int d, int R, int rl,
+    int hl) {
+  uX.M = __shfl_up_sync(kFull, X.M[NR - 1], 1);
+  uX.I = __shfl_up_sync(kFull, X.I[NR - 1], 1);
+  uX.D = __shfl_up_sync(kFull, X.D[NR - 1], 1);
+  if (lane0) {  // the DP boundary above row 0
+    uX.M = 0.0f;
+    uX.I = 0.0f;
+    uX.D = bound;
+  }
+  win = (win << 4) | hap_byte;
+#pragma unroll
+  for (int k = NR - 1; k >= 0; --k) {
+    const float m2u = k == 0 ? uY.M : Y.M[k - 1];
+    const float i2u = k == 0 ? uY.I : Y.I[k - 1];
+    const float d2u = k == 0 ? uY.D : Y.D[k - 1];
+    const float m1u = k == 0 ? uX.M : X.M[k - 1];
+    const float i1u = k == 0 ? uX.I : X.I[k - 1];
+    const int r = lane * NR + k;
+    const int j = d - r - 1;
+    float Mn = 0.0f, In = 0.0f, Dn = 0.0f;
+    if (j >= 1 && r < R) {
+      const bool match = (win & c.rmask & (15u << (4 * k))) != 0u;
+      const float prior = match ? c.pm[k] : c.pmm[k];
+      const float p_ins = kPerBase ? c.ti[k] : tr.p_ins;
+      const float p_del = kPerBase ? c.td[k] : tr.p_del;
+      const float p_cont = kPerBase ? c.tc[k] : tr.p_cont;
+      const float a_mm = kPerBase ? c.tmm[k] : tr.a_mm;
+      const float a_im = kPerBase ? c.tim[k] : tr.a_im;
+      Mn = prior * __fmaf_rn(m2u, a_mm, (i2u + d2u) * a_im);
+      In = __fmaf_rn(m1u, p_ins, i1u * p_cont);
+      Dn = __fmaf_rn(X.M[k], p_del, X.D[k] * p_cont);
+      if (r + 1 == rl && j <= hl) acc += Mn + In;
+    }
+    Y.M[k] = Mn;
+    Y.I[k] = In;
+    Y.D[k] = Dn;
+  }
+}
+
+template <int NR, bool kPerBase, bool kRagged>
 __global__ void __launch_bounds__(kWarps * 32)
 pairhmm_kernel(const uint8_t* __restrict__ read,
                const float* __restrict__ p_err,
@@ -81,11 +179,13 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
                float* __restrict__ acc_out,
                float* __restrict__ shift_out) {
   extern __shared__ uint8_t hs_all[];
+  constexpr int kPad = 32 * NR;  // bytes in front of the haplotype
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
   const int b = blockIdx.x * kWarps + wib;
   if (b >= B) return;  // uniform across the warp
-  constexpr int kPad = 32 * NR;  // bytes in front of the haplotype
+  // the haplotype's masks: zeros in front (read only by cells left of the
+  // matrix), the last base repeated behind (the clipped gather)
   const int span = kPad + H + R;
   uint8_t* hs = hs_all + wib * span;
   for (int p = lane; p < span; p += 32)
@@ -100,95 +200,59 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   const float factor = 0x1p100f;
   const float shift_step = 30.102999566398120f;  // 100 log10(2)
 
-  unsigned rmask = 0u, win = 0u;
-  const uint8_t* hp = hs + kPad - lane * NR - 2;
-  float pm[NR], pmm[NR];
-  float M1[NR], I1[NR], D1[NR], M2[NR], I2[NR], D2[NR];
-  // K5's per-row constants (unused, and eliminated, for K4)
-  float ti[NR], td[NR], tc[NR], tmm[NR], tim[NR];
+  Rows<NR> c;
+  c.rmask = 0u;
+  c.inside = 0u;
 #pragma unroll
   for (int k = 0; k < NR; ++k) {
     const int r = lane * NR + k;
     const bool row = r < R;
     const size_t at = (size_t)b * R + r;
     const float pe = row ? p_err[at] : 0.0f;
-    rmask |= base_mask(row ? read[at] : 4u) << (4 * k);
-    pm[k] = 1.0f - pe;
-    pmm[k] = pe * (1.0f / 3.0f);
-    M1[k] = I1[k] = D1[k] = M2[k] = I2[k] = D2[k] = 0.0f;
+    c.rmask |= base_mask(row ? read[at] : 4u) << (4 * k);
+    c.inside |= (row ? 1u : 0u) << k;
+    c.pm[k] = 1.0f - pe;
+    c.pmm[k] = pe * (1.0f / 3.0f);
     if constexpr (kPerBase) {
-      ti[k] = row ? tr.ins[at] : 0.0f;
-      td[k] = row ? tr.del[at] : 0.0f;
-      tc[k] = row ? tr.cont[at] : 0.0f;
-      tmm[k] = 1.0f - fminf(1.0f, ti[k] + td[k]);
-      tim[k] = 1.0f - tc[k];
+      c.ti[k] = row ? tr.ins[at] : 0.0f;
+      c.td[k] = row ? tr.del[at] : 0.0f;
+      c.tc[k] = row ? tr.cont[at] : 0.0f;
+      c.tmm[k] = 1.0f - fminf(1.0f, c.ti[k] + c.td[k]);
+      c.tim[k] = 1.0f - c.tc[k];
     }
   }
+  // row r at diagonal d reads the haplotype at d - r - 2, clipped to
+  // [0, H): with the padding, byte d of hp for this thread's first row
+  const uint8_t* hp = hs + kPad - lane * NR - 2;
+  const bool lane0 = lane == 0;
   float bound = 0x1p120f / fmaxf((float)hl, 1.0f);
-  float acc = 0.0f, sh = 0.0f;
-  float pM = 0.0f, pI = 0.0f, pD = 0.0f;  // row above, diagonal d - 2
+  float sh = 0.0f;
+  float acc = 0.0f;
+  Diag<NR> S0, S1;  // diagonals d - 2 and d - 1 at an odd d
+#pragma unroll
+  for (int k = 0; k < NR; ++k) {
+    S0.M[k] = S0.I[k] = S0.D[k] = 0.0f;
+    S1.M[k] = S1.I[k] = S1.D[k] = 0.0f;
+  }
+  // rows above: u0 starts as zeros, so diagonal 1 (row 0 at j = 0) stays
+  // zero; from diagonal 2 on row 0 sees D(0, j - 1) = bound
+  Above u0{0.0f, 0.0f, 0.0f}, u1{0.0f, 0.0f, 0.0f};
+  unsigned win = 0u;
   const int dmax = min(rl + hl, R + H);
-  for (int d = 1; d <= dmax; ++d) {
-    // row above this thread's first row: d - 1 from the shuffle, d - 2
-    // from the previous step's shuffle; row 0 sees the DP boundary
-    float uM1 = __shfl_up_sync(kFull, M1[NR - 1], 1);
-    float uI1 = __shfl_up_sync(kFull, I1[NR - 1], 1);
-    float uD1 = __shfl_up_sync(kFull, D1[NR - 1], 1);
-    float uM2 = pM, uI2 = pI, uD2 = pD;
-    if (lane == 0) {
-      uM1 = 0.0f;
-      uI1 = 0.0f;
-      uD1 = bound;
-      uM2 = 0.0f;
-      uI2 = 0.0f;
-      uD2 = bound;
-    }
-    pM = uM1;
-    pI = uI1;
-    pD = uD1;
-    float Mn[NR], In[NR], Dn[NR];
-    win = (win << 4) | hp[d];
-#pragma unroll
-    for (int k = 0; k < NR; ++k) {
-      const int r = lane * NR + k;
-      const int j = d - r - 1;
-      const float m2u = k == 0 ? uM2 : M2[k - 1];
-      const float i2u = k == 0 ? uI2 : I2[k - 1];
-      const float d2u = k == 0 ? uD2 : D2[k - 1];
-      const float m1u = k == 0 ? uM1 : M1[k - 1];
-      const float i1u = k == 0 ? uI1 : I1[k - 1];
-      if (j >= 1 && r < R) {
-        const bool match = (win & rmask & (15u << (4 * k))) != 0u;
-        const float prior = match ? pm[k] : pmm[k];
-        const float p_ins = kPerBase ? ti[k] : tr.p_ins;
-        const float p_del = kPerBase ? td[k] : tr.p_del;
-        const float p_cont = kPerBase ? tc[k] : tr.p_cont;
-        const float a_mm = kPerBase ? tmm[k] : tr.a_mm;
-        const float a_im = kPerBase ? tim[k] : tr.a_im;
-        Mn[k] = prior * __fmaf_rn(m2u, a_mm, (i2u + d2u) * a_im);
-        In[k] = __fmaf_rn(m1u, p_ins, i1u * p_cont);
-        Dn[k] = __fmaf_rn(M1[k], p_del, D1[k] * p_cont);
-        if (r + 1 == rl && j <= hl) acc += Mn[k] + In[k];
-      } else {
-        Mn[k] = In[k] = Dn[k] = 0.0f;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < NR; ++k) {
-      M2[k] = M1[k];
-      I2[k] = I1[k];
-      D2[k] = D1[k];
-      M1[k] = Mn[k];
-      I1[k] = In[k];
-      D1[k] = Dn[k];
-    }
-    if (d % kRescaleEvery == 0) {
+  int d = 1;
+  for (; d + 1 <= dmax; d += 2) {
+    sweep_step<NR, kPerBase, kRagged>(c, tr, lane0, bound, hp[d], win, S1,
+                                      S0, u1, u0, acc, lane, d, R, rl, hl);
+    sweep_step<NR, kPerBase, kRagged>(c, tr, lane0, bound, hp[d + 1], win,
+                                      S0, S1, u0, u1, acc, lane, d + 1, R, rl, hl);
+    // S1 is diagonal d + 1, S0 diagonal d, u0 the row above at d
+    if ((d + 1) % kRescaleEvery == 0) {
       float m = 0.0f;
       bool nan = false;
 #pragma unroll
       for (int k = 0; k < NR; ++k) {
-        const float v1 = fabsf(M1[k]) + fabsf(I1[k]) + fabsf(D1[k]);
-        const float v2 = fabsf(M2[k]) + fabsf(I2[k]) + fabsf(D2[k]);
+        const float v1 = fabsf(S1.M[k]) + fabsf(S1.I[k]) + fabsf(S1.D[k]);
+        const float v2 = fabsf(S0.M[k]) + fabsf(S0.I[k]) + fabsf(S0.D[k]);
         nan |= isnan(v1) || isnan(v2);
         m = fmaxf(m, fmaxf(v1, v2));
       }
@@ -198,32 +262,35 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
       if (!nan && m > 0.0f && m < thresh) {
 #pragma unroll
         for (int k = 0; k < NR; ++k) {
-          M1[k] *= factor;
-          I1[k] *= factor;
-          D1[k] *= factor;
-          M2[k] *= factor;
-          I2[k] *= factor;
-          D2[k] *= factor;
+          S1.M[k] *= factor;
+          S1.I[k] *= factor;
+          S1.D[k] *= factor;
+          S0.M[k] *= factor;
+          S0.I[k] *= factor;
+          S0.D[k] *= factor;
         }
-        pM *= factor;
-        pI *= factor;
-        pD *= factor;
         acc *= factor;
+        u0.M *= factor;
+        u0.I *= factor;
+        u0.D *= factor;
         bound *= factor;
         sh += shift_step;
       }
     }
   }
+  if (d <= dmax)  // an odd rlen + hlen ends on a first half
+    sweep_step<NR, kPerBase, kRagged>(c, tr, lane0, bound, hp[d], win, S1,
+                                      S0, u1, u0, acc, lane, d, R, rl, hl);
   // one lane owns row rlen - 1; every other lane's acc is 0
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(kFull, acc, off);
-  if (lane == 0) {
+  if (lane0) {
     acc_out[b] = acc;
     shift_out[b] = sh;
   }
 }
 
-template <int NR, bool kPerBase>
+template <int NR, bool kPerBase, bool kRagged>
 int launch_pairhmm(const void* read, const void* p_err, const void* rlen,
                    const void* hap, const void* hlen, int B, int R, int H,
                    const Trans& tr, void* acc_out, void* shift_out,
@@ -231,13 +298,13 @@ int launch_pairhmm(const void* read, const void* p_err, const void* rlen,
   const size_t smem = (size_t)kWarps * (32 * NR + H + R);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        pairhmm_kernel<NR, kPerBase>,
+        pairhmm_kernel<NR, kPerBase, kRagged>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int grid = (B + kWarps - 1) / kWarps;
   if (grid > 0) {
-    pairhmm_kernel<NR, kPerBase>
+    pairhmm_kernel<NR, kPerBase, kRagged>
         <<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
             (const uint8_t*)read, (const float*)p_err, (const int*)rlen,
             (const uint8_t*)hap, (const int*)hlen, B, R, H, tr,
@@ -251,11 +318,17 @@ int dispatch_rows(const void* read, const void* p_err, const void* rlen,
                   const void* hap, const void* hlen, int B, int R, int H,
                   const Trans& tr, void* acc_out, void* shift_out,
                   void* stream) {
+  if (R < 1 || H < 1) return (int)cudaErrorInvalidValue;
   switch ((R + 31) / 32) {
-#define FGT_CASE(N)                                                        \
-  case N:                                                                  \
-    return launch_pairhmm<N, kPerBase>(read, p_err, rlen, hap, hlen, B, R, \
-                                       H, tr, acc_out, shift_out, stream);
+#define FGT_CASE(N)                                                     \
+  case N:                                                               \
+    return R == 32 * N                                                  \
+               ? launch_pairhmm<N, kPerBase, false>(                    \
+                     read, p_err, rlen, hap, hlen, B, R, H, tr, acc_out, \
+                     shift_out, stream)                                 \
+               : launch_pairhmm<N, kPerBase, true>(                     \
+                     read, p_err, rlen, hap, hlen, B, R, H, tr, acc_out, \
+                     shift_out, stream);
     FGT_CASE(1)
     FGT_CASE(2)
     FGT_CASE(3)
