@@ -130,8 +130,7 @@ template <int NR, bool kPerBase, bool kRagged>
 __device__ __forceinline__ void sweep_step(
     const Rows<NR>& c, const Trans& tr, bool lane0, float bound,
     unsigned hap_byte, unsigned& win, const Diag<NR>& X, Diag<NR>& Y,
-    Above& uX, const Above& uY, float& acc, int lane, int d, int R, int rl,
-    int hl) {
+    Above& uX, const Above& uY, float (&acc)[NR]) {
   uX.M = __shfl_up_sync(kFull, X.M[NR - 1], 1);
   uX.I = __shfl_up_sync(kFull, X.I[NR - 1], 1);
   uX.D = __shfl_up_sync(kFull, X.D[NR - 1], 1);
@@ -148,25 +147,21 @@ __device__ __forceinline__ void sweep_step(
     const float d2u = k == 0 ? uY.D : Y.D[k - 1];
     const float m1u = k == 0 ? uX.M : X.M[k - 1];
     const float i1u = k == 0 ? uX.I : X.I[k - 1];
-    const int r = lane * NR + k;
-    const int j = d - r - 1;
-    float Mn = 0.0f, In = 0.0f, Dn = 0.0f;
-    if (j >= 1 && r < R) {
-      const bool match = (win & c.rmask & (15u << (4 * k))) != 0u;
-      const float prior = match ? c.pm[k] : c.pmm[k];
-      const float p_ins = kPerBase ? c.ti[k] : tr.p_ins;
-      const float p_del = kPerBase ? c.td[k] : tr.p_del;
-      const float p_cont = kPerBase ? c.tc[k] : tr.p_cont;
-      const float a_mm = kPerBase ? c.tmm[k] : tr.a_mm;
-      const float a_im = kPerBase ? c.tim[k] : tr.a_im;
-      Mn = prior * __fmaf_rn(m2u, a_mm, (i2u + d2u) * a_im);
-      In = __fmaf_rn(m1u, p_ins, i1u * p_cont);
-      Dn = __fmaf_rn(X.M[k], p_del, X.D[k] * p_cont);
-      if (r + 1 == rl && j <= hl) acc += Mn + In;
-    }
+    const bool match = (win & c.rmask & (15u << (4 * k))) != 0u;
+    const float prior = match ? c.pm[k] : c.pmm[k];
+    const float p_ins = kPerBase ? c.ti[k] : tr.p_ins;
+    const float p_del = kPerBase ? c.td[k] : tr.p_del;
+    const float p_cont = kPerBase ? c.tc[k] : tr.p_cont;
+    const float a_mm = kPerBase ? c.tmm[k] : tr.a_mm;
+    const float a_im = kPerBase ? c.tim[k] : tr.a_im;
+    float Mn = prior * __fmaf_rn(m2u, a_mm, (i2u + d2u) * a_im);
+    float In = __fmaf_rn(m1u, p_ins, i1u * p_cont);
+    float Dn = __fmaf_rn(X.M[k], p_del, X.D[k] * p_cont);
+    if (kRagged && !((c.inside >> k) & 1u)) Mn = In = Dn = 0.0f;
     Y.M[k] = Mn;
     Y.I[k] = In;
     Y.D[k] = Dn;
+    acc[k] += Mn + In;
   }
 }
 
@@ -227,10 +222,11 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   const bool lane0 = lane == 0;
   float bound = 0x1p120f / fmaxf((float)hl, 1.0f);
   float sh = 0.0f;
-  float acc = 0.0f;
+  float acc[NR];
   Diag<NR> S0, S1;  // diagonals d - 2 and d - 1 at an odd d
 #pragma unroll
   for (int k = 0; k < NR; ++k) {
+    acc[k] = 0.0f;
     S0.M[k] = S0.I[k] = S0.D[k] = 0.0f;
     S1.M[k] = S1.I[k] = S1.D[k] = 0.0f;
   }
@@ -242,9 +238,9 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   int d = 1;
   for (; d + 1 <= dmax; d += 2) {
     sweep_step<NR, kPerBase, kRagged>(c, tr, lane0, bound, hp[d], win, S1,
-                                      S0, u1, u0, acc, lane, d, R, rl, hl);
+                                      S0, u1, u0, acc);
     sweep_step<NR, kPerBase, kRagged>(c, tr, lane0, bound, hp[d + 1], win,
-                                      S0, S1, u0, u1, acc, lane, d + 1, R, rl, hl);
+                                      S0, S1, u0, u1, acc);
     // S1 is diagonal d + 1, S0 diagonal d, u0 the row above at d
     if ((d + 1) % kRescaleEvery == 0) {
       float m = 0.0f;
@@ -268,8 +264,8 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
           S0.M[k] *= factor;
           S0.I[k] *= factor;
           S0.D[k] *= factor;
+          acc[k] *= factor;
         }
-        acc *= factor;
         u0.M *= factor;
         u0.I *= factor;
         u0.D *= factor;
@@ -280,12 +276,17 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   }
   if (d <= dmax)  // an odd rlen + hlen ends on a first half
     sweep_step<NR, kPerBase, kRagged>(c, tr, lane0, bound, hp[d], win, S1,
-                                      S0, u1, u0, acc, lane, d, R, rl, hl);
-  // one lane owns row rlen - 1; every other lane's acc is 0
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(kFull, acc, off);
+                                      S0, u1, u0, acc);
+  // the pair's sum is row rlen - 1's
+  const bool has_row = rl >= 1 && rl <= R;
+  const int last = has_row ? rl - 1 : 0;
+  float mine = 0.0f;
+#pragma unroll
+  for (int k = 0; k < NR; ++k)
+    if (k == last % NR) mine = acc[k];
+  mine = __shfl_sync(kFull, mine, last / NR);
   if (lane0) {
-    acc_out[b] = acc;
+    acc_out[b] = has_row ? mine : 0.0f;
     shift_out[b] = sh;
   }
 }
