@@ -9,12 +9,17 @@ Phases (each prints its numbers; any failure exits non-zero):
 1. card: device name, ``nvidia-smi`` name and power limit, whether the
    host C++ extension built;
 2. build: compiles the CUDA kernels from ``falcon_genome_tpu_torch/csrc``
-   (nvcc, sm_90a) and reports build time, registers and spills;
+   (nvcc, sm_90a) and reports build time, registers and spills, and for
+   the two PairHMM instantiations of the main path the instructions of
+   one anti-diagonal step in the library's SASS;
 3. kernels vs their plain PyTorch versions on the card at the main
    path's shapes: Smith-Waterman K1-K3 bit-equal, PairHMM K4 (scalar
    transitions) and K5 (per-base transition planes) within 1e-4 log10
-   with the same -inf lanes, also on quality-0 rescue pairs whose mass
-   passes through float32's subnormal range; median times of both;
+   with the same -inf lanes (and how many pairs are not bit-equal), also
+   on quality-0 rescue pairs whose mass passes through float32's
+   subnormal range, in small batches at the other row counts and the
+   sweep's edges, and on pairs rescaled at diagonal 64; the kernels'
+   phred table bit-equal to ``torch.pow``; median times of both;
 4. ``germline`` end to end through the CLI (``--device cuda``) on a
    simulated 1 Mb contig at 30x (150 bp pairs), with per-stage wall time,
    reads/s, kernel launch counts (each must be > 0) and call accuracy
@@ -244,6 +249,122 @@ def pad_row_pairs(rng, n, R, H):
     return reads, q, ins, dele, gcp, rl, haps, hl
 
 
+def edge_lanes(rng, B, R, H):
+    """K5 lanes (read, q, ins, del, gcp, rlen, hap, hlen) for a bucket:
+    reads cut from their haplotypes with 4% substitutions, and in the
+    first 12 lanes the edges of the sweep: hlen = H, rlen = R, rlen = 1,
+    rlen + hlen odd and even at the largest sum, N runs, codes above 4,
+    every code 0-15 at random, a one-base haplotype, a one-cell matrix."""
+    haps = rng.integers(0, 4, (B, H)).astype(np.uint8)
+    reads = np.full((B, R), 4, np.uint8)
+    rl = rng.integers(R // 2, R + 1, B).astype(np.int32)
+    hl = rng.integers(R, H + 1, B).astype(np.int32)
+    for b in range(B):
+        s = int(rng.integers(0, hl[b] - rl[b] + 1))
+        seg = haps[b, s:s + rl[b]].copy()
+        m = rng.random(rl[b]) < 0.04
+        seg[m] = (seg[m] + 1) % 4
+        reads[b, :rl[b]] = seg
+    hl[0] = H
+    rl[1], reads[1] = R, rng.integers(0, 4, R)
+    rl[2] = 1
+    rl[3], hl[3] = R, H
+    rl[4], hl[4] = R - 1, H
+    reads[5, ::3] = 4
+    haps[6, ::5] = 4
+    reads[7, 1], haps[7, 3] = 7, 9
+    haps[8] = rng.integers(0, 16, H)
+    reads[9] = rng.integers(0, 16, R)
+    hl[10] = 1
+    rl[11], hl[11] = 1, 1
+    q = rng.integers(10, 41, (B, R)).astype(np.uint8)
+    return (reads, q, *indel_planes(rng, rl, R), rl, haps, hl)
+
+
+EARLY_RESCALE_PHREDS = (45, 0, 13)   # ins, del, gcp
+
+
+def early_rescale_lanes(R, H):
+    """K5 lanes whose rescale fires at diagonal 64, the first test (see
+    tests/test_torch_kernels.early_rescale_pairs): quality-0 reads of 52,
+    64, 65 and 70 bases that mismatch all 12 bases of their haplotype,
+    with ins/del/gcp phreds 45/0/13; the first ends on that diagonal."""
+    rl = np.array([52, 64, 65, 70], np.int32)
+    n = len(rl)
+    real = np.arange(R)[None, :] < rl[:, None]
+    reads = np.where(real, 1, 4).astype(np.uint8)
+    haps = np.zeros((n, H), np.uint8)
+    haps[:, 12:] = 4
+    planes = [np.where(real, v, 0).astype(np.uint8)
+              for v in EARLY_RESCALE_PHREDS]
+    return (reads, np.zeros((n, R), np.uint8), *planes, rl, haps,
+            np.full(n, 12, np.int32))
+
+
+def hold_pairhmm(torch, name: str, got, want) -> tuple[float, int]:
+    """A PairHMM kernel's result against the plain version's: the same
+    -inf lanes and within 1e-4 log10 elsewhere.  Returns the largest
+    difference and the number of finite pairs that are not bit-equal."""
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    check(torch.equal(fin, torch.isfinite(got)),
+          f"{name}: -inf lanes differ from the plain version")
+    if not bool(fin.any()):
+        return 0.0, 0
+    err = float((got[fin] - want[fin]).abs().max())
+    check(err <= 1e-4, f"{name} differs from the plain version by {err}")
+    return err, int((got[fin] != want[fin]).sum())
+
+
+def pairhmm_edges(torch, P, to) -> float:
+    """K4 and K5 against the plain version in small batches at the other
+    row counts the dispatch instantiates (one and eight rows per thread,
+    a bucket that does not fill its threads' rows) and at the sweep's
+    edges, and on pairs rescaled at diagonal 64.  Returns the largest
+    difference."""
+    worst = 0.0
+    for R, H in ((8, 128), (96, 128), (256, 512), (150, 512)):
+        sets = [("edges", edge_lanes(np.random.default_rng(R), 256, R, H),
+                 (45, 45, 10))]
+        if R >= 96:
+            sets.append(("rescaled at d=64", early_rescale_lanes(R, H),
+                         EARLY_RESCALE_PHREDS))
+        for label, lanes, sc in sets:
+            a = to(*lanes)
+            want5 = P._pairhmm_plain(*(x.T for x in a[:5]), a[5][None],
+                                     a[7][None], a[6].T, R=R, H=H)
+            want4 = P._pairhmm_plain(a[0].T, a[1].T, *sc, a[5][None],
+                                     a[7][None], a[6].T, R=R, H=H)
+            e4, n4 = hold_pairhmm(torch, f"K4 R={R} H={H} {label}",
+                                  P.pairhmm_sc(a[0], a[1], a[5], a[6], a[7],
+                                               *sc), want4)
+            e5, n5 = hold_pairhmm(torch, f"K5 R={R} H={H} {label}",
+                                  P.pairhmm_pb(*a), want5)
+            finite = (int(torch.isfinite(want4).sum()),
+                      int(torch.isfinite(want5).sum()))
+            check(label == "edges" or finite == (len(a[5]),) * 2,
+                  f"R={R} H={H}: a pair rescaled at d=64 is -inf")
+            say(f"K4/K5 R={R} H={H} B={len(a[5])} {label}: max |dlog10| "
+                f"{e4:.3g} / {e5:.3g}, not bit-equal {n4} / {n5}, finite "
+                f"{finite[0]} / {finite[1]}, -inf lanes equal")
+            worst = max(worst, e4, e5)
+    return worst
+
+
+def prob_table_check(torch, P, quals) -> None:
+    """The kernels' 256-entry phred table against ``torch.pow`` on the
+    card: bit-equal for every phred, and through a plane."""
+    dev = quals.device
+    q = torch.arange(256, dtype=torch.uint8, device=dev)
+    table = P._prob_table(dev)
+    plane = torch.cat([quals.flatten(), q])
+    check(torch.equal(table, P._phred_to_prob(q))
+          and torch.equal(table[plane.long()], P._phred_to_prob(plane)),
+          "the phred table differs from torch.pow on the card")
+    say(f"phred table: table[q] == _phred_to_prob(q) bit for bit for q = "
+        f"0..255 and through a plane of {plane.numel()} phreds")
+
+
 def phase_kernels(torch, S, P, results) -> None:
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
@@ -352,15 +473,12 @@ def phase_kernels(torch, S, P, results) -> None:
     for b in resc:
         haps[b, hl[b]:] = 4
     args = to(reads, quals, rlen, haps, hl)
+    prob_table_check(torch, P, args[1])
     kl = P.pairhmm_sc(*args, 45, 45, 10)
     pl = P._pairhmm_plain(args[0].T, args[1].T, 45, 45, 10, args[2][None],
                           args[4][None], args[3].T, R=R, H=H)
-    torch.cuda.synchronize()
+    e4, n4 = hold_pairhmm(torch, "K4", kl, pl)
     fin = torch.isfinite(pl)
-    check(torch.equal(fin, torch.isfinite(kl)),
-          "K4 -inf lanes differ from the plain version")
-    e4 = float((kl[fin] - pl[fin]).abs().max())
-    check(e4 <= 1e-4, f"K4 differs from the plain version by {e4}")
     n_resc = int(fin.cpu().numpy()[resc].sum())
     check(n_resc == len(resc), "K4 rescaling pairs floored to -inf")
     t4 = cuda_ms(torch, lambda: P.pairhmm_sc(*args, 45, 45, 10), 5)
@@ -369,7 +487,8 @@ def phase_kernels(torch, S, P, results) -> None:
         args[3].T, R=R, H=H), 2)
     inf_related = int((~fin).cpu().numpy()[~unrelated].sum())
     say(f"K4 fgt_pairhmm R={R} H={H} B={B} 45/45/10, quals 10-40: "
-        f"max |dlog10| {e4:.3g} on {int(fin.sum())} finite pairs; -inf "
+        f"max |dlog10| {e4:.3g} on {int(fin.sum())} finite pairs, {n4} "
+        f"not bit-equal; -inf "
         f"lanes equal: {int((~fin).sum())} ({int(unrelated.sum())} pairs "
         f"unrelated, {inf_related} -inf among related); {n_resc} pairs "
         f"finite only through rescaling; kernel {t4:.3f} ms,"
@@ -379,7 +498,8 @@ def phase_kernels(torch, S, P, results) -> None:
         max_abs_err=e4, ms=t4, plain_ms=t4p,
         **bound(2 * B * R + B * H + 12 * B, PAIRHMM_FLOPS_PER_CELL * cells,
                 PEAK_F32))
-    e_crafted = crafted_pairs(torch, P, rng, R, H, to)
+    e_crafted = max(crafted_pairs(torch, P, rng, R, H, to),
+                    pairhmm_edges(torch, P, to))
 
     # K5: the same pairs with per-base transition planes; the last 64
     # lanes are pad-row pairs that only the rescale keeps finite
@@ -395,12 +515,8 @@ def phase_kernels(torch, S, P, results) -> None:
 
     kl = P.pairhmm_pb(*k5_args)
     pl = plain5(k5_args)
-    torch.cuda.synchronize()
+    e5, n5 = hold_pairhmm(torch, "K5", kl, pl)
     fin = torch.isfinite(pl)
-    check(torch.equal(fin, torch.isfinite(kl)),
-          "K5 -inf lanes differ from the plain version")
-    e5 = float((kl[fin] - pl[fin]).abs().max())
-    check(e5 <= 1e-4, f"K5 differs from the plain version by {e5}")
     n_craft = int(fin.cpu().numpy()[resc].sum())
     check(n_craft == len(resc), "K5 crafted pad-row pairs floored to -inf")
     thresh = P.RESCALE_THRESH
@@ -415,8 +531,8 @@ def phase_kernels(torch, S, P, results) -> None:
     t5p = cuda_ms(torch, lambda: plain5(k5_args), 2)
     say(f"K5 fgt_pairhmm_pb R={R} H={H} B={B}, ins/del phreds 25-45 along "
         f"each read, gcp 10, phred 0 past rlen: max |dlog10| {e5:.3g} on "
-        f"{int(fin.sum())} finite pairs; -inf lanes equal: "
-        f"{int((~fin).sum())}; {n_craft} crafted pad-row pairs finite, "
+        f"{int(fin.sum())} finite pairs, {n5} not bit-equal; -inf lanes "
+        f"equal: {int((~fin).sum())}; {n_craft} crafted pad-row pairs finite, "
         f"-inf without the rescale; kernel {t5:.3f} ms, plain {t5p:.3f} ms")
     cells = int((lanes[5].astype(np.int64) * lanes[7]).sum())
     results["fgt_pairhmm_pb"] = dict(
@@ -462,17 +578,15 @@ def crafted_pairs(torch, P, rng, R, H, to) -> float:
              lambda: P._pairhmm_plain(a[0].T, a[1].T, *(x.T for x in pl),
                                       a[2][None], a[4][None], a[3].T,
                                       R=R, H=H))):
-        kl, want = kern(), plain()
-        torch.cuda.synchronize()
+        want = plain()
+        e, n = hold_pairhmm(torch, f"{name}, rescue pairs", kern(), want)
         fin = torch.isfinite(want)
-        check(torch.equal(fin, torch.isfinite(kl)),
-              f"{name}: -inf lanes differ on the rescue pairs")
         check(bool(fin.any()), f"{name}: every rescue pair is -inf")
-        e = float((kl[fin] - want[fin]).abs().max())
-        check(e <= 1e-4, f"{name} differs on the rescue pairs by {e}")
         say(f"{name} on 64 quality-0 rescue pairs (mass through float32's "
-            f"subnormal range): max |dlog10| {e:.3g} on {int(fin.sum())} "
-            f"finite pairs, -inf lanes equal")
+            f"subnormal range, rescaled at diagonal 320, the last multiple "
+            f"of 64 of their sweeps): max |dlog10| {e:.3g} on "
+            f"{int(fin.sum())} finite pairs, {n} not bit-equal, -inf lanes "
+            f"equal")
         worst = max(worst, e)
     return worst
 
@@ -795,28 +909,82 @@ def phase_cards(cli, validate, sample, work: Path, count: int,
 # phase 7: the benchmark path (kernels K6, K7)
 # ---------------------------------------------------------------------------
 
-def sass_ffma_per_trip(so: Path, kernel: str, unroll: int) -> tuple[int, int]:
-    """(FFMAs in the body of ``kernel``'s loop, FFMAs per trip) in the
-    SASS of the built library: the body runs from a backward branch's
-    target to the branch; it holds ``unroll`` trips."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    res = subprocess.run([tool, "-sass", str(so)], capture_output=True,
-                         text=True, timeout=300)
-    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
-    funcs = re.split(r"\n\s*Function : ", res.stdout)
-    body = next((f for f in funcs[1:] if kernel in f.splitlines()[0]), None)
+_sass_text: dict[Path, str] = {}
+
+
+def sass_function(so: Path, kernel: str) -> list[tuple[int, str]]:
+    """(address, instruction) of the first function in the SASS of the
+    built library whose mangled name matches the regular expression
+    ``kernel`` (``cuobjdump -sass``, run once per library)."""
+    if so not in _sass_text:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        res = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                             text=True, timeout=300)
+        check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
+        _sass_text[so] = res.stdout
+    funcs = re.split(r"\n\s*Function : ", _sass_text[so])
+    body = next((f for f in funcs[1:]
+                 if re.search(kernel, f.splitlines()[0])), None)
     check(body is not None, f"no {kernel} in the SASS of {so.name}")
-    ins = [(int(a, 16), t) for a, t in
-           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
-    loop = 0
+    return [(int(a, 16), t) for a, t in
+            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+
+
+def sass_loops(ins) -> list[tuple[int, int]]:
+    """(first, last) addresses of every loop: a backward branch's target
+    and the branch.  A span that holds an ``EXIT`` is no loop: it is the
+    way back from out-of-line code placed behind the kernel's end."""
+    out = []
     for addr, text in ins:
         m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", text)
-        if m and int(m.group(1), 16) < addr:
-            lo = int(m.group(1), 16)
-            loop = max(loop, sum(1 for a, t in ins if lo <= a <= addr
-                                 and re.search(r"\bFFMA\b", t)))
+        if m and int(m.group(1), 16) < addr and not any(
+                int(m.group(1), 16) <= a <= addr and re.search(r"\bEXIT\b", t)
+                for a, t in ins):
+            out.append((int(m.group(1), 16), addr))
+    return out
+
+
+def sass_ffma_per_trip(so: Path, kernel: str, unroll: int) -> tuple[int, int]:
+    """(FFMAs in the body of ``kernel``'s loop, FFMAs per trip) in the
+    SASS of the built library; the body holds ``unroll`` trips."""
+    ins = sass_function(so, kernel)
+    loop = max((sum(1 for a, t in ins if lo <= a <= hi
+                    and re.search(r"\bFFMA\b", t))
+                for lo, hi in sass_loops(ins)), default=0)
     check(loop > 0, f"no loop with FFMAs in {kernel}'s SASS")
     return loop, loop // unroll
+
+
+def sass_sweep_counts(so: Path, kernel: str) -> dict:
+    """Instructions of one anti-diagonal step of a PairHMM kernel, from the
+    SASS of the built library.  The sweep is the loop with the most
+    floating-point instructions; the block of the rescale test inside it
+    (a forward branch over the butterfly shuffles of its warp maximum,
+    taken 63 times in 64) is left out, as is the out-of-line code behind
+    ``BRA.DIV`` (shuffles of a warp that is not converged); the three
+    ``SHFL.UP`` of a step say how many steps one trip holds."""
+    ins = sass_function(so, kernel)
+    fp = re.compile(r"\b(FFMA|FMUL|FADD)\b")
+    loops = sass_loops(ins)
+    check(bool(loops), f"no loop in {kernel}'s SASS")
+    lo, hi = max(loops, key=lambda r: sum(
+        1 for a, t in ins if r[0] <= a <= r[1] and fp.search(t)))
+    body = [(a, t) for a, t in ins if lo <= a <= hi]
+    cold = (0, 0)
+    for a, t in body:
+        m = re.search(r"\bBRA\s[^;]*?0x([0-9a-f]+)", t)
+        if not m or not a < int(m.group(1), 16) <= hi:
+            continue    # not a forward branch inside the loop
+        end = int(m.group(1), 16)
+        if end - a > cold[1] - cold[0] and any(
+                a < x < end and "SHFL.BFLY" in u for x, u in body):
+            cold = (a, end)
+    hot = [t for a, t in body if not cold[0] < a < cold[1]]
+    steps = sum(1 for t in hot if "SHFL.UP" in t) / 3
+    check(steps >= 1, f"no sweep step in {kernel}'s SASS")
+    return dict(steps_per_trip=steps, per_step=len(hot) / steps,
+                fp_per_step=sum(1 for t in hot if fp.search(t)) / steps,
+                trip=len(hot), rescale_block=len(body) - len(hot))
 
 
 def phase_bench(torch, S, BK, results, so: Path, work: Path) -> None:
@@ -980,6 +1148,18 @@ def main() -> int:
             f"(one nvcc per source, in parallel); ptxas -v:")
         for row in ptxas_summary(report):
             say(f"  {row}")
+        # the PairHMM instantiations of the main path (five rows per
+        # thread at R = 160, every row inside the bucket)
+        for name, per_base in (("K4 fgt_pairhmm", 0), ("K5 fgt_pairhmm_pb",
+                                                       1)):
+            c = sass_sweep_counts(
+                so, f"pairhmm_kernelILi5ELb{per_base}ELb0EEEv")
+            say(f"{name} pairhmm_kernel<5, {str(bool(per_base)).lower()}, "
+                f"false>: {c['per_step']:.1f} instructions per "
+                f"anti-diagonal step, {c['fp_per_step']:.1f} of them "
+                f"FFMA/FMUL/FADD ({c['trip']} in a trip of "
+                f"{c['steps_per_trip']:.0f} steps; the rescale block of "
+                f"{c['rescale_block']}, run once in 64 steps, left out)")
 
         results: dict[str, dict] = {}
         k5_args = phase_kernels(torch, S, P, results)

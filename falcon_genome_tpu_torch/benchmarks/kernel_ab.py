@@ -9,10 +9,17 @@ own with ROOT first on ``sys.path``: it builds that checkout's kernels,
 then times its PairHMM kernels K4 (``pairhmm_sc``, 45/45/10) and K5
 (``pairhmm_pb``, per-base planes) at HaplotypeCaller's shape (R=160,
 H=384, 8192 pairs, the inputs of ``chip_smoke.py``'s phase 3 without its
-crafted pairs): CUDA events around each of 20 launches after a warm-up,
-the median.  Give the roots as parent, change, change, parent, so that
-drift of the card between runs shows.  Prints one JSON line per run;
-without a CUDA device it exits non-zero.
+crafted pairs), each through its wrapper, three ways.  ``k4_ms`` and
+``k5_ms``: CUDA events around each of 20 calls after a warm-up, each call
+waited for, the median (what a caller that reads every result back sees,
+the wrapper's host work included).  ``k4_queued_ms`` and ``k5_queued_ms``:
+events around 20 calls queued back to back, per call, the median of 5
+such runs (the device's time per call once the host runs ahead).
+``k4_kernel_ms`` and ``k5_kernel_ms``: the PairHMM kernel's own device
+time per launch from ``torch.profiler`` over 5 calls (null where the
+profiler records no device time).  Give the roots as parent, change,
+change, parent, so that drift of the card between runs shows.  Prints one
+JSON line per run; without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
 
@@ -56,18 +63,47 @@ def inputs(rng):
     return reads, quals, ins, dele, gcp, rlen, haps, hl
 
 
-def median_ms(fn) -> float:
-    fn()
-    times = []
-    for _ in range(N_TIMED):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+def event_ms(fn, calls: int) -> float:
+    """Milliseconds between CUDA events around ``calls`` calls of ``fn``
+    queued back to back; the last one is waited for."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def median_ms(fn) -> float:
+    """One call at a time, each waited for: the median of N_TIMED."""
+    fn()
+    return statistics.median(event_ms(fn, 1) for _ in range(N_TIMED))
+
+
+def queued_ms(fn) -> float:
+    """N_TIMED calls back to back, per call: the median of 5 such runs."""
+    fn()
+    return statistics.median(event_ms(fn, N_TIMED) / N_TIMED
+                             for _ in range(5))
+
+
+def kernel_ms(fn) -> float | None:
+    """Device time per launch of the kernels named ``pairhmm_kernel``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if "pairhmm_kernel" in e.key and e.count:
+            us = getattr(e, "device_time_total", None) or \
+                getattr(e, "cuda_time_total", 0)
+            return us / e.count / 1e3 if us else None
+    return None
 
 
 def time_root(root: Path) -> dict:
@@ -83,11 +119,17 @@ def time_root(root: Path) -> dict:
     t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
          for x in inputs(np.random.default_rng(7))]
     read, q, ins, dele, gcp, rlen, hap, hlen = t
-    return {"root": str(root),
-            "k4_ms": median_ms(lambda: P.pairhmm_sc(read, q, rlen, hap,
-                                                    hlen, 45, 45, 10)),
-            "k5_ms": median_ms(lambda: P.pairhmm_pb(read, q, ins, dele, gcp,
-                                                    rlen, hap, hlen))}
+
+    def k4():
+        return P.pairhmm_sc(read, q, rlen, hap, hlen, 45, 45, 10)
+
+    def k5():
+        return P.pairhmm_pb(read, q, ins, dele, gcp, rlen, hap, hlen)
+
+    return {"root": str(root), "k4_ms": median_ms(k4),
+            "k5_ms": median_ms(k5), "k4_queued_ms": queued_ms(k4),
+            "k5_queued_ms": queued_ms(k5), "k4_kernel_ms": kernel_ms(k4),
+            "k5_kernel_ms": kernel_ms(k5)}
 
 
 def main(argv: list[str]) -> int:

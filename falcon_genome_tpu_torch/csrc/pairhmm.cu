@@ -35,8 +35,9 @@
 //
 // What bounds it on the H100: a serial f32 recurrence over rlen + hlen
 // anti-diagonals per pair, 8 floating-point instructions per cell and
-// ~1 KB of input per pair -- bound by instruction issue and by the latency
-// of one dependent chain per diagonal, never by DRAM.
+// ~1 KB of input per pair -- bound by the instruction rate (every warp
+// instruction of a step, float or not, takes a scheduler slot of its SM
+// sub-partition), never by DRAM.
 //
 // Design: one warp per read x haplotype pair.  Thread t owns NR
 // consecutive read rows (NR = ceil(R / 32), a template parameter, so the
@@ -54,9 +55,11 @@
 // p_ins = p_cont = 1, a_mm = a_im = 0) feed that maximum too, so they are
 // computed like any other cell, as in the plain version.
 //
-// What the design does about the issue bound (per diagonal of a thread's
-// NR rows: 3 shuffles, one shared-memory byte, and per cell 8 float
-// instructions, one AND and one select):
+// What the design does about that bound (per diagonal of a thread's
+// NR rows: 3 shuffles, 3 selects for the boundary, one shared-memory byte,
+// and per cell 8 float instructions of the recurrence, 2 adds for the
+// row's sum, one AND and one select; about 74 instructions at NR = 5, of
+// which 50 are FFMA/FMUL/FADD):
 //   * bases are 4-bit masks (A, C, G, T = 1, 2, 4, 8; any other code 15),
 //     so "equal, or either is N" is one AND.  The haplotype enters shared
 //     memory as masks, padded in front by 32 NR bytes and behind by R
@@ -65,8 +68,10 @@
 //     d the byte row k - 1 used at d - 1: the thread's NR masks live in one
 //     32-bit window that shifts by 4 bits per diagonal and takes one new
 //     byte;
-//   * the sweep is unrolled by two diagonals with the two state sets
-//     swapping roles by name, so no register moves from "d - 1" to "d - 2";
+//   * a trip of the sweep takes four diagonals, the two state sets
+//     swapping roles by name, so no register moves from "d - 1" to "d - 2"
+//     and a quarter of the loop's own instructions per diagonal; the
+//     rescale test falls on the last diagonal of a trip;
 //   * no per-cell test of j >= 1: a cell left of the matrix has only zero
 //     inputs (the one exception, row 0 at d = 1, is cut by starting the
 //     boundary one diagonal late), and zero inputs give exact zeros;
@@ -74,27 +79,37 @@
 //     rlen - 1's is the pair's (it sees exactly j in [1, hlen] by the time
 //     the sweep ends at d = rlen + hlen, and +0 before), the others are
 //     dropped.  This takes the test of "last row, inside the haplotype"
-//     out of the cell;
+//     out of the cell; up to diagonal rlen that row is left of the matrix,
+//     so the trips before it skip the sums;
 //   * rows past R (R not 32 NR) are cut by a select, in an instantiation
 //     of its own (kRagged) that the full buckets do not pay for.
-// The rescale test is a warp max-reduction with shuffles, at the same
-// diagonals and with the same threshold and factor as the reference; no
-// float64 anywhere.
+//   * phreds arrive as the uint8 they are and turn into probabilities
+//     through a 256-entry float32 table that the wrapper fills once per
+//     device with the plain version's own torch.pow, so no float32 planes
+//     are made, written and read back around the launch.
+// The per-thread state is kept in plain arrays passed by reference: the
+// same state gathered into one struct went to local memory and cost half
+// of the gain.  The rescale test is a warp max-reduction with shuffles,
+// at the same diagonals and with the same threshold and factor as the
+// reference; no float64 anywhere.  Left for later: the 57% of cell slots
+// that lie outside the matrix at HaplotypeCaller's shape (a warp computes
+// all 32 NR rows on every one of rlen + hlen diagonals), by streaming the
+// next pair into idle lanes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 4;  // pairs (warps) per block
+constexpr int kWarps = 8;  // pairs (warps) per block: 8 timed 4% below 4
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRescaleEvery = 64;
 
-// Transition constants: scalars (K4) or (B, R) probability planes (K5).
+// Transition constants: scalars (K4) or (B, R) phred planes (K5).
 struct Trans {
   float p_ins, p_del, p_cont, a_mm, a_im;
-  const float* ins;  // planes; null for K4
-  const float* del;
-  const float* cont;
+  const uint8_t* ins;  // planes; null for K4
+  const uint8_t* del;
+  const uint8_t* cont;
 };
 
 // A base code as a mask: two bases match (equal, or either one is not
@@ -118,15 +133,15 @@ struct Rows {
   float pm[NR], pmm[NR];  // prior on a match, on a mismatch
   // K5's transitions (unused, and eliminated, for K4)
   float ti[NR], td[NR], tc[NR], tmm[NR], tim[NR];
-  unsigned rmask;  // the rows' read-base masks, 4 bits each
-  unsigned inside; // bit k: row k < R (kRagged only)
+  unsigned rmask;   // the rows' read-base masks, 4 bits each
+  unsigned inside;  // bit k: row k < R (kRagged only)
 };
 
 // Diagonal d from X (diagonal d - 1) and Y (d - 2); the result overwrites
 // Y, rows last to first, so that row k - 1 of Y is still d - 2 when row k
 // reads it.  uX receives the row above at d - 1 (the next step's d - 2),
 // uY holds the one the previous step received.
-template <int NR, bool kPerBase, bool kRagged>
+template <int NR, bool kPerBase, bool kRagged, bool kSum>
 __device__ __forceinline__ void sweep_step(
     const Rows<NR>& c, const Trans& tr, bool lane0, float bound,
     unsigned hap_byte, unsigned& win, const Diag<NR>& X, Diag<NR>& Y,
@@ -161,14 +176,68 @@ __device__ __forceinline__ void sweep_step(
     Y.M[k] = Mn;
     Y.I[k] = In;
     Y.D[k] = Dn;
-    acc[k] += Mn + In;
+    if (kSum) acc[k] += Mn + In;
+  }
+}
+
+// Diagonals d (odd) and d + 1: S1 and S0 hold d - 1 and d - 2 going in,
+// d + 1 and d coming out; hp[d] is the thread's new haplotype byte at d.
+template <int NR, bool kPerBase, bool kRagged, bool kSum>
+__device__ __forceinline__ void sweep_two(
+    const Rows<NR>& c, const Trans& tr, bool lane0, float bound,
+    const uint8_t* hp, int d, unsigned& win, Diag<NR>& S0, Diag<NR>& S1,
+    Above& u0, Above& u1, float (&acc)[NR]) {
+  sweep_step<NR, kPerBase, kRagged, kSum>(c, tr, lane0, bound, hp[d], win,
+                                          S1, S0, u1, u0, acc);
+  sweep_step<NR, kPerBase, kRagged, kSum>(c, tr, lane0, bound, hp[d + 1],
+                                          win, S0, S1, u0, u1, acc);
+}
+
+// The rescale test after diagonal d (a multiple of 64): A and B hold
+// diagonals d and d - 1, u the row above at d - 1 (the next step's d - 2).
+template <int NR>
+__device__ __forceinline__ void rescale(Diag<NR>& A, Diag<NR>& B, Above& u,
+                                        float& bound, float (&acc)[NR],
+                                        float& sh) {
+  const float thresh = 0x1p-60f;
+  const float factor = 0x1p100f;
+  const float shift_step = 30.102999566398120f;  // 100 log10(2)
+  float m = 0.0f;
+  bool nan = false;
+#pragma unroll
+  for (int k = 0; k < NR; ++k) {
+    const float v1 = fabsf(A.M[k]) + fabsf(A.I[k]) + fabsf(A.D[k]);
+    const float v2 = fabsf(B.M[k]) + fabsf(B.I[k]) + fabsf(B.D[k]);
+    nan |= isnan(v1) || isnan(v2);
+    m = fmaxf(m, fmaxf(v1, v2));
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+  nan = __any_sync(kFull, nan);
+  if (!nan && m > 0.0f && m < thresh) {
+#pragma unroll
+    for (int k = 0; k < NR; ++k) {
+      A.M[k] *= factor;
+      A.I[k] *= factor;
+      A.D[k] *= factor;
+      B.M[k] *= factor;
+      B.I[k] *= factor;
+      B.D[k] *= factor;
+      acc[k] *= factor;
+    }
+    u.M *= factor;
+    u.I *= factor;
+    u.D *= factor;
+    bound *= factor;
+    sh += shift_step;
   }
 }
 
 template <int NR, bool kPerBase, bool kRagged>
 __global__ void __launch_bounds__(kWarps * 32)
 pairhmm_kernel(const uint8_t* __restrict__ read,
-               const float* __restrict__ p_err,
+               const uint8_t* __restrict__ base_q,
+               const float* __restrict__ prob,
                const int* __restrict__ rlen, const uint8_t* __restrict__ hap,
                const int* __restrict__ hlen, int B, int R, int H, Trans tr,
                float* __restrict__ acc_out,
@@ -191,10 +260,6 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
 
   const int rl = rlen[b];
   const int hl = hlen[b];
-  const float thresh = 0x1p-60f;
-  const float factor = 0x1p100f;
-  const float shift_step = 30.102999566398120f;  // 100 log10(2)
-
   Rows<NR> c;
   c.rmask = 0u;
   c.inside = 0u;
@@ -203,15 +268,16 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
     const int r = lane * NR + k;
     const bool row = r < R;
     const size_t at = (size_t)b * R + r;
-    const float pe = row ? p_err[at] : 0.0f;
+    // phred -> probability through the wrapper's 256-entry table
+    const float pe = row ? __ldg(prob + base_q[at]) : 0.0f;
     c.rmask |= base_mask(row ? read[at] : 4u) << (4 * k);
     c.inside |= (row ? 1u : 0u) << k;
     c.pm[k] = 1.0f - pe;
     c.pmm[k] = pe * (1.0f / 3.0f);
     if constexpr (kPerBase) {
-      c.ti[k] = row ? tr.ins[at] : 0.0f;
-      c.td[k] = row ? tr.del[at] : 0.0f;
-      c.tc[k] = row ? tr.cont[at] : 0.0f;
+      c.ti[k] = row ? __ldg(prob + tr.ins[at]) : 0.0f;
+      c.td[k] = row ? __ldg(prob + tr.del[at]) : 0.0f;
+      c.tc[k] = row ? __ldg(prob + tr.cont[at]) : 0.0f;
       c.tmm[k] = 1.0f - fminf(1.0f, c.ti[k] + c.td[k]);
       c.tim[k] = 1.0f - c.tc[k];
     }
@@ -235,50 +301,36 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   Above u0{0.0f, 0.0f, 0.0f}, u1{0.0f, 0.0f, 0.0f};
   unsigned win = 0u;
   const int dmax = min(rl + hl, R + H);
+  const bool has_row = rl >= 1 && rl <= R;
+  // up to diagonal rlen, row rlen - 1 is left of the matrix and its sum
+  // stays +0: those trips leave the sums out
+  const int dquiet = has_row ? min(rl, dmax) : dmax;
   int d = 1;
-  for (; d + 1 <= dmax; d += 2) {
-    sweep_step<NR, kPerBase, kRagged>(c, tr, lane0, bound, hp[d], win, S1,
-                                      S0, u1, u0, acc);
-    sweep_step<NR, kPerBase, kRagged>(c, tr, lane0, bound, hp[d + 1], win,
-                                      S0, S1, u0, u1, acc);
-    // S1 is diagonal d + 1, S0 diagonal d, u0 the row above at d
-    if ((d + 1) % kRescaleEvery == 0) {
-      float m = 0.0f;
-      bool nan = false;
-#pragma unroll
-      for (int k = 0; k < NR; ++k) {
-        const float v1 = fabsf(S1.M[k]) + fabsf(S1.I[k]) + fabsf(S1.D[k]);
-        const float v2 = fabsf(S0.M[k]) + fabsf(S0.I[k]) + fabsf(S0.D[k]);
-        nan |= isnan(v1) || isnan(v2);
-        m = fmaxf(m, fmaxf(v1, v2));
-      }
-      for (int off = 16; off > 0; off >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
-      nan = __any_sync(kFull, nan);
-      if (!nan && m > 0.0f && m < thresh) {
-#pragma unroll
-        for (int k = 0; k < NR; ++k) {
-          S1.M[k] *= factor;
-          S1.I[k] *= factor;
-          S1.D[k] *= factor;
-          S0.M[k] *= factor;
-          S0.I[k] *= factor;
-          S0.D[k] *= factor;
-          acc[k] *= factor;
-        }
-        u0.M *= factor;
-        u0.I *= factor;
-        u0.D *= factor;
-        bound *= factor;
-        sh += shift_step;
-      }
-    }
+  for (; d + 3 <= dquiet; d += 4) {
+    sweep_two<NR, kPerBase, kRagged, false>(c, tr, lane0, bound, hp, d, win,
+                                            S0, S1, u0, u1, acc);
+    sweep_two<NR, kPerBase, kRagged, false>(c, tr, lane0, bound, hp, d + 2,
+                                            win, S0, S1, u0, u1, acc);
+    // S1 is diagonal d + 3, S0 d + 2, u0 the row above at d + 2
+    if ((d + 3) % kRescaleEvery == 0) rescale(S1, S0, u0, bound, acc, sh);
+  }
+  for (; d + 3 <= dmax; d += 4) {
+    sweep_two<NR, kPerBase, kRagged, true>(c, tr, lane0, bound, hp, d, win,
+                                           S0, S1, u0, u1, acc);
+    sweep_two<NR, kPerBase, kRagged, true>(c, tr, lane0, bound, hp, d + 2,
+                                           win, S0, S1, u0, u1, acc);
+    if ((d + 3) % kRescaleEvery == 0) rescale(S1, S0, u0, bound, acc, sh);
+  }
+  // at most three diagonals are left, none of them a multiple of 64
+  if (d + 1 <= dmax) {
+    sweep_two<NR, kPerBase, kRagged, true>(c, tr, lane0, bound, hp, d, win,
+                                           S0, S1, u0, u1, acc);
+    d += 2;
   }
   if (d <= dmax)  // an odd rlen + hlen ends on a first half
-    sweep_step<NR, kPerBase, kRagged>(c, tr, lane0, bound, hp[d], win, S1,
-                                      S0, u1, u0, acc);
+    sweep_step<NR, kPerBase, kRagged, true>(c, tr, lane0, bound, hp[d], win,
+                                            S1, S0, u1, u0, acc);
   // the pair's sum is row rlen - 1's
-  const bool has_row = rl >= 1 && rl <= R;
   const int last = has_row ? rl - 1 : 0;
   float mine = 0.0f;
 #pragma unroll
@@ -291,45 +343,52 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   }
 }
 
+// The arguments of one call, as the C entry points receive them.
+struct Call {
+  const void* read;
+  const void* base_q;  // (B, R) uint8 phreds
+  const void* prob;    // float32[256]: phred -> probability
+  const void* rlen;
+  const void* hap;
+  const void* hlen;
+  int B, R, H;
+  Trans tr;
+  void* acc_out;
+  void* shift_out;
+  void* stream;
+};
+
 template <int NR, bool kPerBase, bool kRagged>
-int launch_pairhmm(const void* read, const void* p_err, const void* rlen,
-                   const void* hap, const void* hlen, int B, int R, int H,
-                   const Trans& tr, void* acc_out, void* shift_out,
-                   void* stream) {
-  const size_t smem = (size_t)kWarps * (32 * NR + H + R);
+int launch_pairhmm(const Call& a) {
+  const size_t smem = (size_t)kWarps * (32 * NR + a.H + a.R);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         pairhmm_kernel<NR, kPerBase, kRagged>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int grid = (B + kWarps - 1) / kWarps;
+  const int grid = (a.B + kWarps - 1) / kWarps;
   if (grid > 0) {
     pairhmm_kernel<NR, kPerBase, kRagged>
-        <<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-            (const uint8_t*)read, (const float*)p_err, (const int*)rlen,
-            (const uint8_t*)hap, (const int*)hlen, B, R, H, tr,
-            (float*)acc_out, (float*)shift_out);
+        <<<grid, kWarps * 32, smem, (cudaStream_t)a.stream>>>(
+            (const uint8_t*)a.read, (const uint8_t*)a.base_q,
+            (const float*)a.prob, (const int*)a.rlen, (const uint8_t*)a.hap,
+            (const int*)a.hlen, a.B, a.R, a.H, a.tr, (float*)a.acc_out,
+            (float*)a.shift_out);
   }
   return (int)cudaGetLastError();
 }
 
+// NR rows per thread for the bucket R; a bucket that fills all 32 NR rows
+// takes the instantiation without the row select.
 template <bool kPerBase>
-int dispatch_rows(const void* read, const void* p_err, const void* rlen,
-                  const void* hap, const void* hlen, int B, int R, int H,
-                  const Trans& tr, void* acc_out, void* shift_out,
-                  void* stream) {
-  if (R < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  switch ((R + 31) / 32) {
-#define FGT_CASE(N)                                                     \
-  case N:                                                               \
-    return R == 32 * N                                                  \
-               ? launch_pairhmm<N, kPerBase, false>(                    \
-                     read, p_err, rlen, hap, hlen, B, R, H, tr, acc_out, \
-                     shift_out, stream)                                 \
-               : launch_pairhmm<N, kPerBase, true>(                     \
-                     read, p_err, rlen, hap, hlen, B, R, H, tr, acc_out, \
-                     shift_out, stream);
+int dispatch_rows(const Call& a) {
+  if (a.R < 1 || a.H < 1) return (int)cudaErrorInvalidValue;
+  switch ((a.R + 31) / 32) {
+#define FGT_CASE(N)                                             \
+  case N:                                                       \
+    return a.R == 32 * N ? launch_pairhmm<N, kPerBase, false>(a) \
+                         : launch_pairhmm<N, kPerBase, true>(a);
     FGT_CASE(1)
     FGT_CASE(2)
     FGT_CASE(3)
@@ -346,26 +405,27 @@ int dispatch_rows(const void* read, const void* p_err, const void* rlen,
 
 }  // namespace
 
-extern "C" int fgt_pairhmm(const void* read, const void* p_err,
-                           const void* rlen, const void* hap,
-                           const void* hlen, int B, int R, int H,
-                           float p_ins, float p_del, float p_cont,
+extern "C" int fgt_pairhmm(const void* read, const void* base_q,
+                           const void* table, const void* rlen,
+                           const void* hap, const void* hlen, int B, int R,
+                           int H, float p_ins, float p_del, float p_cont,
                            float a_mm, float a_im, void* acc_out,
                            void* shift_out, void* stream) {
   const Trans tr{p_ins, p_del, p_cont, a_mm, a_im, nullptr, nullptr,
                  nullptr};
-  return dispatch_rows<false>(read, p_err, rlen, hap, hlen, B, R, H, tr,
-                              acc_out, shift_out, stream);
+  return dispatch_rows<false>(Call{read, base_q, table, rlen, hap, hlen, B,
+                                   R, H, tr, acc_out, shift_out, stream});
 }
 
-extern "C" int fgt_pairhmm_pb(const void* read, const void* p_err,
-                              const void* p_ins, const void* p_del,
-                              const void* p_cont, const void* rlen,
-                              const void* hap, const void* hlen, int B,
-                              int R, int H, void* acc_out, void* shift_out,
+extern "C" int fgt_pairhmm_pb(const void* read, const void* base_q,
+                              const void* ins_q, const void* del_q,
+                              const void* gcp, const void* table,
+                              const void* rlen, const void* hap,
+                              const void* hlen, int B, int R, int H,
+                              void* acc_out, void* shift_out,
                               void* stream) {
-  const Trans tr{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, (const float*)p_ins,
-                 (const float*)p_del, (const float*)p_cont};
-  return dispatch_rows<true>(read, p_err, rlen, hap, hlen, B, R, H, tr,
-                             acc_out, shift_out, stream);
+  const Trans tr{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, (const uint8_t*)ins_q,
+                 (const uint8_t*)del_q, (const uint8_t*)gcp};
+  return dispatch_rows<true>(Call{read, base_q, table, rlen, hap, hlen, B, R,
+                                  H, tr, acc_out, shift_out, stream});
 }

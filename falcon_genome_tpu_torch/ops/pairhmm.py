@@ -20,14 +20,18 @@ Two kernel wrappers (``csrc/pairhmm.cu``): :func:`pairhmm_sc` (kernel K4,
 scalar transitions) and :func:`pairhmm_pb` (kernel K5, per-base
 transition planes).  CPU tensors run the plain version
 (:func:`_pairhmm_plain`, the twin of the reference's ``_pairhmm_jax``),
-CUDA tensors launch the kernel or raise.  :func:`pairhmm_logp` routes as
-the reference does: all three transitions scalar → K4, any of them a
-plane → K5 with the scalars broadcast to planes; under an active device
-mesh (``parallel.mesh``) it splits the pairs over the mesh's devices.
+CUDA tensors launch the kernel or raise; the kernels take the phreds as
+the uint8 they are and turn them into probabilities through a 256-entry
+table that :func:`_phred_to_prob` fills once per device.
+:func:`pairhmm_logp` routes as the reference does: all three transitions
+scalar → K4, any of them a plane → K5 with the scalars broadcast to
+planes; under an active device mesh (``parallel.mesh``) it splits the
+pairs over the mesh's devices.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import threading
 
@@ -64,9 +68,34 @@ def _phred_to_prob(q) -> torch.Tensor:
     return torch.pow(10.0, -q.to(torch.float32) / 10.0)
 
 
+_prob_tables: dict[torch.device, torch.Tensor] = {}
+
+
+def _prob_table(device: torch.device) -> torch.Tensor:
+    """float32[256] on ``device``: the probability of every uint8 phred,
+    made once per device by :func:`_phred_to_prob`, so a kernel that looks
+    a phred up reads the bits the plain version computes."""
+    with _launch_lock:
+        table = _prob_tables.get(device)
+        if table is None:
+            table = _phred_to_prob(torch.arange(
+                256, dtype=torch.uint8, device=device)).contiguous()
+            _prob_tables[device] = table
+        return table
+
+
+def _base_mask(code: int) -> int:
+    """The kernels' base encoding: A, C, G, T = 1, 2, 4, 8 and every other
+    code 15, so that two bases match (equal, or either one is not A/C/G/T)
+    exactly when their masks share a bit."""
+    return 1 << code if code < 4 else 15
+
+
+@functools.lru_cache(maxsize=None)
 def _transitions(ins_q: int, del_q: int, gcp: int
                  ) -> tuple[float, float, float, float, float]:
-    """(p_ins, p_del, p_cont, a_mm, a_im) rounded to float32."""
+    """(p_ins, p_del, p_cont, a_mm, a_im) rounded to float32 (kept per
+    phred triple: a call pays for no host arithmetic)."""
     p_ins, p_del, p_cont = (_phred_to_prob(q) for q in (ins_q, del_q, gcp))
     a_mm = 1.0 - torch.clamp(p_ins + p_del, max=1.0)
     a_im = 1.0 - p_cont
@@ -103,12 +132,15 @@ def _fma(a, b, c):
 
 
 def _finish(acc: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
-    """log10 likelihood from the scaled sum and its log10 shift."""
+    """log10 likelihood from the scaled sum and its log10 shift.  The
+    -inf is a Python scalar: a tensor made from it on the card would be a
+    host-to-device copy per call, which makes the host wait for the
+    kernel before it."""
     tiny = torch.finfo(torch.float32).tiny
     return torch.where(
         acc > 0.0,
         torch.log10(torch.clamp(acc, min=tiny)) - shift - LOG10_INITIAL,
-        torch.tensor(-math.inf, dtype=torch.float32, device=acc.device))
+        -math.inf)
 
 
 def _pairhmm_plain(read_codes, base_q, ins_q, del_q, gcp, rlen, hlen,
@@ -191,6 +223,19 @@ def _pairhmm_plain(read_codes, base_q, ins_q, del_q, gcp, rlen, hlen,
     return _finish(acc, sh)[0]
 
 
+def _check_kernel_inputs(name: str, R: int, typed) -> None:
+    """What the kernels do not take: a read bucket past 256 rows, or a
+    tensor (``typed`` pairs each with its dtype) of another dtype or on
+    another device than the first."""
+    if R > MAX_KERNEL_READ_LEN:
+        raise ValueError(f"{name}: read bucket {R} exceeds the "
+                         f"kernel's {MAX_KERNEL_READ_LEN} rows")
+    dev = typed[0][0].device
+    for t, dt in typed:
+        if t.dtype != dt or t.device != dev:
+            raise TypeError(f"{name}: expected {dt} on {dev}")
+
+
 def pairhmm_sc(read, base_q, rlen, hap, hlen, ins_q: int, del_q: int,
                gcp: int) -> torch.Tensor:
     """PairHMM with scalar transition phreds (kernel K4).
@@ -208,25 +253,21 @@ def pairhmm_sc(read, base_q, rlen, hap, hlen, ins_q: int, del_q: int,
                               rlen[None], hlen[None], hap.T, R=R, H=H)
     if read.device.type != "cuda":
         raise ValueError(f"no PairHMM kernel for device {read.device}")
-    if R > MAX_KERNEL_READ_LEN:
-        raise ValueError(f"pairhmm_sc: read bucket {R} exceeds the "
-                         f"kernel's {MAX_KERNEL_READ_LEN} rows")
-    for t, dt in ((read, torch.uint8), (base_q, torch.uint8),
-                  (hap, torch.uint8), (rlen, torch.int32),
-                  (hlen, torch.int32)):
-        if t.dtype != dt or t.device != read.device:
-            raise TypeError(f"pairhmm_sc: expected {dt} on {read.device}")
+    _check_kernel_inputs("pairhmm_sc", R, [
+        (read, torch.uint8), (base_q, torch.uint8), (hap, torch.uint8),
+        (rlen, torch.int32), (hlen, torch.int32)])
     dev = read.device
     with torch.cuda.device(dev):
-        read, hap, rlen, hlen = (t.contiguous()
-                                 for t in (read, hap, rlen, hlen))
-        p_err = _phred_to_prob(base_q).contiguous()
+        read, base_q, hap, rlen, hlen = (
+            t.contiguous() for t in (read, base_q, hap, rlen, hlen))
+        table = _prob_table(dev)
         acc = torch.empty(B, dtype=torch.float32, device=dev)
         sh = torch.empty(B, dtype=torch.float32, device=dev)
         err = _build.load().fgt_pairhmm(
-            read.data_ptr(), p_err.data_ptr(), rlen.data_ptr(),
-            hap.data_ptr(), hlen.data_ptr(), B, R, H,
-            *_transitions(ins_q, del_q, gcp), acc.data_ptr(), sh.data_ptr(),
+            read.data_ptr(), base_q.data_ptr(), table.data_ptr(),
+            rlen.data_ptr(), hap.data_ptr(), hlen.data_ptr(), B, R, H,
+            *_transitions(int(ins_q), int(del_q), int(gcp)),
+            acc.data_ptr(), sh.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "fgt_pairhmm")
         with _launch_lock:
@@ -253,27 +294,22 @@ def pairhmm_pb(read, base_q, ins_q, del_q, gcp, rlen, hap, hlen
                               rlen[None], hlen[None], hap.T, R=R, H=H)
     if read.device.type != "cuda":
         raise ValueError(f"no PairHMM kernel for device {read.device}")
-    if R > MAX_KERNEL_READ_LEN:
-        raise ValueError(f"pairhmm_pb: read bucket {R} exceeds the "
-                         f"kernel's {MAX_KERNEL_READ_LEN} rows")
-    for t, dt in ((read, torch.uint8), (hap, torch.uint8),
-                  (rlen, torch.int32), (hlen, torch.int32),
-                  *((q, torch.uint8) for q in planes)):
-        if t.dtype != dt or t.device != read.device:
-            raise TypeError(f"pairhmm_pb: expected {dt} on {read.device}")
+    _check_kernel_inputs("pairhmm_pb", R, [
+        (read, torch.uint8), (hap, torch.uint8), (rlen, torch.int32),
+        (hlen, torch.int32), *((q, torch.uint8) for q in planes)])
     dev = read.device
     with torch.cuda.device(dev):
         read, hap, rlen, hlen = (t.contiguous()
                                  for t in (read, hap, rlen, hlen))
-        p_err, p_ins, p_del, p_cont = (_phred_to_prob(q).contiguous()
-                                       for q in planes)
+        planes = [q.contiguous() for q in planes]
+        table = _prob_table(dev)
         acc = torch.empty(B, dtype=torch.float32, device=dev)
         sh = torch.empty(B, dtype=torch.float32, device=dev)
         err = _build.load().fgt_pairhmm_pb(
-            read.data_ptr(), p_err.data_ptr(), p_ins.data_ptr(),
-            p_del.data_ptr(), p_cont.data_ptr(), rlen.data_ptr(),
-            hap.data_ptr(), hlen.data_ptr(), B, R, H, acc.data_ptr(),
-            sh.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            read.data_ptr(), *(q.data_ptr() for q in planes),
+            table.data_ptr(), rlen.data_ptr(), hap.data_ptr(),
+            hlen.data_ptr(), B, R, H, acc.data_ptr(), sh.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "fgt_pairhmm_pb")
         with _launch_lock:
             LAUNCHES["fgt_pairhmm_pb"] += 1

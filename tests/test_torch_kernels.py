@@ -130,6 +130,67 @@ def pad_row_pairs(seed, n, R, H):
     return reads, q, ins, dele, gcp, rl, haps, hl
 
 
+def edge_pairs(seed, B, R, H):
+    """``make_pairs`` with the edges of the sweep in its first 12 lanes:
+    hlen = H, rlen = R, rlen = 1, rlen + hlen odd and even at the largest
+    sum, N runs in the read and in the haplotype, codes above 4 in both,
+    every code 0-15 at random, a one-base haplotype, a one-cell matrix."""
+    rng = np.random.default_rng(seed + 100)
+    reads, q, rl, haps, hl = make_pairs(seed, B, R, H)
+    hl[0] = H
+    rl[1] = R
+    reads[1] = rng.integers(0, 4, R)
+    rl[2] = 1
+    rl[3], hl[3] = R, H
+    rl[4], hl[4] = R - 1, H
+    reads[5, ::3] = 4
+    haps[6, ::5] = 4
+    reads[7, 1], haps[7, 3] = 7, 9
+    haps[8] = rng.integers(0, 16, H)
+    reads[9] = rng.integers(0, 16, R)
+    hl[10] = 1
+    rl[11], hl[11] = 1, 1
+    return reads, q, rl, haps, hl
+
+
+# transition phreds of ``early_rescale_pairs``
+EARLY_INS, EARLY_DEL, EARLY_GCP = 45, 0, 13
+
+
+def early_rescale_pairs(R, H):
+    """Pairs whose rescale fires at diagonal 64, the first test, with
+    ins/del/gcp phreds 45/0/13 (needs R >= 70).  Quality-0 reads of 52,
+    64, 65 and 70 bases that mismatch all 12 bases of their haplotype: a
+    deletion probability of 1 leaves no match-to-match transition, so the
+    mass leaves the 12 live columns within a few rows and what stays
+    decays by the gap continuation per row, to about 2^-80 at diagonal 64.
+    The first pair ends there (52 + 12), so its rescale touches only the
+    sum and the shift; the others are finite only through the rescale."""
+    rl = np.array([52, 64, 65, 70], np.int32)
+    n = len(rl)
+    reads = np.ones((n, R), np.uint8)
+    for b in range(n):
+        reads[b, rl[b]:] = 4
+    q = np.zeros((n, R), np.uint8)
+    hl = np.full(n, 12, np.int32)
+    haps = np.zeros((n, H), np.uint8)
+    haps[:, 12:] = 4
+    return reads, q, rl, haps, hl
+
+
+def phred_planes(rl, R, ins, dele, gcp):
+    """Constant transition phreds along each read, phred 0 past rlen."""
+    real = np.arange(R)[None, :] < np.asarray(rl)[:, None]
+    return tuple(np.where(real, v, 0).astype(np.uint8)
+                 for v in (ins, dele, gcp))
+
+
+# read and haplotype buckets of the card tests: the main shape, then one
+# bucket for each kind of instantiation (rows not a multiple of 32, one
+# row per thread, eight rows per thread) with short and long haplotypes
+PAIRHMM_SHAPES = [(160, 384), (8, 128), (96, 128), (256, 512), (150, 512)]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -157,9 +218,16 @@ def test_sw_kernels_match_plain_on_card(cuda_device, pset):
 
 
 @pytest.mark.cuda
-def test_pairhmm_kernel_matches_plain_on_card(cuda_device):
-    reads, q, rl, haps, hl = (np.concatenate(p) for p in zip(
-        make_pairs(5, 512, 160, 384), rescale_pairs(6, 16, 160, 384)))
+@pytest.mark.parametrize("R,H", PAIRHMM_SHAPES)
+def test_pairhmm_kernel_matches_plain_on_card(cuda_device, R, H):
+    """K4 on ordinary pairs and the sweep's edges; at the main shape also
+    on the quality-0 rescue pairs (rescaled at the last multiple of 64
+    their sweep reaches, 320; the last one subnormal)."""
+    main = (R, H) == (160, 384)
+    parts = [edge_pairs(5, 512 if main else 256, R, H)]
+    if main:
+        parts.append(rescale_pairs(6, 16, R, H))
+    reads, q, rl, haps, hl = (np.concatenate(p) for p in zip(*parts))
     args = [torch.from_numpy(x) for x in (reads, q, rl, haps, hl)]
     want = P.pairhmm_sc(*args, INS, DEL, GCP).numpy()
     got = P.pairhmm_sc(*[a.to(cuda_device) for a in args], INS, DEL,
@@ -167,23 +235,63 @@ def test_pairhmm_kernel_matches_plain_on_card(cuda_device):
     fin = np.isfinite(want)
     np.testing.assert_array_equal(np.isfinite(got), fin)
     np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-4)
-    assert fin[512:-1].all() and not fin[-1]   # rescaled; subnormal
+    if main:
+        assert fin[512:-1].all() and not fin[-1]   # rescaled; subnormal
 
 
 @pytest.mark.cuda
-def test_pairhmm_pb_kernel_matches_plain_on_card(cuda_device):
-    reads, q, rl, haps, hl = make_pairs(7, 512, 160, 384)
-    planes = indel_planes(8, rl, 160)
-    cr, cq, ci, cd, cg, crl, chp, chl = pad_row_pairs(9, 64, 160, 384)
-    args = [torch.from_numpy(np.concatenate(x)) for x in (
-        (reads, cr), (q, cq), (planes[0], ci), (planes[1], cd),
-        (planes[2], cg), (rl, crl), (haps, chp), (hl, chl))]
+@pytest.mark.parametrize("R,H", PAIRHMM_SHAPES)
+def test_pairhmm_pb_kernel_matches_plain_on_card(cuda_device, R, H):
+    """K5 on ordinary pairs and the sweep's edges; from 96 rows on also
+    on pad-row pairs, which only the rescale keeps finite (at 256 rows
+    they underflow all the same: there the -inf lanes are the check)."""
+    main = (R, H) == (160, 384)
+    reads, q, rl, haps, hl = edge_pairs(7, 512 if main else 256, R, H)
+    lanes = [reads, q, *indel_planes(8, rl, R), rl, haps, hl]
+    n = len(rl)
+    if R >= 96:
+        lanes = [np.concatenate(x) for x in zip(
+            lanes, pad_row_pairs(9, 64, R, H))]
+    args = [torch.from_numpy(x) for x in lanes]
     want = P.pairhmm_pb(*args).numpy()
     got = P.pairhmm_pb(*[a.to(cuda_device) for a in args]).cpu().numpy()
     fin = np.isfinite(want)
     np.testing.assert_array_equal(np.isfinite(got), fin)
     np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-4)
-    assert fin[512:].all()
+    assert fin[n:].all() or R > 160
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,H", [(160, 384), (96, 128), (256, 512)])
+def test_pairhmm_kernels_rescale_at_diagonal_64_on_card(cuda_device, R, H):
+    """Pairs rescaled at the first test, one of them on its last
+    diagonal, with 45/0/13 as scalars (K4) and as planes (K5)."""
+    reads, q, rl, haps, hl = early_rescale_pairs(R, H)
+    args = [torch.from_numpy(x) for x in (reads, q, rl, haps, hl)]
+    planes = [torch.from_numpy(x) for x in phred_planes(
+        rl, R, EARLY_INS, EARLY_DEL, EARLY_GCP)]
+    for name, run in (
+            ("K4", lambda a, p: P.pairhmm_sc(*a, EARLY_INS, EARLY_DEL,
+                                             EARLY_GCP)),
+            ("K5", lambda a, p: P.pairhmm_pb(a[0], a[1], *p, a[2], a[3],
+                                             a[4]))):
+        want = run(args, planes).numpy()
+        got = run([a.to(cuda_device) for a in args],
+                  [p.to(cuda_device) for p in planes]).cpu().numpy()
+        assert np.isfinite(want).all(), name
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+def test_prob_table_equals_pow_on_card(cuda_device):
+    """The kernels' phred table holds the bits ``torch.pow`` gives for a
+    plane on the card."""
+    q = torch.arange(256, dtype=torch.uint8, device=cuda_device)
+    table = P._prob_table(cuda_device)
+    plane = q.repeat(160, 3)[:, :700].contiguous()
+    assert torch.equal(table, P._phred_to_prob(q))
+    assert torch.equal(table[plane.long()], P._phred_to_prob(plane))
 
 
 @pytest.mark.cuda

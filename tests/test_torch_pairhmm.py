@@ -23,7 +23,8 @@ from falcon_genome_tpu_torch.ops import pairhmm as T
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_torch_kernels import (  # noqa: E402
-    DEL, GCP, INS, indel_planes, make_pairs, pad_row_pairs, rescale_pairs)
+    DEL, EARLY_DEL, EARLY_GCP, EARLY_INS, GCP, INS, early_rescale_pairs,
+    indel_planes, make_pairs, pad_row_pairs, phred_planes, rescale_pairs)
 
 torch.set_num_threads(1)
 
@@ -268,3 +269,91 @@ def test_plain_pad_rows_rescale_as_reference(monkeypatch):
     # without the rescale every pair floors to -inf
     monkeypatch.setattr(T, "RESCALE_THRESH", 0.0)
     assert not np.isfinite(port()).any()
+
+
+def test_early_rescale_pairs_need_the_rescale(monkeypatch):
+    """The card tests' diagonal-64 pairs on the plain version: within
+    1e-4 of ``_pairhmm_jax`` with 45/0/13 as scalars and as planes, all
+    finite, and (but for the first, whose sweep ends at diagonal 64) -inf
+    once the rescale is switched off."""
+    R, H = 96, 128
+    reads, q, rl, haps, hl = early_rescale_pairs(R, H)
+    planes = phred_planes(rl, R, EARLY_INS, EARLY_DEL, EARLY_GCP)
+    t = [torch.from_numpy(x) for x in (reads, q, rl, haps, hl)]
+
+    def port():
+        return (T.pairhmm_sc(*t, EARLY_INS, EARLY_DEL, EARLY_GCP).numpy(),
+                T.pairhmm_pb(t[0], t[1], *(torch.from_numpy(x)
+                                           for x in planes),
+                             t[2], t[3], t[4]).numpy())
+
+    got_sc, got_pb = port()
+    for got, trans in ((got_sc, (EARLY_INS, EARLY_DEL, EARLY_GCP)),
+                       (got_pb, planes)):
+        tr = [jnp.asarray(x.T) if isinstance(x, np.ndarray) else x
+              for x in trans]
+        want = np.asarray(J._pairhmm_jax(
+            jnp.asarray(reads.T), jnp.asarray(q.T), *tr,
+            jnp.asarray(rl[None]), jnp.asarray(hl[None]),
+            jnp.asarray(haps.T), R=R, H=H))
+        assert np.isfinite(got).all()
+        _check_planes(got, want)
+    monkeypatch.setattr(T, "RESCALE_THRESH", 0.0)
+    for got in port():
+        assert np.isfinite(got[0]) and not np.isfinite(got[1:]).any()
+
+
+def test_prob_table_equals_phred_to_prob():
+    table = T._prob_table(CPU)
+    assert table.dtype == torch.float32 and table.shape == (256,)
+    assert torch.equal(table, T._phred_to_prob(
+        torch.arange(256, dtype=torch.uint8)))
+    assert T._prob_table(CPU) is table          # made once per device
+
+
+@pytest.mark.parametrize("plane", ["base_q", "ins_q", "del_q", "gcp"])
+def test_prob_table_reproduces_the_planes(plane):
+    """Indexing the table gives, bit for bit, the float32 plane that
+    ``_phred_to_prob`` computes from the uint8 phreds: what the kernels
+    read is what the plain version computes."""
+    reads, q, rl, haps, hl = make_pairs(21, 64, 160, 384)
+    ins, dele, gcp = indel_planes(22, rl, 160)
+    x = dict(base_q=q, ins_q=ins, del_q=dele, gcp=gcp)[plane].copy()
+    x[0, :] = np.arange(160) + 96               # every phred up to 255
+    x[1, :96] = np.arange(96)
+    t = torch.from_numpy(x)
+    assert torch.equal(T._prob_table(CPU)[t.long()], T._phred_to_prob(t))
+
+
+def test_base_mask_reproduces_the_match_rule():
+    """Masks share a bit exactly when the reference calls the bases a
+    match: equal, or either one not A/C/G/T (all 256 x 256 byte pairs)."""
+    mask = np.array([T._base_mask(c) for c in range(256)])
+    assert mask.min() >= 1 and mask.max() <= 15  # four bits: eight per word
+    rc, c = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    want = (rc == c) | (rc >= 4) | (c >= 4)
+    assert np.array_equal((mask[rc] & mask[c]) != 0, want)
+
+
+@pytest.mark.parametrize("wrapper", ["pairhmm_sc", "pairhmm_pb"])
+@pytest.mark.parametrize("fault", ["dtype", "device", "rows"])
+def test_kernel_input_checks_refuse(wrapper, fault):
+    """What the wrappers refuse before a launch: a wrong dtype, tensors
+    on two devices, a read bucket past 256 rows."""
+    R = 264 if fault == "rows" else 16
+    u8 = torch.zeros((4, R), dtype=torch.uint8)
+    i32 = torch.zeros(4, dtype=torch.int32)
+    typed = [(u8, torch.uint8), (u8, torch.uint8), (i32, torch.int32),
+             (i32, torch.int32)]
+    if wrapper == "pairhmm_pb":
+        typed += [(u8, torch.uint8)] * 3
+    T._check_kernel_inputs(wrapper, 16, [(torch.zeros((4, 16),
+                                                      dtype=torch.uint8),
+                                          torch.uint8)] + typed[2:4])
+    if fault == "dtype":
+        typed[1] = (u8.float(), torch.uint8)
+    elif fault == "device":
+        typed[2] = (i32.to("meta"), torch.int32)
+    with pytest.raises(ValueError if fault == "rows" else TypeError,
+                       match=wrapper):
+        T._check_kernel_inputs(wrapper, R, typed)

@@ -14,6 +14,7 @@ Run as a script, this file is the worker of the two-process tests:
 """
 import logging
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -375,8 +376,38 @@ def _conf(work: Path, ncontigs: int, tag: str) -> Config:
     return conf
 
 
+# a worker that could not reach the rendezvous: the port was taken between
+# _free_port() closing its socket and process 0 binding it (another test
+# process can get the same port from the kernel), or the peer died first
+_RENDEZVOUS_ERROR = re.compile(
+    r"address already in use|EADDRINUSE|connection (refused|reset)|"
+    r"failed to (bind|connect|listen)|connect\(\) timed out|"
+    r"timed out waiting for clients|DistNetworkError", re.I)
+
+
 def _run_workers(kind: str, work: Path, cli: bool = False) -> list[str]:
-    """Two processes of this file's worker, or of the port's CLI."""
+    """Two processes of this file's worker, or of the port's CLI.  When a
+    worker fails at the rendezvous, before any process has split its
+    tasks, the pair runs once more on a fresh port."""
+    for attempt in (0, 1):
+        codes, outs = _start_workers(kind, work, cli)
+        lost_port = any(rc != 0 and _RENDEZVOUS_ERROR.search(out)
+                        for rc, out in zip(codes, outs)) and \
+            not any("local to process" in out for out in outs)
+        if not (lost_port and attempt == 0):
+            break
+    tails = "\n".join(f"--- process {i} (exit {rc}), last lines:\n"
+                      + "\n".join(out.splitlines()[-25:])
+                      for i, (rc, out) in enumerate(zip(codes, outs)))
+    for i, (rc, out) in enumerate(zip(codes, outs)):
+        assert rc == 0, f"process {i} failed (attempt {attempt + 1}):\n{tails}"
+        assert cli or f"DIST{kind.upper()} {i} OK" in out, tails
+    return outs
+
+
+def _start_workers(kind: str, work: Path, cli: bool
+                   ) -> tuple[list[int], list[str]]:
+    """(exit codes, outputs) of one run of the two processes."""
     coord = f"localhost:{_free_port()}"
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
 
@@ -404,10 +435,7 @@ def _run_workers(kind: str, work: Path, cli: bool = False) -> list[str]:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for i, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"process {i} failed:\n{out[-4000:]}"
-        assert cli or f"DIST{kind.upper()} {i} OK" in out
-    return outs
+    return [p.returncode for p in procs], outs
 
 
 def _htc_world(work: Path) -> None:
@@ -539,6 +567,35 @@ class TestMultiProcessStage:
                      "ctx_obs", "ctx_err"):
             assert np.array_equal(getattr(got, name),
                                   getattr(expect, name)), name
+
+
+    @pytest.mark.parametrize("first,runs", [
+        ("RuntimeError: ... Address already in use", 2),
+        ("ValueError: a fault of the stage itself", 1),
+        ("(3 local to process 1/2)\nConnection reset by peer", 1)])
+    def test_workers_rerun_only_after_a_lost_port(self, tmp_path,
+                                                  monkeypatch, first, runs):
+        """A pair that fails at the rendezvous, before any task split, runs
+        once more on a fresh port; any other failure is reported at once,
+        with both processes' last lines."""
+        started = []
+
+        def start(kind, work, cli):
+            started.append(kind)
+            if len(started) == 1:
+                return [0, 1], ["DISTHTC 0 OK", first]
+            return [0, 0], ["DISTHTC 0 OK", "DISTHTC 1 OK"]
+
+        monkeypatch.setattr(sys.modules[__name__], "_start_workers", start)
+        if runs == 2:
+            assert _run_workers("htc", tmp_path) == ["DISTHTC 0 OK",
+                                                     "DISTHTC 1 OK"]
+        else:
+            with pytest.raises(AssertionError, match="process 1 failed") as e:
+                _run_workers("htc", tmp_path)
+            assert "process 0 (exit 0)" in str(e.value)
+            assert first.splitlines()[-1] in str(e.value)
+        assert len(started) == runs
 
 
 _NO_JAX = r"""
