@@ -116,33 +116,6 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
-def ptxas_summary(report: str) -> list[str]:
-    """``name: N registers, S B spill stores, L B spill loads`` for every
-    kernel in an ``nvcc -Xptxas -v`` report (names demangled with
-    c++filt where it exists)."""
-    rows, name, spill = [], None, ""
-    for ln in report.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
-        if m:
-            name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      ln)
-        if m and name:
-            spill = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
-        m = re.search(r"Used (\d+) registers", ln)
-        if m and name:
-            rows.append([name, f"{m.group(1)} registers, {spill}"])
-            name, spill = None, ""
-    if rows and shutil.which("c++filt"):
-        res = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
-                             capture_output=True, text=True)
-        if res.returncode == 0:
-            for r, d in zip(rows, res.stdout.splitlines()):
-                r[0] = re.sub(r"\(.*\)$", "", d.replace(
-                    "(anonymous namespace)::", ""))
-    return [f"{n}: {v}" for n, v in rows]
-
-
 def bound(nbytes: float, ops: float, rate: float) -> dict:
     """The least time the card could take: the bytes the function must
     move over the memory rate, or its operations over ``rate``,
@@ -909,82 +882,23 @@ def phase_cards(cli, validate, sample, work: Path, count: int,
 # phase 7: the benchmark path (kernels K6, K7)
 # ---------------------------------------------------------------------------
 
-_sass_text: dict[Path, str] = {}
-
-
-def sass_function(so: Path, kernel: str) -> list[tuple[int, str]]:
-    """(address, instruction) of the first function in the SASS of the
-    built library whose mangled name matches the regular expression
-    ``kernel`` (``cuobjdump -sass``, run once per library)."""
-    if so not in _sass_text:
-        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-        res = subprocess.run([tool, "-sass", str(so)], capture_output=True,
-                             text=True, timeout=300)
-        check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
-        _sass_text[so] = res.stdout
-    funcs = re.split(r"\n\s*Function : ", _sass_text[so])
-    body = next((f for f in funcs[1:]
-                 if re.search(kernel, f.splitlines()[0])), None)
-    check(body is not None, f"no {kernel} in the SASS of {so.name}")
-    return [(int(a, 16), t) for a, t in
-            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
-
-
-def sass_loops(ins) -> list[tuple[int, int]]:
-    """(first, last) addresses of every loop: a backward branch's target
-    and the branch.  A span that holds an ``EXIT`` is no loop: it is the
-    way back from out-of-line code placed behind the kernel's end."""
-    out = []
-    for addr, text in ins:
-        m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", text)
-        if m and int(m.group(1), 16) < addr and not any(
-                int(m.group(1), 16) <= a <= addr and re.search(r"\bEXIT\b", t)
-                for a, t in ins):
-            out.append((int(m.group(1), 16), addr))
-    return out
-
-
-def sass_ffma_per_trip(so: Path, kernel: str, unroll: int) -> tuple[int, int]:
-    """(FFMAs in the body of ``kernel``'s loop, FFMAs per trip) in the
-    SASS of the built library; the body holds ``unroll`` trips."""
-    ins = sass_function(so, kernel)
-    loop = max((sum(1 for a, t in ins if lo <= a <= hi
-                    and re.search(r"\bFFMA\b", t))
-                for lo, hi in sass_loops(ins)), default=0)
-    check(loop > 0, f"no loop with FFMAs in {kernel}'s SASS")
-    return loop, loop // unroll
-
-
-def sass_sweep_counts(so: Path, kernel: str) -> dict:
-    """Instructions of one anti-diagonal step of a PairHMM kernel, from the
-    SASS of the built library.  The sweep is the loop with the most
-    floating-point instructions; the block of the rescale test inside it
-    (a forward branch over the butterfly shuffles of its warp maximum,
-    taken 63 times in 64) is left out, as is the out-of-line code behind
-    ``BRA.DIV`` (shuffles of a warp that is not converged); the three
-    ``SHFL.UP`` of a step say how many steps one trip holds."""
-    ins = sass_function(so, kernel)
-    fp = re.compile(r"\b(FFMA|FMUL|FADD)\b")
-    loops = sass_loops(ins)
-    check(bool(loops), f"no loop in {kernel}'s SASS")
-    lo, hi = max(loops, key=lambda r: sum(
-        1 for a, t in ins if r[0] <= a <= r[1] and fp.search(t)))
-    body = [(a, t) for a, t in ins if lo <= a <= hi]
-    cold = (0, 0)
-    for a, t in body:
-        m = re.search(r"\bBRA\s[^;]*?0x([0-9a-f]+)", t)
-        if not m or not a < int(m.group(1), 16) <= hi:
-            continue    # not a forward branch inside the loop
-        end = int(m.group(1), 16)
-        if end - a > cold[1] - cold[0] and any(
-                a < x < end and "SHFL.BFLY" in u for x, u in body):
-            cold = (a, end)
-    hot = [t for a, t in body if not cold[0] < a < cold[1]]
-    steps = sum(1 for t in hot if "SHFL.UP" in t) / 3
-    check(steps >= 1, f"no sweep step in {kernel}'s SASS")
-    return dict(steps_per_trip=steps, per_step=len(hot) / steps,
-                fp_per_step=sum(1 for t in hot if fp.search(t)) / steps,
-                trip=len(hot), rescale_block=len(body) - len(hot))
+def sw_sweep_counts(so: Path) -> None:
+    """Phase 2 for Smith-Waterman: every instantiation of ``sw_kernel``
+    (rows per thread NR, K2's pointer stream FULL, the stripe loop of
+    R > 32 NR), its instructions per sweep step in the library's SASS and
+    how many of them are integer max/min (IMNMX and the DPX forms)."""
+    from falcon_genome_tpu_torch.benchmarks import sass
+    names = sass.sass_names(so, r"9sw_kernelI")
+    check(bool(names), "no sw_kernel in the library's SASS")
+    for name in names:
+        c = sass.sass_sweep_counts(so, re.escape(name), loop_by=sass.SHFL_UP,
+                                   count=sass.MNMX, shfl_per_step=2)
+        m = re.search(r"ILi(\d+)ELb(\d)ELb(\d)E", name)
+        what = (f"sw_kernel<{m.group(1)}, {'true' if m.group(2) == '1' else 'false'}, "
+                f"{'true' if m.group(3) == '1' else 'false'}>" if m else name)
+        say(f"K1/K2 {what}: {c['per_step']:.1f} instructions per sweep "
+            f"step, {c['counted_per_step']:.1f} of them integer max/min "
+            f"({c['trip']} in a trip of {c['steps_per_trip']:.0f} steps)")
 
 
 def phase_bench(torch, S, BK, results, so: Path, work: Path) -> None:
@@ -1004,7 +918,7 @@ def phase_bench(torch, S, BK, results, so: Path, work: Path) -> None:
     e6 = float((got - want).abs().max())
     check(torch.equal(got, want),
           f"K6 differs from its plain version by {e6}")
-    body, per_trip = sass_ffma_per_trip(so, "fma_ceiling_kernel",
+    body, per_trip = sass.sass_ffma_per_trip(so, "fma_ceiling_kernel",
                                         BK.FMA_UNROLL)
     check(per_trip >= BK.FMA_CHAINS,
           f"K6's loop issues {per_trip} FFMAs per trip, not "
@@ -1121,6 +1035,7 @@ def main() -> int:
         from falcon_genome_tpu_torch.ops import bench_kernels as BK
         from falcon_genome_tpu_torch.ops import pairhmm as P
         from falcon_genome_tpu_torch.ops import smith_waterman as S
+        from falcon_genome_tpu_torch.benchmarks import sass
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -1146,21 +1061,21 @@ def main() -> int:
         report = so.with_name(so.stem + ".ptxas.txt").read_text()
         say(f"kernels built in {time.time() - t0:.1f} s → {so.name} "
             f"(one nvcc per source, in parallel); ptxas -v:")
-        for row in ptxas_summary(report):
+        for row in sass.ptxas_summary(report):
             say(f"  {row}")
         # the PairHMM instantiations of the main path (five rows per
         # thread at R = 160, every row inside the bucket)
         for name, per_base in (("K4 fgt_pairhmm", 0), ("K5 fgt_pairhmm_pb",
                                                        1)):
-            c = sass_sweep_counts(
+            c = sass.sass_sweep_counts(
                 so, f"pairhmm_kernelILi5ELb{per_base}ELb0EEEv")
             say(f"{name} pairhmm_kernel<5, {str(bool(per_base)).lower()}, "
                 f"false>: {c['per_step']:.1f} instructions per "
-                f"anti-diagonal step, {c['fp_per_step']:.1f} of them "
+                f"anti-diagonal step, {c['counted_per_step']:.1f} of them "
                 f"FFMA/FMUL/FADD ({c['trip']} in a trip of "
                 f"{c['steps_per_trip']:.0f} steps; the rescale block of "
-                f"{c['rescale_block']}, run once in 64 steps, left out)")
-
+                f"{c['cold_block']}, run once in 64 steps, left out)")
+        sw_sweep_counts(so)
         results: dict[str, dict] = {}
         k5_args = phase_kernels(torch, S, P, results)
         work = REPO / "build" / "chip_smoke"
@@ -1180,7 +1095,7 @@ def main() -> int:
         phase_bench(torch, S, BK, results, so, work)
         shutil.rmtree(work, ignore_errors=True)
         say(f"phase 7 (benchmark path) {time.time() - t7:.1f} s")
-    except SmokeFailure as e:
+    except (SmokeFailure, sass.SassError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     say(f"chip_smoke total {time.time() - t_start:.1f} s")

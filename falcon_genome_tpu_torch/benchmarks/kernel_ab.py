@@ -1,25 +1,38 @@
-"""PairHMM kernel times of several checkouts of the port, interleaved on
-one NVIDIA GPU.
+"""Kernel times of several checkouts of the port, interleaved on one NVIDIA
+GPU: Smith-Waterman K1-K3 and PairHMM K4/K5.
 
     python -m falcon_genome_tpu_torch.benchmarks.kernel_ab ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository (an unpacked ``git archive`` of
 another commit, say).  In the order given, each runs in a process of its
 own with ROOT first on ``sys.path``: it builds that checkout's kernels,
-then times its PairHMM kernels K4 (``pairhmm_sc``, 45/45/10) and K5
-(``pairhmm_pb``, per-base planes) at HaplotypeCaller's shape (R=160,
-H=384, 8192 pairs, the inputs of ``chip_smoke.py``'s phase 3 without its
-crafted pairs), each through its wrapper, three ways.  ``k4_ms`` and
-``k5_ms``: CUDA events around each of 20 calls after a warm-up, each call
-waited for, the median (what a caller that reads every result back sees,
-the wrapper's host work included).  ``k4_queued_ms`` and ``k5_queued_ms``:
+then times, each through its wrapper:
+
+* K1 (``sw_score``), K2 (``sw_pointers``) and K3 (``sw_traceback`` of K2's
+  pointers) at the aligner's shape (R=160, W=256, 8192 lanes; the inputs
+  of ``chip_smoke.py``'s ``sw_lanes``: 150-base reads with 1%
+  substitutions, a quarter of them against a window elsewhere); K2 and K3
+  also at the mate-rescue shape (160/1024, 2048 lanes) and at
+  HaplotypeCaller's haplotype-to-reference shape (384/384, 1024 lanes,
+  parameters 2/6/12/1), keys ``k2_rescue_*``, ``k2_htc_*`` and the same
+  for k3;
+* K4 (``pairhmm_sc``, 45/45/10) and K5 (``pairhmm_pb``, per-base planes)
+  at HaplotypeCaller's shape (R=160, H=384, 8192 pairs, the inputs of
+  ``chip_smoke.py``'s phase 3 without its crafted pairs);
+
+each three ways.  ``*_ms``: CUDA events around each of 20 calls after a
+warm-up, each call waited for, the median (what a caller that reads every
+result back sees, the wrapper's host work included).  ``*_queued_ms``:
 events around 20 calls queued back to back, per call, the median of 5
 such runs (the device's time per call once the host runs ahead).
-``k4_kernel_ms`` and ``k5_kernel_ms``: the PairHMM kernel's own device
-time per launch from ``torch.profiler`` over 5 calls (null where the
-profiler records no device time).  Give the roots as parent, change,
-change, parent, so that drift of the card between runs shows.  Prints one
-JSON line per run; without a CUDA device it exits non-zero.
+``*_kernel_ms``: the kernel's own device time per launch from
+``torch.profiler`` over 5 calls (null where the profiler records no
+device time).  It also reads the checkout's build: registers of the K1
+and K2 instantiations at R=160 (``ptxas -v``) and their instructions per
+sweep step and integer max/min per step (``cuobjdump -sass``, null where
+the toolkit's ``cuobjdump`` is missing).  Give the roots as parent,
+change, change, parent, so that drift of the card between runs shows.
+Prints one JSON line per run; without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
 
@@ -34,6 +47,12 @@ import torch
 
 B, R, H = 8192, 160, 384
 N_TIMED = 20
+# (label, lanes, R, W, SW parameters or None for the defaults)
+SW_SHAPES = (("", 8192, 160, 256, None), ("rescue", 2048, 160, 1024, None),
+             ("htc", 1024, 384, 384, (2, 6, 12, 1)))
+# the mangled K1 / K2 kernel at R = 160: the one-stripe design's
+# sw_kernel<bool FULL> or the rows-per-thread design's sw_kernel<5, FULL, ...>
+SW_MAIN = r"9sw_kernelI(?:Li5E)?Lb{}E(?:Lb0E)?E"
 
 
 def inputs(rng):
@@ -63,6 +82,48 @@ def inputs(rng):
     return reads, quals, ins, dele, gcp, rlen, haps, hl
 
 
+def sw_lanes(rng, genome, n, r, w, rl_range, sub=0.01, decoys=0.25):
+    """Reads sampled from ``genome`` with ``sub`` substitutions, against
+    windows that hold them (a ``decoys`` share of windows are elsewhere);
+    ``chip_smoke.py``'s generator."""
+    rl = rng.integers(rl_range[0], rl_range[1] + 1, n).astype(np.int32)
+    wl = np.full(n, w - 8, np.int32)
+    read = np.full((n, r), 4, np.int8)
+    win = np.empty((n, w), np.int8)
+    for b in range(n):
+        w0 = int(rng.integers(0, len(genome) - w))
+        win[b] = genome[w0:w0 + w]
+        s = w0 + int(rng.integers(0, w - 8 - rl[b]))
+        if rng.random() < decoys:
+            s = int(rng.integers(0, len(genome) - rl[b]))
+        seg = genome[s:s + rl[b]].copy()
+        m = rng.random(rl[b]) < sub
+        seg[m] = (seg[m] + 1) % 4
+        read[b, :rl[b]] = seg
+    return read, rl, win, wl
+
+
+def hap_lanes(rng, n, r, w):
+    """HaplotypeCaller hap -> region-reference lanes (a SNP and an indel
+    per haplotype); ``chip_smoke.py``'s generator."""
+    read = np.full((n, r), 4, np.int8)
+    win = rng.integers(0, 4, (n, w)).astype(np.int8)
+    rl = np.zeros(n, np.int32)
+    wl = rng.integers(w - 80, w + 1, n).astype(np.int32)
+    for b in range(n):
+        ref = win[b, :wl[b]].copy()
+        p = int(rng.integers(20, len(ref) - 20))
+        ref[p] = (ref[p] + 1) % 4
+        q = int(rng.integers(20, len(ref) - 20))
+        L = int(rng.integers(1, 8))
+        hap = (np.concatenate([ref[:q], ref[q + L:]]) if b % 2 else
+               np.concatenate([ref[:q], rng.integers(0, 4, L), ref[q:]]))
+        hap = hap[:r].astype(np.int8)
+        read[b, :len(hap)] = hap
+        rl[b] = len(hap)
+    return read, rl, win, wl
+
+
 def event_ms(fn, calls: int) -> float:
     """Milliseconds between CUDA events around ``calls`` calls of ``fn``
     queued back to back; the last one is waited for."""
@@ -89,8 +150,8 @@ def queued_ms(fn) -> float:
                              for _ in range(5))
 
 
-def kernel_ms(fn) -> float | None:
-    """Device time per launch of the kernels named ``pairhmm_kernel``."""
+def kernel_ms(fn, name: str) -> float | None:
+    """Device time per launch of the kernels whose name holds ``name``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -99,37 +160,94 @@ def kernel_ms(fn) -> float | None:
             fn()
         torch.cuda.synchronize()
     for e in prof.key_averages():
-        if "pairhmm_kernel" in e.key and e.count:
+        if name in e.key and e.count:
             us = getattr(e, "device_time_total", None) or \
                 getattr(e, "cuda_time_total", 0)
             return us / e.count / 1e3 if us else None
     return None
 
 
+def three_ways(key: str, fn, name: str, queued: bool = True) -> dict:
+    out = {f"{key}_ms": median_ms(fn)}
+    if queued:
+        out[f"{key}_queued_ms"] = queued_ms(fn)
+    out[f"{key}_kernel_ms"] = kernel_ms(fn, name)
+    return out
+
+
+def build_counts(so: Path) -> dict:
+    """Registers and SASS counts of the K1 and K2 kernels at R = 160."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import sass
+    out = {}
+    report = so.with_name(so.stem + ".ptxas.txt")
+    text = report.read_text() if report.exists() else ""
+    for key, full in (("k1", 0), ("k2", 1)):
+        pat = SW_MAIN.format(full)
+        out[f"{key}_registers"] = sass.kernel_registers(text, pat)
+        try:
+            c = sass.sass_sweep_counts(so, pat, loop_by=sass.SHFL_UP,
+                                       count=sass.MNMX, shfl_per_step=2)
+            out[f"{key}_per_step"] = c["per_step"]
+            out[f"{key}_mnmx_per_step"] = c["counted_per_step"]
+        except (sass.SassError, OSError) as e:
+            print(f"kernel_ab: no SASS count for {key}: {e}",
+                  file=sys.stderr)
+            out[f"{key}_per_step"] = out[f"{key}_mnmx_per_step"] = None
+    return out
+
+
 def time_root(root: Path) -> dict:
-    """Build ``root``'s kernels and time its K4 and K5 (this process
-    imports only ``root``'s package)."""
+    """Build ``root``'s kernels and time its K1-K5 (this process imports
+    only ``root``'s package)."""
     sys.path.insert(0, str(root))
     from falcon_genome_tpu_torch.ops import _build
     from falcon_genome_tpu_torch.ops import pairhmm as P
+    from falcon_genome_tpu_torch.ops import smith_waterman as S
     if not Path(P.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported {P.__file__}, not {root}'s package")
-    _build.build()
+    so = _build.build()
     dev = torch.device("cuda", 0)
-    t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-         for x in inputs(np.random.default_rng(7))]
+    res = {"root": str(root), **build_counts(so)}
+
+    def to(*xs):
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                for x in xs]
+
+    rng = np.random.default_rng(7)
+    genome = rng.integers(0, 4, 1_000_000).astype(np.int8)
+    for label, n, r, w, params in SW_SHAPES:
+        p = S.SWParams(*params) if params else S.SWParams()
+        if label == "htc":
+            read, rl, win, wl = to(*hap_lanes(rng, n, r, w))
+            steps = r + w
+        else:
+            read, rl, win, wl = to(*sw_lanes(rng, genome, n, r, w,
+                                             (150, 150)))
+            steps = S._traceback_steps_bound(150, w - 8, p,
+                                             S.SWBucket(r, w))
+        ptr, best, pos = S.sw_pointers(read, rl, win, wl, p)
+        suffix = f"_{label}" if label else ""
+        if not label:
+            res.update(three_ways(
+                "k1", lambda: S.sw_score(read, rl, win, wl, p), "sw_kernel"))
+        res.update(three_ways(
+            f"k2{suffix}", lambda: S.sw_pointers(read, rl, win, wl, p),
+            "sw_kernel", queued=not label))
+        res.update(three_ways(
+            f"k3{suffix}", lambda: S.sw_traceback(ptr, best, pos, steps),
+            "sw_traceback_kernel", queued=not label))
+        del ptr
+
+    t = to(*inputs(np.random.default_rng(7)))
     read, q, ins, dele, gcp, rlen, hap, hlen = t
-
-    def k4():
-        return P.pairhmm_sc(read, q, rlen, hap, hlen, 45, 45, 10)
-
-    def k5():
-        return P.pairhmm_pb(read, q, ins, dele, gcp, rlen, hap, hlen)
-
-    return {"root": str(root), "k4_ms": median_ms(k4),
-            "k5_ms": median_ms(k5), "k4_queued_ms": queued_ms(k4),
-            "k5_queued_ms": queued_ms(k5), "k4_kernel_ms": kernel_ms(k4),
-            "k5_kernel_ms": kernel_ms(k5)}
+    res.update(three_ways(
+        "k4", lambda: P.pairhmm_sc(read, q, rlen, hap, hlen, 45, 45, 10),
+        "pairhmm_kernel"))
+    res.update(three_ways(
+        "k5", lambda: P.pairhmm_pb(read, q, ins, dele, gcp, rlen, hap,
+                                   hlen), "pairhmm_kernel"))
+    return res
 
 
 def main(argv: list[str]) -> int:

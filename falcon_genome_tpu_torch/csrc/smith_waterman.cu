@@ -27,20 +27,32 @@
 // DRAM write stream beside the recurrence.  K3 is a dependent chain of
 // single-byte loads per alignment: latency-bound.
 //
-// Design: one warp per alignment, rows in stripes of 32 -- thread t owns
-// row 32 s + t of stripe s and computes column j = k - t + 1 at step k, so
-// the warp holds one anti-diagonal of the stripe and passes each row's H
-// and F to the row below with __shfl_up_sync.  The stripe's last row is
-// kept in shared memory for the next stripe's first row.  This covers any
-// read length with no per-length template and lets each alignment stop at
-// its own rlen/wlen.  At step k every thread of the warp is on the same
-// diagonal d = 32 s + k + 1, so the pointer array is laid out per
-// alignment as [d][r]: a warp's 32 pointer bytes per step are one
-// contiguous 32-byte store.  Best cells are kept per thread under the
-// (score desc, bestpos asc) order and reduced across the warp with
-// shuffles.  K3 is one thread per alignment walking that layout.
+// Design: one warp per alignment.  Thread t owns NR consecutive rows
+// (NR = ceil(R / 32), a template parameter up to kMaxRows, so the rows'
+// state lives in registers) and computes column j = k - t + 1 of all of
+// them at step k: each step does NR cells for one pair of __shfl_up_sync,
+// which hands the H and F of the thread's last row to the thread below.
+// The warp sweeps wlen + 31 steps once.  Reads longer than 32 kMaxRows
+// rows run in stripes of that many rows; the stripe's last row is kept in
+// shared memory for the next stripe's first row.  The window enters
+// shared memory once per warp, so a step loads its column's base once for
+// NR cells.  Best cells are kept per thread under the (score desc,
+// bestpos asc) order and reduced across the warp with shuffles; that order
+// is total, so the order of visiting cells cannot change the result.  K3
+// is one thread per alignment walking the pointer array, laid out per
+// alignment as [d][r].
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifdef __CUDACC__
+#define FGT_DYNAMIC_SMEM(T, name) extern __shared__ T name[]
+#define FGT_LAUNCH(kernel, grid, block, smem, stream, ...) \
+  kernel<<<grid, block, smem, stream>>>(__VA_ARGS__)
+#else  // g++ against csrc/emu/cuda_runtime.h: a host loop over the blocks
+#define FGT_DYNAMIC_SMEM(T, name) T* name = fgt_emu::dynamic_smem<T>()
+#define FGT_LAUNCH(kernel, grid, block, smem, stream, ...) \
+  fgt_emu::launch(grid, block, smem, [=] { kernel(__VA_ARGS__); })
+#endif
 
 namespace {
 
@@ -48,6 +60,8 @@ constexpr int kNeg = -(1 << 28);
 constexpr int kPosStride = 4096;
 constexpr int kWarps = 4;          // alignments (warps) per block
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxRows = 12;       // rows per thread: one stripe up to 384
+constexpr int kPad = 32;           // window codes in front of column 1
 
 __device__ __forceinline__ void keep_best(int& s, int& p, int os, int op) {
   if (os > s || (os == s && op < p)) {
@@ -56,81 +70,105 @@ __device__ __forceinline__ void keep_best(int& s, int& p, int os, int op) {
   }
 }
 
-template <bool FULL>
+// Columns a stripe sweeps at most: W + 31 steps.
+__host__ __device__ __forceinline__ int steps_cap(int W) { return W + 31; }
+
+template <int NR, bool FULL, bool STRIPED>
 __global__ void __launch_bounds__(kWarps * 32)
 sw_kernel(const int8_t* __restrict__ read, const int8_t* __restrict__ win,
           const int* __restrict__ rlen, const int* __restrict__ wlen,
           int B, int R, int W, int match, int mismatch, int go, int ge,
           int8_t* __restrict__ ptr, int* __restrict__ score_out,
           int* __restrict__ pos_out) {
-  extern __shared__ int smem[];
+  constexpr int kRows = 32 * NR;  // rows of a stripe
+  FGT_DYNAMIC_SMEM(int, smem);
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
   const int b = blockIdx.x * kWarps + wib;
   if (b >= B) return;  // uniform across the warp
-  int* bufH = smem + wib * 2 * (W + 1);
-  int* bufF = bufH + (W + 1);
+  const int cap = steps_cap(W);
+  const int span = kPad + cap;
+  int* wc = smem + wib * (span + (STRIPED ? 2 * (cap + 1) : 0));
+  int* bufH = wc + span;  // STRIPED: the last row of the stripe above
+  int* bufF = bufH + cap + 1;
   const int rl = min(rlen[b], R);
   const int wl = min(wlen[b], W);
-  for (int j = lane; j <= W; j += 32) {  // row 0 boundary: H = 0, F = NEG
-    bufH[j] = 0;
-    bufF[j] = kNeg;
-  }
-  __syncwarp();
   const int8_t* rd = read + (size_t)b * R;
   const int8_t* wn = win + (size_t)b * W;
+  // window codes: wc[kPad + j - 1] is column j
+  for (int p = lane; p < span; p += 32) {
+    const int q = p - kPad;
+    wc[p] = (q >= 0 && q < wl) ? (int)wn[q] : 5;
+  }
+  __syncwarp();
   int8_t* pb = FULL ? ptr + (size_t)b * (size_t)(R + W) * R : nullptr;
   int best_s = 0, best_p = 0;
-  const int nstripes = (rl + 31) >> 5;
-  for (int s = 0; s < nstripes; ++s) {
-    const int r = (s << 5) + lane;
-    const bool rowvalid = r < rl;
-    const int rb = rowvalid ? (int)rd[r] : -1;
-    int hL = 0, eL = kNeg;      // H, E of (r, j - 1)
-    int myH = 0, myF = kNeg;    // this row's last H, F (read by row r + 1)
-    int upPrev = 0;             // H(r - 1, j - 1)
+  const int nstripes = STRIPED ? (max(rl, 0) + kRows - 1) / kRows
+                               : (rl > 0 ? 1 : 0);
+  for (int st = 0; st < nstripes; ++st) {
+    const int r0 = st * kRows + lane * NR;  // this thread's first row
+    int rb[NR], H[NR], E[NR];
+#pragma unroll
+    for (int k = 0; k < NR; ++k) {
+      rb[k] = r0 + k < rl ? (int)rd[r0 + k] : -1;
+      H[k] = 0;
+      E[k] = kNeg;
+    }
+    int upPrev = 0;   // H of the row above at the previous column
+    int fb = kNeg;    // F of this thread's last row (read by the next)
     const int nsteps = wl + 31;
-    for (int k = 0; k < nsteps; ++k) {
-      const int j = k - lane + 1;
-      int uH = __shfl_up_sync(kFull, myH, 1);
-      int uF = __shfl_up_sync(kFull, myF, 1);
-      if (lane == 0) {  // row above comes from the previous stripe
-        const bool in = j <= wl;
-        uH = in ? bufH[j] : 0;
-        uF = in ? bufF[j] : kNeg;
-      }
-      const int dH = upPrev;
-      upPrev = uH;
-      const int e_open = hL - go, e_ext = eL - ge;
-      int e = max(e_open, e_ext);
-      const int f_open = uH - go, f_ext = uF - ge;
-      int f = max(f_open, f_ext);
-      const bool valid = rowvalid && j >= 1 && j <= wl;
-      const int c = valid ? (int)wn[j - 1] : 5;
-      const int diag = dH + (rb == c ? match : -mismatch);
-      int h = max(max(0, diag), max(e, f));
-      if (valid) {
-        const int d = r + j;
-        keep_best(best_s, best_p, h, d * kPosStride + r);
-        if (FULL) {
-          const int hdir = h == 0 ? 0 : (h == diag ? 1 : (h == e ? 2 : 3));
-          pb[(size_t)d * R + r] = (int8_t)(hdir | ((e_ext > e_open) << 2)
-                                           | ((f_ext > f_open) << 3));
+    for (int s = 0; s < nsteps; ++s) {
+      const int j = s - lane + 1;
+      int uH = __shfl_up_sync(kFull, H[NR - 1], 1);
+      int uF = __shfl_up_sync(kFull, fb, 1);
+      if (lane == 0) {
+        if (STRIPED && st > 0) {  // the row above is the previous stripe's
+          uH = bufH[j];
+          uF = bufF[j];
+        } else {
+          uH = 0;
+          uF = kNeg;
         }
-      } else {
-        h = 0;
-        e = kNeg;
-        f = kNeg;
       }
-      hL = h;
-      eL = e;
-      myH = h;
-      myF = f;
-      if (lane == 31 && j >= 1 && j <= wl) {
-        bufH[j] = h;
-        bufF[j] = f;
+      const int c = wc[kPad + j - 1];
+      int dg = upPrev;
+      upPrev = uH;
+      int uh = uH, uf = uF;
+#pragma unroll
+      for (int k = 0; k < NR; ++k) {
+        const int r = r0 + k;
+        const int old = H[k];
+        const int e_open = old - go, e_ext = E[k] - ge;
+        int e = max(e_open, e_ext);
+        const int f_open = uh - go, f_ext = uf - ge;
+        int f = max(f_open, f_ext);
+        const bool valid = r < rl && j >= 1 && j <= wl;
+        const int diag = dg + (rb[k] == c ? match : -mismatch);
+        int h = max(max(0, diag), max(e, f));
+        if (valid) {
+          const int d = r + j;
+          keep_best(best_s, best_p, h, d * kPosStride + r);
+          if (FULL) {
+            const int hdir = h == 0 ? 0 : (h == diag ? 1 : (h == e ? 2 : 3));
+            pb[(size_t)d * R + r] = (int8_t)(hdir | ((e_ext > e_open) << 2)
+                                             | ((f_ext > f_open) << 3));
+          }
+        } else {
+          h = 0;
+          e = kNeg;
+          f = kNeg;
+        }
+        H[k] = h;
+        E[k] = e;
+        dg = old;
+        uh = h;
+        uf = f;
       }
-      __syncwarp();
+      fb = uf;
+      if (STRIPED && lane == 31 && j >= 1 && j <= wl) {
+        bufH[j] = uh;
+        bufF[j] = uf;
+      }
     }
     __syncwarp();
   }
@@ -194,26 +232,67 @@ __global__ void sw_traceback_kernel(const int8_t* __restrict__ ptr,
   coords[3 * B + b] = bj;
 }
 
-template <bool FULL>
-int launch_sw(const void* read, const void* win, const void* rlen,
-              const void* wlen, int B, int R, int W, int match,
-              int mismatch, int go, int ge, void* ptr, void* score_out,
-              void* pos_out, void* stream) {
-  const size_t smem = (size_t)kWarps * 2 * (W + 1) * sizeof(int);
+// The arguments of one sweep call, as the C entry points receive them.
+struct Call {
+  const void* read;
+  const void* win;
+  const void* rlen;
+  const void* wlen;
+  int B, R, W, match, mismatch, go, ge;
+  void* ptr;
+  void* score_out;
+  void* pos_out;
+  void* stream;
+};
+
+template <int NR, bool FULL, bool STRIPED>
+int launch_sw(const Call& a) {
+  const int cap = steps_cap(a.W);
+  const size_t smem = (size_t)kWarps *
+                      (kPad + cap + (STRIPED ? 2 * (cap + 1) : 0)) *
+                      sizeof(int);
+  auto* kernel = sw_kernel<NR, FULL, STRIPED>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sw_kernel<FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int grid = (B + kWarps - 1) / kWarps;
+  const int grid = (a.B + kWarps - 1) / kWarps;
   if (grid > 0) {
-    sw_kernel<FULL><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-        (const int8_t*)read, (const int8_t*)win, (const int*)rlen,
-        (const int*)wlen, B, R, W, match, mismatch, go, ge, (int8_t*)ptr,
-        (int*)score_out, (int*)pos_out);
+    FGT_LAUNCH(kernel, grid, kWarps * 32, smem, (cudaStream_t)a.stream,
+               (const int8_t*)a.read, (const int8_t*)a.win,
+               (const int*)a.rlen, (const int*)a.wlen, a.B, a.R, a.W,
+               a.match, a.mismatch, a.go, a.ge, (int8_t*)a.ptr,
+               (int*)a.score_out, (int*)a.pos_out);
   }
   return (int)cudaGetLastError();
+}
+
+// NR = ceil(R / 32) rows per thread in one stripe up to 32 kMaxRows rows;
+// longer reads in stripes of kMaxRows rows per thread.
+template <bool FULL>
+int dispatch_rows(const Call& a) {
+  if (a.W < 1) return (int)cudaErrorInvalidValue;
+  switch (max(1, (a.R + 31) / 32)) {
+#define FGT_CASE(N) \
+  case N:           \
+    return launch_sw<N, FULL, false>(a);
+    FGT_CASE(1)
+    FGT_CASE(2)
+    FGT_CASE(3)
+    FGT_CASE(4)
+    FGT_CASE(5)
+    FGT_CASE(6)
+    FGT_CASE(7)
+    FGT_CASE(8)
+    FGT_CASE(9)
+    FGT_CASE(10)
+    FGT_CASE(11)
+    FGT_CASE(12)
+#undef FGT_CASE
+    default:
+      return launch_sw<kMaxRows, FULL, true>(a);
+  }
 }
 
 }  // namespace
@@ -224,16 +303,18 @@ int fgt_sw_score(const void* read, const void* win, const void* rlen,
                  const void* wlen, int B, int R, int W, int match,
                  int mismatch, int go, int ge, void* score_out,
                  void* pos_out, void* stream) {
-  return launch_sw<false>(read, win, rlen, wlen, B, R, W, match, mismatch,
-                          go, ge, nullptr, score_out, pos_out, stream);
+  return dispatch_rows<false>(Call{read, win, rlen, wlen, B, R, W, match,
+                                   mismatch, go, ge, nullptr, score_out,
+                                   pos_out, stream});
 }
 
 int fgt_sw_full(const void* read, const void* win, const void* rlen,
                 const void* wlen, int B, int R, int W, int match,
                 int mismatch, int go, int ge, void* ptr, void* score_out,
                 void* pos_out, void* stream) {
-  return launch_sw<true>(read, win, rlen, wlen, B, R, W, match, mismatch,
-                         go, ge, ptr, score_out, pos_out, stream);
+  return dispatch_rows<true>(Call{read, win, rlen, wlen, B, R, W, match,
+                                  mismatch, go, ge, ptr, score_out, pos_out,
+                                  stream});
 }
 
 int fgt_sw_traceback(const void* ptr, const void* best, const void* pos,
@@ -242,9 +323,9 @@ int fgt_sw_traceback(const void* ptr, const void* best, const void* pos,
   const int threads = 128;
   const int grid = (B + threads - 1) / threads;
   if (grid > 0) {
-    sw_traceback_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        (const int8_t*)ptr, (const int*)best, (const int*)pos, B, R, W,
-        max_steps, (uint8_t*)packed, (int*)coords);
+    FGT_LAUNCH(sw_traceback_kernel, grid, threads, 0, (cudaStream_t)stream,
+               (const int8_t*)ptr, (const int*)best, (const int*)pos, B, R,
+               W, max_steps, (uint8_t*)packed, (int*)coords);
   }
   return (int)cudaGetLastError();
 }

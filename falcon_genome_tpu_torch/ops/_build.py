@@ -154,12 +154,18 @@ def load() -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(so))
             except OSError as e:
                 raise KernelBuildError(f"cannot load {so}: {e}") from e
-            for name, args in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(args)
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = bind(lib)
         return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Give the C entry points of ``lib`` that it has their signatures."""
+    for name, args in SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+    return lib
 
 
 def check(err: int, what: str) -> None:

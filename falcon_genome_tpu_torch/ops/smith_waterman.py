@@ -238,65 +238,52 @@ def _plain_scan(read, rlen, win, wlen, params):
                          params=params, R=R, W=W)
 
 
-def sw_score(read, rlen, win, wlen, params: SWParams):
-    """Score-only SW (kernel K1).  read (B, R) int8 codes, win (B, W) int8
-    (5 = off-genome), rlen/wlen (B,) int32 → ((B,) score, (B,) bestpos)
-    int32 on the inputs' device."""
-    _check_lanes(read, rlen, win, wlen)
-    if read.device.type == "cpu":
-        _, best, pos = _plain_scan(read, rlen, win, wlen, params)
-        return best[0], pos[0]
-    read, win, rlen, wlen = _cuda_args(read, rlen, win, wlen)
+def _pointer_shape(B: int, R: int, W: int) -> tuple[int, ...]:
+    """Shape of K2's pointer array: (B, R+W, R) bytes, one per cell of
+    every anti-diagonal."""
+    return (B, R + W, R)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _sw_score_launch(lib, read, rlen, win, wlen, params: SWParams, stream):
+    """Launch K1 from ``lib`` on contiguous inputs; returns (score, pos)
+    allocated on the inputs' device."""
     B, R = read.shape
     W = win.shape[1]
     score = torch.empty(B, dtype=torch.int32, device=read.device)
     pos = torch.empty(B, dtype=torch.int32, device=read.device)
-    err = _build.load().fgt_sw_score(
+    err = lib.fgt_sw_score(
         read.data_ptr(), win.data_ptr(), rlen.data_ptr(), wlen.data_ptr(),
         B, R, W, params.match, params.mismatch,
         params.gap_open + params.gap_ext, params.gap_ext,
-        score.data_ptr(), pos.data_ptr(),
-        torch.cuda.current_stream(read.device).cuda_stream)
+        score.data_ptr(), pos.data_ptr(), stream)
     _build.check(err, "fgt_sw_score")
-    _count("fgt_sw_score")
     return score, pos
 
 
-def sw_pointers(read, rlen, win, wlen, params: SWParams):
-    """Full SW sweep with traceback pointers (kernel K2).  Inputs as
-    :func:`sw_score`.  Returns (pointers, best (B,), bestpos (B,)); the
-    pointer layout is the version's own — (R+W, R, B) for the plain sweep,
-    (B, R+W, R) for the kernel — and only :func:`sw_traceback` reads it."""
-    _check_lanes(read, rlen, win, wlen)
-    if read.device.type == "cpu":
-        ptrs, best, pos = _plain_scan(read, rlen, win, wlen, params)
-        return ptrs, best[0], pos[0]
-    read, win, rlen, wlen = _cuda_args(read, rlen, win, wlen)
+def _sw_full_launch(lib, read, rlen, win, wlen, params: SWParams, stream):
+    """Launch K2 from ``lib``; returns (pointers, best, pos)."""
     B, R = read.shape
     W = win.shape[1]
     dev = read.device
-    ptr = torch.empty((B, R + W, R), dtype=torch.int8, device=dev)
+    ptr = torch.empty(_pointer_shape(B, R, W), dtype=torch.int8, device=dev)
     best = torch.empty(B, dtype=torch.int32, device=dev)
     pos = torch.empty(B, dtype=torch.int32, device=dev)
-    err = _build.load().fgt_sw_full(
+    err = lib.fgt_sw_full(
         read.data_ptr(), win.data_ptr(), rlen.data_ptr(), wlen.data_ptr(),
         B, R, W, params.match, params.mismatch,
         params.gap_open + params.gap_ext, params.gap_ext,
-        ptr.data_ptr(), best.data_ptr(), pos.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptr.data_ptr(), best.data_ptr(), pos.data_ptr(), stream)
     _build.check(err, "fgt_sw_full")
-    _count("fgt_sw_full")
     return ptr, best, pos
 
 
-def sw_traceback(ptrs, best, pos, max_steps: int):
-    """Pointer walk (kernel K3) over :func:`sw_pointers` output.  Returns
-    (packed ops (ceil(max_steps/4), B) uint8, coords (4, B) int32,
-    best (B,) int32)."""
-    if ptrs.device.type == "cpu":
-        return _traceback_core(ptrs, best, pos, max_steps=max_steps)
-    if ptrs.device.type != "cuda":
-        raise ValueError(f"no Smith-Waterman kernel for device {ptrs.device}")
+def _sw_traceback_launch(lib, ptrs, best, pos, max_steps: int, stream):
+    """Launch K3 from ``lib`` over K2's pointers; returns (packed,
+    coords, best)."""
     if ptrs.dim() != 3 or ptrs.dtype != torch.int8:
         raise TypeError("ptrs must be the (B, R+W, R) int8 output of "
                         "sw_pointers")
@@ -310,13 +297,57 @@ def sw_traceback(ptrs, best, pos, max_steps: int):
     packed = torch.empty(((max_steps + 3) // 4, B), dtype=torch.uint8,
                          device=dev)
     coords = torch.empty((4, B), dtype=torch.int32, device=dev)
-    err = _build.load().fgt_sw_traceback(
+    err = lib.fgt_sw_traceback(
         ptrs.data_ptr(), best.data_ptr(), pos.data_ptr(), B, R, D - R,
-        max_steps, packed.data_ptr(), coords.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        max_steps, packed.data_ptr(), coords.data_ptr(), stream)
     _build.check(err, "fgt_sw_traceback")
-    _count("fgt_sw_traceback")
     return packed, coords, best
+
+
+def sw_score(read, rlen, win, wlen, params: SWParams):
+    """Score-only SW (kernel K1).  read (B, R) int8 codes, win (B, W) int8
+    (5 = off-genome), rlen/wlen (B,) int32 → ((B,) score, (B,) bestpos)
+    int32 on the inputs' device."""
+    _check_lanes(read, rlen, win, wlen)
+    if read.device.type == "cpu":
+        _, best, pos = _plain_scan(read, rlen, win, wlen, params)
+        return best[0], pos[0]
+    read, win, rlen, wlen = _cuda_args(read, rlen, win, wlen)
+    out = _sw_score_launch(_build.load(), read, rlen, win, wlen, params,
+                           _stream(read))
+    _count("fgt_sw_score")
+    return out
+
+
+def sw_pointers(read, rlen, win, wlen, params: SWParams):
+    """Full SW sweep with traceback pointers (kernel K2).  Inputs as
+    :func:`sw_score`.  Returns (pointers, best (B,), bestpos (B,)); the
+    pointer layout is the version's own — (R+W, R, B) for the plain sweep,
+    :func:`_pointer_shape` for the kernel — and only :func:`sw_traceback`
+    reads it."""
+    _check_lanes(read, rlen, win, wlen)
+    if read.device.type == "cpu":
+        ptrs, best, pos = _plain_scan(read, rlen, win, wlen, params)
+        return ptrs, best[0], pos[0]
+    read, win, rlen, wlen = _cuda_args(read, rlen, win, wlen)
+    out = _sw_full_launch(_build.load(), read, rlen, win, wlen, params,
+                          _stream(read))
+    _count("fgt_sw_full")
+    return out
+
+
+def sw_traceback(ptrs, best, pos, max_steps: int):
+    """Pointer walk (kernel K3) over :func:`sw_pointers` output.  Returns
+    (packed ops (ceil(max_steps/4), B) uint8, coords (4, B) int32,
+    best (B,) int32)."""
+    if ptrs.device.type == "cpu":
+        return _traceback_core(ptrs, best, pos, max_steps=max_steps)
+    if ptrs.device.type != "cuda":
+        raise ValueError(f"no Smith-Waterman kernel for device {ptrs.device}")
+    out = _sw_traceback_launch(_build.load(), ptrs, best, pos, max_steps,
+                               _stream(ptrs))
+    _count("fgt_sw_traceback")
+    return out
 
 
 def sw_full(read, rlen, win, wlen, params: SWParams, max_steps: int):
