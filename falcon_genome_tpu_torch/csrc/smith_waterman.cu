@@ -62,6 +62,8 @@ constexpr int kWarps = 4;          // alignments (warps) per block
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxRows = 12;       // rows per thread: one stripe up to 384
 constexpr int kPad = 32;           // window codes in front of column 1
+constexpr int kNoCode = 1 << 16;   // window code outside it: no read base
+constexpr int kOffKey = -(1 << 30);  // best-cell key outside the window
 
 __device__ __forceinline__ void keep_best(int& s, int& p, int os, int op) {
   if (os > s || (os == s && op < p)) {
@@ -98,65 +100,61 @@ sw_kernel(const int8_t* __restrict__ read, const int8_t* __restrict__ win,
   // window codes: wc[kPad + j - 1] is column j
   for (int p = lane; p < span; p += 32) {
     const int q = p - kPad;
-    wc[p] = (q >= 0 && q < wl) ? (int)wn[q] : 5;
+    wc[p] = (q >= 0 && q < wl) ? (int)wn[q] : kNoCode;
   }
   __syncwarp();
   int8_t* pb = FULL ? ptr + (size_t)b * (size_t)(R + W) * R : nullptr;
   int best_s = 0, best_p = 0;
   const int nstripes = STRIPED ? (max(rl, 0) + kRows - 1) / kRows
-                               : (rl > 0 ? 1 : 0);
+                               : (rl > 0 && wl > 0 ? 1 : 0);
   for (int st = 0; st < nstripes; ++st) {
     const int r0 = st * kRows + lane * NR;  // this thread's first row
-    int rb[NR], H[NR], E[NR];
+    int rb[NR], H[NR], E[NR], key[NR];
 #pragma unroll
     for (int k = 0; k < NR; ++k) {
-      rb[k] = r0 + k < rl ? (int)rd[r0 + k] : -1;
+      rb[k] = r0 + k < rl ? (int)rd[r0 + k] : 0;
       H[k] = 0;
       E[k] = kNeg;
+      key[k] = 0;
     }
     int upPrev = 0;   // H of the row above at the previous column
     int fb = kNeg;    // F of this thread's last row (read by the next)
-    const int nsteps = wl + 31;
+    // the last thread with a row of the read ends on column wl
+    const int nsteps = wl + (min(rl - st * kRows, kRows) - 1) / NR;
     for (int s = 0; s < nsteps; ++s) {
       const int j = s - lane + 1;
       int uH = __shfl_up_sync(kFull, H[NR - 1], 1);
       int uF = __shfl_up_sync(kFull, fb, 1);
-      if (lane == 0) {
-        if (STRIPED && st > 0) {  // the row above is the previous stripe's
-          uH = bufH[j];
-          uF = bufF[j];
-        } else {
-          uH = 0;
-          uF = kNeg;
-        }
+      if (STRIPED && st > 0) {  // the row above is the previous stripe's
+        uH = lane == 0 ? bufH[j] : uH;
+        uF = lane == 0 ? bufF[j] : uF;
+      } else {
+        uH = lane == 0 ? 0 : uH;
+        uF = lane == 0 ? kNeg : uF;
       }
       const int c = wc[kPad + j - 1];
+      // key of a cell: h * 4096 + 4095 - j inside the window; a column
+      // outside it can never win
+      const bool col = (unsigned)(j - 1) < (unsigned)wl;
+      const int low = col ? 4095 - j : kOffKey;
       int dg = upPrev;
       upPrev = uH;
       int uh = uH, uf = uF;
 #pragma unroll
       for (int k = 0; k < NR; ++k) {
-        const int r = r0 + k;
         const int old = H[k];
         const int e_open = old - go, e_ext = E[k] - ge;
-        int e = max(e_open, e_ext);
+        const int e = max(e_open, e_ext);
         const int f_open = uh - go, f_ext = uf - ge;
-        int f = max(f_open, f_ext);
-        const bool valid = r < rl && j >= 1 && j <= wl;
+        const int f = max(f_open, f_ext);
         const int diag = dg + (rb[k] == c ? match : -mismatch);
-        int h = max(max(0, diag), max(e, f));
-        if (valid) {
-          const int d = r + j;
-          keep_best(best_s, best_p, h, d * kPosStride + r);
-          if (FULL) {
-            const int hdir = h == 0 ? 0 : (h == diag ? 1 : (h == e ? 2 : 3));
-            pb[(size_t)d * R + r] = (int8_t)(hdir | ((e_ext > e_open) << 2)
-                                             | ((f_ext > f_open) << 3));
-          }
-        } else {
-          h = 0;
-          e = kNeg;
-          f = kNeg;
+        const int h = max(max(0, diag), max(e, f));
+        key[k] = max(key[k], (h << 12) + low);
+        if (FULL && col && r0 + k < rl) {
+          const int r = r0 + k;
+          const int hdir = h == 0 ? 0 : (h == diag ? 1 : (h == e ? 2 : 3));
+          pb[(size_t)(r + j) * R + r] = (int8_t)(
+              hdir | ((e_ext > e_open) << 2) | ((f_ext > f_open) << 3));
         }
         H[k] = h;
         E[k] = e;
@@ -165,9 +163,19 @@ sw_kernel(const int8_t* __restrict__ read, const int8_t* __restrict__ win,
         uf = f;
       }
       fb = uf;
-      if (STRIPED && lane == 31 && j >= 1 && j <= wl) {
+      if (STRIPED && lane == 31 && j >= 1) {
         bufH[j] = uh;
         bufF[j] = uf;
+      }
+    }
+    // the rows' best cells: (score desc, bestpos asc) over the rows of the
+    // read; a key below 4096 is a score of 0
+#pragma unroll
+    for (int k = 0; k < NR; ++k) {
+      const int r = r0 + k;
+      if (r < rl && key[k] >= 4096) {
+        const int j = 4095 - (key[k] & 4095);
+        keep_best(best_s, best_p, key[k] >> 12, (r + j) * kPosStride + r);
       }
     }
     __syncwarp();

@@ -244,6 +244,19 @@ def _pointer_shape(B: int, R: int, W: int) -> tuple[int, ...]:
     return (B, R + W, R)
 
 
+def _check_kernel_params(params: SWParams, R: int, W: int) -> None:
+    """What the kernels' sweep assumes of the parameters: penalties of at
+    least 0 (a cell left of the window then holds exactly 0), a window
+    below 4096 columns and scores below 2^18 (a row's best cell is kept
+    as one key, score * 4096 + 4095 - column)."""
+    if min(params.mismatch, params.gap_ext,
+           params.gap_open + params.gap_ext) < 0:
+        raise ValueError("the SW kernels need penalties >= 0")
+    if W >= POS_STRIDE or max(min(R, W) * params.match, 0) >= 1 << 18:
+        raise ValueError(f"SW bucket {R} x {W} with match {params.match} "
+                         "exceeds the kernels' best-cell key")
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -253,6 +266,7 @@ def _sw_score_launch(lib, read, rlen, win, wlen, params: SWParams, stream):
     allocated on the inputs' device."""
     B, R = read.shape
     W = win.shape[1]
+    _check_kernel_params(params, R, W)
     score = torch.empty(B, dtype=torch.int32, device=read.device)
     pos = torch.empty(B, dtype=torch.int32, device=read.device)
     err = lib.fgt_sw_score(
@@ -268,6 +282,7 @@ def _sw_full_launch(lib, read, rlen, win, wlen, params: SWParams, stream):
     """Launch K2 from ``lib``; returns (pointers, best, pos)."""
     B, R = read.shape
     W = win.shape[1]
+    _check_kernel_params(params, R, W)
     dev = read.device
     ptr = torch.empty(_pointer_shape(B, R, W), dtype=torch.int8, device=dev)
     best = torch.empty(B, dtype=torch.int32, device=dev)
