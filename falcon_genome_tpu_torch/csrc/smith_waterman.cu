@@ -143,19 +143,27 @@ sw_kernel(const int8_t* __restrict__ read, const int8_t* __restrict__ win,
 #pragma unroll
       for (int k = 0; k < NR; ++k) {
         const int old = H[k];
-        const int e_open = old - go, e_ext = E[k] - ge;
-        const int e = max(e_open, e_ext);
-        const int f_open = uh - go, f_ext = uf - ge;
-        const int f = max(f_open, f_ext);
         const int diag = dg + (rb[k] == c ? match : -mismatch);
-        const int h = max(max(0, diag), max(e, f));
-        key[k] = max(key[k], (h << 12) + low);
-        if (FULL && col && r0 + k < rl) {
-          const int r = r0 + k;
-          const int hdir = h == 0 ? 0 : (h == diag ? 1 : (h == e ? 2 : 3));
-          pb[(size_t)(r + j) * R + r] = (int8_t)(
-              hdir | ((e_ext > e_open) << 2) | ((f_ext > f_open) << 3));
+        int e, f, h;
+        if (FULL) {  // DPX: max and which operand won
+          bool e_open_won, f_open_won, e_won, diag_won;
+          e = __vibmax_s32(old - go, E[k] - ge, &e_open_won);
+          f = __vibmax_s32(uh - go, uf - ge, &f_open_won);
+          const int ef = __vibmax_s32(e, f, &e_won);
+          const int hd = __vibmax_s32(diag, ef, &diag_won);
+          h = max(hd, 0);
+          if (col && r0 + k < rl) {
+            const int r = r0 + k;
+            const int hdir = hd <= 0 ? 0 : (diag_won ? 1 : (e_won ? 2 : 3));
+            pb[(size_t)(r + j) * R + r] = (int8_t)(
+                hdir | (e_open_won ? 0 : 4) | (f_open_won ? 0 : 8));
+          }
+        } else {  // DPX: max(a + b, c) and max(a, b, c, 0)
+          e = __viaddmax_s32(old, -go, E[k] - ge);
+          f = __viaddmax_s32(uh, -go, uf - ge);
+          h = __vimax3_s32_relu(diag, e, f);
         }
+        key[k] = __viaddmax_s32(h << 12, low, key[k]);
         H[k] = h;
         E[k] = e;
         dg = old;
