@@ -64,6 +64,7 @@ constexpr int kMaxRows = 12;       // rows per thread: one stripe up to 384
 constexpr int kPad = 32;           // window codes in front of column 1
 constexpr int kNoCode = 1 << 16;   // window code outside it: no read base
 constexpr int kOffKey = -(1 << 30);  // best-cell key outside the window
+constexpr int kBlk = 8;            // steps per pointer word, 4 bits a cell
 
 __device__ __forceinline__ void keep_best(int& s, int& p, int os, int op) {
   if (os > s || (os == s && op < p)) {
@@ -72,15 +73,18 @@ __device__ __forceinline__ void keep_best(int& s, int& p, int os, int op) {
   }
 }
 
-// Columns a stripe sweeps at most: W + 31 steps.
-__host__ __device__ __forceinline__ int steps_cap(int W) { return W + 31; }
+// Steps a stripe sweeps at most: W + 31, rounded up to whole pointer
+// words (kBlk steps of 4 bits).
+__host__ __device__ __forceinline__ int steps_cap(int W) {
+  return (W + 31 + kBlk - 1) / kBlk * kBlk;
+}
 
 template <int NR, bool FULL, bool STRIPED>
 __global__ void __launch_bounds__(kWarps * 32)
 sw_kernel(const int8_t* __restrict__ read, const int8_t* __restrict__ win,
           const int* __restrict__ rlen, const int* __restrict__ wlen,
           int B, int R, int W, int match, int mismatch, int go, int ge,
-          int8_t* __restrict__ ptr, int* __restrict__ score_out,
+          uint32_t* __restrict__ ptr, int* __restrict__ score_out,
           int* __restrict__ pos_out) {
   constexpr int kRows = 32 * NR;  // rows of a stripe
   FGT_DYNAMIC_SMEM(int, smem);
@@ -103,7 +107,10 @@ sw_kernel(const int8_t* __restrict__ read, const int8_t* __restrict__ win,
     wc[p] = (q >= 0 && q < wl) ? (int)wn[q] : kNoCode;
   }
   __syncwarp();
-  int8_t* pb = FULL ? ptr + (size_t)b * (size_t)(R + W) * R : nullptr;
+  const int nblk = cap / kBlk;  // pointer words of a row in a stripe
+  uint32_t* pb = FULL ? ptr + (size_t)b * (STRIPED ? (R + kRows - 1) / kRows
+                                                   : 1) * nblk * kRows
+                      : nullptr;
   int best_s = 0, best_p = 0;
   const int nstripes = STRIPED ? (max(rl, 0) + kRows - 1) / kRows
                                : (rl > 0 && wl > 0 ? 1 : 0);
@@ -121,59 +128,70 @@ sw_kernel(const int8_t* __restrict__ read, const int8_t* __restrict__ win,
     int fb = kNeg;    // F of this thread's last row (read by the next)
     // the last thread with a row of the read ends on column wl
     const int nsteps = wl + (min(rl - st * kRows, kRows) - 1) / NR;
-    for (int s = 0; s < nsteps; ++s) {
-      const int j = s - lane + 1;
-      int uH = __shfl_up_sync(kFull, H[NR - 1], 1);
-      int uF = __shfl_up_sync(kFull, fb, 1);
-      if (STRIPED && st > 0) {  // the row above is the previous stripe's
-        uH = lane == 0 ? bufH[j] : uH;
-        uF = lane == 0 ? bufF[j] : uF;
-      } else {
-        uH = lane == 0 ? 0 : uH;
-        uF = lane == 0 ? kNeg : uF;
-      }
-      const int c = wc[kPad + j - 1];
-      // key of a cell: h * 4096 + 4095 - j inside the window; a column
-      // outside it can never win
-      const bool col = (unsigned)(j - 1) < (unsigned)wl;
-      const int low = col ? 4095 - j : kOffKey;
-      int dg = upPrev;
-      upPrev = uH;
-      int uh = uH, uf = uF;
+    for (int s0 = 0; s0 < nsteps; s0 += kBlk) {
+      unsigned acc[NR];  // FULL: the rows' pointers of kBlk steps
 #pragma unroll
-      for (int k = 0; k < NR; ++k) {
-        const int old = H[k];
-        const int diag = dg + (rb[k] == c ? match : -mismatch);
-        int e, f, h;
-        if (FULL) {  // DPX: max and which operand won
-          bool e_open_won, f_open_won, e_won, diag_won;
-          e = __vibmax_s32(old - go, E[k] - ge, &e_open_won);
-          f = __vibmax_s32(uh - go, uf - ge, &f_open_won);
-          const int ef = __vibmax_s32(e, f, &e_won);
-          const int hd = __vibmax_s32(diag, ef, &diag_won);
-          h = max(hd, 0);
-          if (col && r0 + k < rl) {
-            const int r = r0 + k;
-            const int hdir = hd <= 0 ? 0 : (diag_won ? 1 : (e_won ? 2 : 3));
-            pb[(size_t)(r + j) * R + r] = (int8_t)(
-                hdir | (e_open_won ? 0 : 4) | (f_open_won ? 0 : 8));
-          }
-        } else {  // DPX: max(a + b, c) and max(a, b, c, 0)
-          e = __viaddmax_s32(old, -go, E[k] - ge);
-          f = __viaddmax_s32(uh, -go, uf - ge);
-          h = __vimax3_s32_relu(diag, e, f);
+      for (int k = 0; k < NR; ++k) acc[k] = 0u;
+#pragma unroll
+      for (int u = 0; u < kBlk; ++u) {
+        const int s = s0 + u;
+        const int j = s - lane + 1;
+        int uH = __shfl_up_sync(kFull, H[NR - 1], 1);
+        int uF = __shfl_up_sync(kFull, fb, 1);
+        if (STRIPED && st > 0) {  // the row above is the previous stripe's
+          uH = lane == 0 ? bufH[j] : uH;
+          uF = lane == 0 ? bufF[j] : uF;
+        } else {
+          uH = lane == 0 ? 0 : uH;
+          uF = lane == 0 ? kNeg : uF;
         }
-        key[k] = __viaddmax_s32(h << 12, low, key[k]);
-        H[k] = h;
-        E[k] = e;
-        dg = old;
-        uh = h;
-        uf = f;
+        const int c = wc[kPad + j - 1];
+        // key of a cell: h * 4096 + 4095 - j inside the window; a column
+        // outside it can never win
+        const bool col = (unsigned)(j - 1) < (unsigned)wl;
+        const int low = col ? 4095 - j : kOffKey;
+        int dg = upPrev;
+        upPrev = uH;
+        int uh = uH, uf = uF;
+#pragma unroll
+        for (int k = 0; k < NR; ++k) {
+          const int old = H[k];
+          const int diag = dg + (rb[k] == c ? match : -mismatch);
+          int e, f, h;
+          if (FULL) {  // DPX: max and which operand won
+            bool e_open_won, f_open_won, e_won, diag_won;
+            e = __vibmax_s32(old - go, E[k] - ge, &e_open_won);
+            f = __vibmax_s32(uh - go, uf - ge, &f_open_won);
+            const int ef = __vibmax_s32(e, f, &e_won);
+            const int hd = __vibmax_s32(diag, ef, &diag_won);
+            h = max(hd, 0);
+            const unsigned hdir = hd <= 0 ? 0u
+                                  : (diag_won ? 1u : (e_won ? 2u : 3u));
+            acc[k] |= (hdir | (e_open_won ? 0u : 4u) | (f_open_won ? 0u : 8u))
+                      << (4 * u);
+          } else {  // DPX: max(a + b, c) and max(a, b, c, 0)
+            e = __viaddmax_s32(old, -go, E[k] - ge);
+            f = __viaddmax_s32(uh, -go, uf - ge);
+            h = __vimax3_s32_relu(diag, e, f);
+          }
+          key[k] = __viaddmax_s32(h << 12, low, key[k]);
+          H[k] = h;
+          E[k] = e;
+          dg = old;
+          uh = h;
+          uf = f;
+        }
+        fb = uf;
+        if (STRIPED && lane == 31 && j >= 1) {
+          bufH[j] = uh;
+          bufF[j] = uf;
+        }
       }
-      fb = uf;
-      if (STRIPED && lane == 31 && j >= 1) {
-        bufH[j] = uh;
-        bufF[j] = uf;
+      if (FULL) {  // one word per row: a warp stores 32 NR words in a row
+        uint32_t* out = pb + ((size_t)st * nblk + s0 / kBlk) * kRows +
+                        lane * NR;
+#pragma unroll
+        for (int k = 0; k < NR; ++k) out[k] = acc[k];
       }
     }
     // the rows' best cells: (score desc, bestpos asc) over the rows of the
@@ -199,15 +217,16 @@ sw_kernel(const int8_t* __restrict__ read, const int8_t* __restrict__ win,
   }
 }
 
-__global__ void sw_traceback_kernel(const int8_t* __restrict__ ptr,
+__global__ void sw_traceback_kernel(const uint32_t* __restrict__ ptr,
                                     const int* __restrict__ best,
                                     const int* __restrict__ pos, int B,
-                                    int R, int W, int max_steps,
+                                    int NR, int nst, int nblk, int max_steps,
                                     uint8_t* __restrict__ packed,
                                     int* __restrict__ coords) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const int8_t* pb = ptr + (size_t)b * (size_t)(R + W) * R;
+  const int rows = 32 * NR;  // rows of a stripe
+  const uint32_t* pb = ptr + (size_t)b * nst * nblk * rows;
   const int p = pos[b];
   const int dprog = p / kPosStride, r = p % kPosStride;
   const int bi = r + 1, bj = dprog - r;
@@ -218,7 +237,11 @@ __global__ void sw_traceback_kernel(const int8_t* __restrict__ ptr,
   for (int t = 0; t < 4 * S4; ++t) {
     int op = -1;
     if (active && t < max_steps && i > 0 && j > 0) {
-      const int byte = pb[(size_t)(i + j - 1) * R + (i - 1)];
+      // cell (i, j): row rr of stripe st, swept at step s of its stripe
+      const int st = (i - 1) / rows, rr = i - 1 - st * rows;
+      const int s = j - 1 + rr / NR;
+      const int byte = (int)(pb[((size_t)st * nblk + s / kBlk) * rows + rr]
+                             >> (4 * (s % kBlk))) & 15;
       const int hdir = byte & 3;
       const bool is_h = phase == 0;
       const bool stop = is_h && hdir == 0;
@@ -278,7 +301,7 @@ int launch_sw(const Call& a) {
     FGT_LAUNCH(kernel, grid, kWarps * 32, smem, (cudaStream_t)a.stream,
                (const int8_t*)a.read, (const int8_t*)a.win,
                (const int*)a.rlen, (const int*)a.wlen, a.B, a.R, a.W,
-               a.match, a.mismatch, a.go, a.ge, (int8_t*)a.ptr,
+               a.match, a.mismatch, a.go, a.ge, (uint32_t*)a.ptr,
                (int*)a.score_out, (int*)a.pos_out);
   }
   return (int)cudaGetLastError();
@@ -334,14 +357,14 @@ int fgt_sw_full(const void* read, const void* win, const void* rlen,
 }
 
 int fgt_sw_traceback(const void* ptr, const void* best, const void* pos,
-                     int B, int R, int W, int max_steps, void* packed,
-                     void* coords, void* stream) {
+                     int B, int NR, int nst, int nblk, int max_steps,
+                     void* packed, void* coords, void* stream) {
   const int threads = 128;
   const int grid = (B + threads - 1) / threads;
   if (grid > 0) {
     FGT_LAUNCH(sw_traceback_kernel, grid, threads, 0, (cudaStream_t)stream,
-               (const int8_t*)ptr, (const int*)best, (const int*)pos, B, R,
-               W, max_steps, (uint8_t*)packed, (int*)coords);
+               (const uint32_t*)ptr, (const int*)best, (const int*)pos, B,
+               NR, nst, nblk, max_steps, (uint8_t*)packed, (int*)coords);
   }
   return (int)cudaGetLastError();
 }

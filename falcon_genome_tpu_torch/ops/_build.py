@@ -45,11 +45,12 @@ SIGNATURES = {
     # score_out, pos_out, stream
     "fgt_sw_score": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                      _P),
-    # ... as fgt_sw_score, plus the (B, R+W, R) pointer array
+    # ... as fgt_sw_score, plus the (B, stripes, words, 32 NR) pointers
     "fgt_sw_full": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                     _P, _P),
-    # ptr, best, pos, B, R, W, max_steps, packed_out, coords_out, stream
-    "fgt_sw_traceback": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # ptr, best, pos, B, NR, stripes, words, max_steps, packed_out,
+    # coords_out, stream
+    "fgt_sw_traceback": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # read, base_q, table, rlen, hap, hlen, B, R, H, p_ins, p_del, p_cont,
     # a_mm, a_im, acc_out, shift_out, stream
     "fgt_pairhmm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,

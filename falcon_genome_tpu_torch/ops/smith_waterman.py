@@ -46,8 +46,9 @@ from .sw_ref import NEG, SWParams, SWResult
 
 POS_STRIDE = 4096  # bestpos = diagonal * POS_STRIDE + row
 
-# Bounds the on-device pointer array of one full-SW call: (R + W) * R
-# bytes per lane, ~0.55 GB at 8192 lanes of the aligner's 160 x 256 bucket
+# Bounds the on-device pointer array of one full-SW call: 4 bits per cell
+# of R rows x (W + 31) steps per lane (``_pointer_shape``), ~0.19 GB at
+# 8192 lanes of the aligner's 160 x 256 bucket
 MAX_LANES_PER_CALL = 8192
 
 # kernel launches since the last reset, per CUDA entry point
@@ -239,9 +240,14 @@ def _plain_scan(read, rlen, win, wlen, params):
 
 
 def _pointer_shape(B: int, R: int, W: int) -> tuple[int, ...]:
-    """Shape of K2's pointer array: (B, R+W, R) bytes, one per cell of
-    every anti-diagonal."""
-    return (B, R + W, R)
+    """Shape of K2's int32 pointer array, (B, stripes, words, 32 NR): the
+    kernel's thread t owns rows t NR .. t NR + NR - 1 of a stripe of 32 NR
+    rows (NR = ceil(R / 32) up to 12; longer reads in stripes of 384 rows)
+    and sweeps column j of them at step s = j - 1 + t; the pointers of
+    steps 8 w .. 8 w + 7 of a row are word w, 4 bits a cell (step s % 8 at
+    bit 4 (s % 8)).  Words per row: the W + 31 steps rounded up to 8."""
+    nr = min(max(1, -(-R // 32)), 12)
+    return (B, -(-R // (32 * nr)), -(-(W + 31) // 8), 32 * nr)
 
 
 def _check_kernel_params(params: SWParams, R: int, W: int) -> None:
@@ -284,7 +290,7 @@ def _sw_full_launch(lib, read, rlen, win, wlen, params: SWParams, stream):
     W = win.shape[1]
     _check_kernel_params(params, R, W)
     dev = read.device
-    ptr = torch.empty(_pointer_shape(B, R, W), dtype=torch.int8, device=dev)
+    ptr = torch.empty(_pointer_shape(B, R, W), dtype=torch.int32, device=dev)
     best = torch.empty(B, dtype=torch.int32, device=dev)
     pos = torch.empty(B, dtype=torch.int32, device=dev)
     err = lib.fgt_sw_full(
@@ -299,10 +305,10 @@ def _sw_full_launch(lib, read, rlen, win, wlen, params: SWParams, stream):
 def _sw_traceback_launch(lib, ptrs, best, pos, max_steps: int, stream):
     """Launch K3 from ``lib`` over K2's pointers; returns (packed,
     coords, best)."""
-    if ptrs.dim() != 3 or ptrs.dtype != torch.int8:
-        raise TypeError("ptrs must be the (B, R+W, R) int8 output of "
-                        "sw_pointers")
-    B, D, R = ptrs.shape
+    if ptrs.dim() != 4 or ptrs.dtype != torch.int32 or ptrs.shape[3] % 32:
+        raise TypeError("ptrs must be the (B, stripes, words, 32 NR) int32 "
+                        "output of sw_pointers")
+    B, nst, nblk, rows = ptrs.shape
     for t in (best, pos):
         if t.shape != (B,) or t.dtype != torch.int32 or \
                 t.device != ptrs.device:
@@ -313,8 +319,8 @@ def _sw_traceback_launch(lib, ptrs, best, pos, max_steps: int, stream):
                          device=dev)
     coords = torch.empty((4, B), dtype=torch.int32, device=dev)
     err = lib.fgt_sw_traceback(
-        ptrs.data_ptr(), best.data_ptr(), pos.data_ptr(), B, R, D - R,
-        max_steps, packed.data_ptr(), coords.data_ptr(), stream)
+        ptrs.data_ptr(), best.data_ptr(), pos.data_ptr(), B, rows // 32, nst,
+        nblk, max_steps, packed.data_ptr(), coords.data_ptr(), stream)
     _build.check(err, "fgt_sw_traceback")
     return packed, coords, best
 
