@@ -9,11 +9,14 @@ Phases (each prints its numbers; any failure exits non-zero):
 1. card: device name, ``nvidia-smi`` name and power limit, whether the
    host C++ extension built;
 2. build: compiles the CUDA kernels from ``falcon_genome_tpu_torch/csrc``
-   (nvcc, sm_90a) and reports build time, registers and spills, and for
-   the two PairHMM instantiations of the main path the instructions of
-   one anti-diagonal step in the library's SASS;
+   (nvcc, sm_90a) and reports build time, registers and spills, and the
+   instructions of one sweep step in the library's SASS for the two
+   PairHMM instantiations of the main path and for every instantiation
+   of the Smith-Waterman sweep (with its integer max/min);
 3. kernels vs their plain PyTorch versions on the card at the main
-   path's shapes: Smith-Waterman K1-K3 bit-equal, PairHMM K4 (scalar
+   path's shapes: Smith-Waterman K1-K3 bit-equal (K2/K3 at the aligner's,
+   mate rescue's and HaplotypeCaller's buckets, with K2's byte bound from
+   its pointer array), PairHMM K4 (scalar
    transitions) and K5 (per-base transition planes) within 1e-4 log10
    with the same -inf lanes (and how many pairs are not bit-equal), also
    on quality-0 rescue pairs whose mass passes through float32's
@@ -146,6 +149,26 @@ def cuda_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def sw_sweep_counts(so: Path) -> None:
+    """Phase 2 for Smith-Waterman: every instantiation of ``sw_kernel``
+    (rows per thread NR, K2's pointer stream FULL, the stripe loop of
+    R > 32 NR), its instructions per sweep step in the library's SASS and
+    how many of them are integer max/min (IMNMX and the DPX forms)."""
+    from falcon_genome_tpu_torch.benchmarks import sass
+    names = sass.sass_names(so, r"9sw_kernelI")
+    check(bool(names), "no sw_kernel in the library's SASS")
+    for name in names:
+        c = sass.sass_sweep_counts(so, re.escape(name), loop_by=sass.SHFL_UP,
+                                   count=sass.MNMX, shfl_per_step=2)
+        m = re.search(r"ILi(\d+)ELb(\d)ELb(\d)E", name)
+        what = name if m is None else "sw_kernel<{}, {}, {}>".format(
+            m.group(1), *("true" if g == "1" else "false"
+                          for g in m.groups()[1:]))
+        say(f"K1/K2 {what}: {c['per_step']:.1f} instructions per sweep "
+            f"step, {c['counted_per_step']:.1f} of them integer max/min "
+            f"({c['trip']} in a trip of {c['steps_per_trip']:.0f} steps)")
 
 
 # ---------------------------------------------------------------------------
@@ -397,17 +420,21 @@ def phase_kernels(torch, S, P, results) -> None:
         t2p = cuda_ms(torch, lambda: S._plain_scan(read, rl, win, wl, p), 1)
         t3p = cuda_ms(torch, lambda: S._traceback_core(
             pptr, pbest[0], ppos[0], max_steps=steps), 1)
-        # K2 writes (R + W) * R pointer bytes per lane; K3 reads one
-        # pointer byte per step it walks (the 2-bit ops it emits)
+        # K2 writes its pointer array, 4 bits a cell over the R rows and
+        # W + 31 steps of a lane (``_pointer_shape``); K3 reads the 4-bit
+        # pointer of each step it walks (the 2-bit ops it emits)
         packed = kout[0].cpu().numpy()
         walked = int(sum(((packed >> s) & 3 != 0).sum() for s in (0, 2, 4, 6)))
-        b2 = bound(read.numel() + win.numel() + 16 * B + (R + W) * R * B,
+        ptr_bytes = kptr.numel() * kptr.element_size()
+        b2 = bound(read.numel() + win.numel() + 16 * B + ptr_bytes,
                    SW_OPS_PER_CELL * sw_cells(rl, wl, R, W), PEAK_INT32)
-        b3 = bound(walked + packed.size + 24 * B, 0, PEAK_INT32)
+        b3 = bound(walked / 2 + packed.size + 24 * B, 0, PEAK_INT32)
         say(f"K2+K3 {label} R={R} W={W} B={B} params={tuple(vars(p).values())}"
             f": bit-equal best, bestpos, op streams, coords; "
             f"K2 kernel {t2:.3f} ms plain {t2p:.3f} ms bound "
-            f"{b2['bound_ms']:.3f} ms; K3 kernel {t3:.3f} ms plain "
+            f"{b2['bound_ms']:.3f} ms ({b2['bound_by']}; pointers "
+            f"{ptr_bytes / B:.0f} B a lane against (R + W) R = "
+            f"{(R + W) * R} before); K3 kernel {t3:.3f} ms plain "
             f"{t3p:.3f} ms bound {b3['bound_ms']:.4f} ms "
             f"(max_steps {steps}, {walked} steps walked, mapped "
             f"{int((kbest > 0).sum())}/{B})")
@@ -881,25 +908,6 @@ def phase_cards(cli, validate, sample, work: Path, count: int,
 # ---------------------------------------------------------------------------
 # phase 7: the benchmark path (kernels K6, K7)
 # ---------------------------------------------------------------------------
-
-def sw_sweep_counts(so: Path) -> None:
-    """Phase 2 for Smith-Waterman: every instantiation of ``sw_kernel``
-    (rows per thread NR, K2's pointer stream FULL, the stripe loop of
-    R > 32 NR), its instructions per sweep step in the library's SASS and
-    how many of them are integer max/min (IMNMX and the DPX forms)."""
-    from falcon_genome_tpu_torch.benchmarks import sass
-    names = sass.sass_names(so, r"9sw_kernelI")
-    check(bool(names), "no sw_kernel in the library's SASS")
-    for name in names:
-        c = sass.sass_sweep_counts(so, re.escape(name), loop_by=sass.SHFL_UP,
-                                   count=sass.MNMX, shfl_per_step=2)
-        m = re.search(r"ILi(\d+)ELb(\d)ELb(\d)E", name)
-        what = (f"sw_kernel<{m.group(1)}, {'true' if m.group(2) == '1' else 'false'}, "
-                f"{'true' if m.group(3) == '1' else 'false'}>" if m else name)
-        say(f"K1/K2 {what}: {c['per_step']:.1f} instructions per sweep "
-            f"step, {c['counted_per_step']:.1f} of them integer max/min "
-            f"({c['trip']} in a trip of {c['steps_per_trip']:.0f} steps)")
-
 
 def phase_bench(torch, S, BK, results, so: Path, work: Path) -> None:
     from falcon_genome_tpu_torch import bench

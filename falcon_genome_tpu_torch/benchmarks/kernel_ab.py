@@ -261,15 +261,19 @@ def main(argv: list[str]) -> int:
     if not argv:
         print("usage: kernel_ab ROOT [ROOT ...]", file=sys.stderr)
         return 2
-    for root in argv:
+    rc = 0
+    for root in argv:   # a root that fails is reported, the others still run
         res = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--one", root],
             capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             print(res.stdout + res.stderr, file=sys.stderr)
-            return 1
+            print(json.dumps({"root": root, "error": res.returncode}),
+                  flush=True)
+            rc = 1
+            continue
         print(res.stdout.strip().splitlines()[-1], flush=True)
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

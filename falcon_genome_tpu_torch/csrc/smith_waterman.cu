@@ -20,27 +20,48 @@
 //   2 from E, 3 from F (that priority), eext/fext = strict ext > open.
 //
 // What bounds it on the H100: K1 and K2 are serial integer max-plus
-// recurrences along a wavefront -- latency- and issue-bound, not
-// memory-bound (a few hundred bytes of input per alignment).  K2 also
-// writes one pointer byte per cell, (R + W) * R bytes per alignment
-// (0.55 GB for 8192 aligner lanes at R = 160, W = 256), so it carries a
-// DRAM write stream beside the recurrence.  K3 is a dependent chain of
-// single-byte loads per alignment: latency-bound.
+// recurrences along a wavefront -- bound by the instruction issue rate
+// (every warp instruction of a step takes a scheduler slot), not by
+// memory (a few hundred bytes of input per alignment).  K2 also writes its
+// pointers, 4 bits a cell, 23 KB per alignment at R = 160, W = 256 (0.19
+// GB for 8192 aligner lanes), a DRAM write stream beside the recurrence.
+// K3 is a dependent chain of loads per alignment: latency-bound.
 //
 // Design: one warp per alignment.  Thread t owns NR consecutive rows
 // (NR = ceil(R / 32), a template parameter up to kMaxRows, so the rows'
-// state lives in registers) and computes column j = k - t + 1 of all of
-// them at step k: each step does NR cells for one pair of __shfl_up_sync,
-// which hands the H and F of the thread's last row to the thread below.
-// The warp sweeps wlen + 31 steps once.  Reads longer than 32 kMaxRows
+// state lives in registers) and computes column j = s - t + 1 of all of
+// them at step s: each step does NR cells for one pair of __shfl_up_sync,
+// which hands the H and F of the thread's last row to the thread below,
+// and the warp sweeps at most wlen + 31 steps once (as far as the last
+// thread with a row of the read needs).  Reads longer than 32 kMaxRows
 // rows run in stripes of that many rows; the stripe's last row is kept in
-// shared memory for the next stripe's first row.  The window enters
-// shared memory once per warp, so a step loads its column's base once for
-// NR cells.  Best cells are kept per thread under the (score desc,
-// bestpos asc) order and reduced across the warp with shuffles; that order
-// is total, so the order of visiting cells cannot change the result.  K3
-// is one thread per alignment walking the pointer array, laid out per
-// alignment as [d][r].
+// shared memory for the next stripe's first row.  Per step, not per cell:
+//   * the window enters shared memory once per warp as int codes, with a
+//     code that equals no read base left and right of it, and a step loads
+//     its column's code once for NR cells;
+//   * no cell tests whether it lies in the matrix: a cell left of the
+//     window sees only zeros and the no-base code, so it holds exactly
+//     H = 0 and E, F <= -go (penalties >= 0, which the wrapper checks),
+//     which is what the first column reads of the boundary; cells right
+//     of the window or below the read are computed and never read by a
+//     cell inside;
+//   * each row keeps its best cell as one key, H * 4096 + 4095 - j, under
+//     a max, so the smallest column wins a tie; a column outside the
+//     window adds -2^30 and never wins.  At the end the keys of the read's
+//     rows are turned into (score, d * 4096 + r) and reduced under the
+//     (score desc, bestpos asc) order, which is total, so the order of
+//     visiting cells cannot change the result;
+//   * K2 takes H and its direction from one max over the candidates
+//     scaled by 4 with a code in the direction's priority at ties (stop 3,
+//     diagonal 2, E 1, F 0): H is that max >> 2, hdir its low bits ^ 3.
+// The maxima are plain max(); the compiler emits IMNMX/VIMNMX3 for them
+// (the DPX intrinsics written out were slower, PERF.md).
+// K2's pointers: row r of a stripe (thread t = r / NR) at step s is 4 bits
+// of word ((stripe * words + s / 8) * 32 NR + r), at bit 4 (s % 8).  A
+// thread gathers 8 steps of its NR rows in NR registers and the warp then
+// stores 32 NR consecutive words.  K3 is one thread per alignment walking
+// that layout: a step left (j - 1) stays in its word 7 times in 8, a step
+// up or diagonal moves to the word beside it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,7 +79,7 @@ namespace {
 
 constexpr int kNeg = -(1 << 28);
 constexpr int kPosStride = 4096;
-constexpr int kWarps = 4;          // alignments (warps) per block
+constexpr int kWarps = 8;          // alignments (warps) per block
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxRows = 12;       // rows per thread: one stripe up to 384
 constexpr int kPad = 32;           // window codes in front of column 1
@@ -158,23 +179,24 @@ sw_kernel(const int8_t* __restrict__ read, const int8_t* __restrict__ win,
           const int old = H[k];
           const int diag = dg + (rb[k] == c ? match : -mismatch);
           int e, f, h;
-          if (FULL) {  // DPX: max and which operand won
-            bool e_open_won, f_open_won, e_won, diag_won;
-            e = __vibmax_s32(old - go, E[k] - ge, &e_open_won);
-            f = __vibmax_s32(uh - go, uf - ge, &f_open_won);
-            const int ef = __vibmax_s32(e, f, &e_won);
-            const int hd = __vibmax_s32(diag, ef, &diag_won);
-            h = max(hd, 0);
-            const unsigned hdir = hd <= 0 ? 0u
-                                  : (diag_won ? 1u : (e_won ? 2u : 3u));
-            acc[k] |= (hdir | (e_open_won ? 0u : 4u) | (f_open_won ? 0u : 8u))
-                      << (4 * u);
-          } else {  // DPX: max(a + b, c) and max(a, b, c, 0)
-            e = __viaddmax_s32(old, -go, E[k] - ge);
-            f = __viaddmax_s32(uh, -go, uf - ge);
-            h = __vimax3_s32_relu(diag, e, f);
+          if (FULL) {
+            const int e_open = old - go, e_ext = E[k] - ge;
+            const int f_open = uh - go, f_ext = uf - ge;
+            e = max(e_open, e_ext);
+            f = max(f_open, f_ext);
+            // x 4 plus a code in hdir's priority at ties: stop 3, diag 2,
+            // E 1, F 0
+            const int h4 = max(max(diag * 4 + 2, e * 4 + 1), max(f * 4, 3));
+            h = h4 >> 2;
+            const unsigned hdir = ((unsigned)h4 & 3u) ^ 3u;
+            acc[k] |= (hdir | (e_ext > e_open ? 4u : 0u)
+                       | (f_ext > f_open ? 8u : 0u)) << (4 * u);
+          } else {
+            e = max(old - go, E[k] - ge);
+            f = max(uh - go, uf - ge);
+            h = max(max(0, diag), max(e, f));
           }
-          key[k] = __viaddmax_s32(h << 12, low, key[k]);
+          key[k] = max(key[k], (h << 12) + low);
           H[k] = h;
           E[k] = e;
           dg = old;

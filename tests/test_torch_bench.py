@@ -8,6 +8,7 @@ chains are the same float32 updates; the reference sums its rows in
 XLA's order, the port in row order, hence rtol 1e-5.
 """
 import functools
+import json
 import sys
 from pathlib import Path
 
@@ -27,6 +28,7 @@ import bench as jbench  # noqa: E402
 from benchmarks import ablate_sw as jablate  # noqa: E402
 from falcon_genome_tpu_torch import bench  # noqa: E402
 from falcon_genome_tpu_torch.benchmarks import ablate_sw  # noqa: E402
+from falcon_genome_tpu_torch.benchmarks import idle_share  # noqa: E402
 from falcon_genome_tpu_torch.benchmarks import kernel_ab  # noqa: E402
 from falcon_genome_tpu_torch.ops import bench_kernels as K  # noqa: E402
 from falcon_genome_tpu_torch.ops import smith_waterman as S  # noqa: E402
@@ -204,12 +206,29 @@ def test_ablation_times_every_variant_on_cpu(monkeypatch):
     assert all(sec > 0 for sec in per.values())
 
 
-@pytest.mark.parametrize("entry", ["bench", "ablate_sw", "kernel_ab"])
+@pytest.mark.parametrize("entry", ["bench", "ablate_sw", "kernel_ab",
+                                   "idle_share"])
 def test_entry_points_need_a_card(entry, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     rc = {"bench": lambda: bench.main([]), "ablate_sw": ablate_sw.main,
-          "kernel_ab": lambda: kernel_ab.main(["."])}[entry]()
+          "kernel_ab": lambda: kernel_ab.main(["."]),
+          "idle_share": lambda: idle_share.main([])}[entry]()
     assert rc == 1
     out = capsys.readouterr()
     assert out.out == "" and "no CUDA device" in out.err
+
+
+def test_idle_share_merges_device_intervals(tmp_path):
+    """Device time is the union of the device events' intervals (two
+    overlapping kernels and a copy), the span the trace's first to last
+    event."""
+    ev = [{"ph": "X", "ts": 0, "dur": 100, "cat": "cpu_op"},
+          {"ph": "X", "ts": 10, "dur": 20, "cat": "kernel"},
+          {"ph": "X", "ts": 25, "dur": 10, "cat": "kernel"},
+          {"ph": "X", "ts": 50, "dur": 5, "cat": "gpu_memcpy"},
+          {"ph": "i", "ts": 500, "cat": "instant"}]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    assert idle_share.trace_times(path) == dict(span_ms=0.1, device_ms=0.03,
+                                                kernels=2)

@@ -198,18 +198,30 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# read and window buckets of the Smith-Waterman card tests: the aligner's
+# 160 x 256, mate rescue's 160 x 1024, HaplotypeCaller's 384 x 384 (12
+# rows per thread), reads that do not fill their threads' rows (100 rows
+# at 4 a thread, 200 at 7) and 416 rows, more than one stripe of 384
+SW_SHAPES = [(160, 256), (160, 1024), (384, 384), (100, 200), (200, 230),
+             (416, 448)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("pset", sorted(SW_PARAM_SETS))
-def test_sw_kernels_match_plain_on_card(cuda_device, pset):
-    read, rl, win, wl = sw_lanes(4, 96, 200, 256)
+@pytest.mark.parametrize("R,W", SW_SHAPES)
+def test_sw_kernels_match_plain_on_card(cuda_device, R, W, pset):
+    """K1, K2 and K3 bit-equal to the plain versions: scores, bestpos, op
+    streams and coordinates, with empty lanes (rlen 0, wlen 0), ragged
+    lengths and score ties (``sw_lanes``)."""
+    read, rl, win, wl = sw_lanes(4 + R, R, W, 256)
     p = S.SWParams(*SW_PARAM_SETS[pset])
     lanes = [torch.from_numpy(np.ascontiguousarray(x)) for x in (
         read.T.astype(np.int8), rl[0], win.T.astype(np.int8), wl[0])]
     want_s, want_p = S.sw_score(*lanes, p)
-    want = S.sw_full(*lanes, p, 296)
+    want = S.sw_full(*lanes, p, R + W)
     dev = [x.to(cuda_device) for x in lanes]
     got_s, got_p = S.sw_score(*dev, p)
-    got = S.sw_full(*dev, p, 296)
+    got = S.sw_full(*dev, p, R + W)
     torch.cuda.synchronize()
     assert torch.equal(got_s.cpu(), want_s)
     assert torch.equal(got_p.cpu(), want_p)

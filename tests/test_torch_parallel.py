@@ -288,6 +288,40 @@ class TestActiveMeshPipeline:
             assert np.array_equal(getattr(sharded, f), getattr(single, f))
             assert np.array_equal(getattr(sharded, f), getattr(want, f))
 
+    def test_accumulate_table_mesh_clamps_high_quals(self):
+        """Qualities at or above ``MAX_QUAL`` count in the top bin on the
+        port's mesh, as in every host table.  The port clamps them before
+        it picks a branch (``falcon_genome_tpu_torch/bqsr.py``
+        ``accumulate_table``), so its mesh table is its single-device table
+        and the reference's host table.  The reference's mesh branch does
+        not clamp: its device scatter-add drops indices past the table, so
+        its mesh table loses those bases and is no yardstick here."""
+        from falcon_genome_tpu.bqsr import MAX_QUAL
+        from falcon_genome_tpu.bqsr import accumulate_table as j_accumulate
+        from falcon_genome_tpu_torch.bqsr import accumulate_table
+        JM, _, _ = _jax()
+        mesh = TM.make_mesh(TM.MeshSpec(data=8, region=1), CPU8)
+        rng = np.random.default_rng(3)
+        n = 803
+        qual = rng.integers(0, 40, n)
+        high = rng.random(n) < 0.2
+        qual[high] = rng.integers(MAX_QUAL, MAX_QUAL + 40, int(high.sum()))
+        cov = {
+            "rg": rng.integers(0, 2, n).astype(np.int32),
+            "qual": qual.astype(np.int32),
+            "cycle": rng.integers(0, 100, n).astype(np.int32),
+            "context": rng.integers(0, 16, n).astype(np.int32),
+            "is_error": (rng.random(n) < 0.1).astype(np.float32),
+        }
+        with TM.use_mesh(mesh):
+            sharded = accumulate_table(cov, ["rg0", "rg1"])
+        with JM.use_mesh(None):
+            want = j_accumulate(cov, ["rg0", "rg1"])
+        assert want.qual_obs[:, MAX_QUAL - 1].sum() >= high.sum()
+        for f in ("qual_obs", "qual_err", "cycle_obs", "cycle_err",
+                  "ctx_obs", "ctx_err"):
+            assert np.array_equal(getattr(sharded, f), getattr(want, f))
+
 
 def _cols(rng, n):
     """The reference's ``RecordColumns`` of ``n`` records."""
