@@ -911,7 +911,7 @@ def phase_cards(cli, validate, sample, work: Path, count: int,
 
 def phase_bench(torch, S, BK, results, so: Path, work: Path) -> None:
     from falcon_genome_tpu_torch import bench
-    from falcon_genome_tpu_torch.benchmarks import ablate_sw
+    from falcon_genome_tpu_torch.benchmarks import ablate_sw, sass
     from falcon_genome_tpu_torch.ops import pairhmm as P
     dev = torch.device("cuda")
 

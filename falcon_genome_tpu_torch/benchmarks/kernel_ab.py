@@ -177,6 +177,7 @@ def three_ways(key: str, fn, name: str, queued: bool = True) -> dict:
 
 def build_counts(so: Path) -> dict:
     """Registers and SASS counts of the K1 and K2 kernels at R = 160."""
+    # this file's own sass.py: an older root's package may have none
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import sass
     out = {}

@@ -10,13 +10,14 @@
 // its warp: __syncwarp, and the shuffles, which write the lane's value to
 // an exchange slot, wait for the warp, read the source lane's slot and wait
 // again.  Hopper's DPX intrinsics are their plain definitions.  Dynamic
-// shared memory is one zeroed buffer per block.  Only what the package's
-// kernels use is here; every pointer is a host pointer.
+// shared memory is one buffer per block, filled with 0x55 bytes: a kernel
+// that reads what it did not write sees large values, not zeros.  Only
+// what the package's kernels use is here; every pointer is a host
+// pointer.
 #pragma once
 
 #include <stddef.h>
 #include <stdint.h>
-#include <stdlib.h>
 #include <string.h>
 #include <ucontext.h>
 
@@ -34,7 +35,7 @@ struct dim3 {
   unsigned x = 1, y = 1, z = 1;
 };
 
-inline dim3 threadIdx, blockIdx, blockDim, gridDim;
+inline dim3 threadIdx, blockIdx, blockDim;
 
 typedef int cudaError_t;
 enum : int { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -49,20 +50,12 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
-inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
-inline unsigned max(unsigned a, unsigned b) { return a > b ? a : b; }
-
-template <class T>
-inline T __ldg(const T* p) {
-  return *p;
-}
 
 // DPX (sm_90): max(a + b, c); max(a, b, c, 0); max(a, b) and a >= b
 inline int __viaddmax_s32(int a, int b, int c) { return max(a + b, c); }
 inline int __vimax3_s32_relu(int a, int b, int c) {
   return max(max(a, b), max(c, 0));
 }
-inline int __vimax3_s32(int a, int b, int c) { return max(max(a, b), c); }
 inline int __vibmax_s32(int a, int b, bool* pred) {
   *pred = a >= b;
   return a >= b ? a : b;
@@ -142,11 +135,10 @@ inline void launch(int grid, int block, size_t smem, F kernel) {
   for (Lane& l : rt.lanes) l.stack.resize(kStack);
   const int warps = (block + 31) / 32;
   rt.slot.assign(block, 0);
-  gridDim.x = grid;
   blockDim.x = block;
   for (int bx = 0; bx < grid; ++bx) {
     blockIdx.x = bx;
-    rt.smem.assign(smem + 16, 0);
+    rt.smem.assign(smem + 16, 0x55);  // not zeroed: as on the card
     rt.arrived.assign(warps, 0);
     rt.gen.assign(warps, 0);
     rt.live.assign(warps, 0);
@@ -187,11 +179,6 @@ inline T __shfl_up_sync(unsigned, T v, unsigned delta, int = 32) {
 template <class T>
 inline T __shfl_xor_sync(unsigned, T v, int mask, int = 32) {
   return fgt_emu::exchange(v, fgt_emu::rt.cur ^ (mask & 31));
-}
-
-template <class T>
-inline T __shfl_sync(unsigned, T v, int src_lane, int = 32) {
-  return fgt_emu::exchange(v, (fgt_emu::rt.cur & ~31) | (src_lane & 31));
 }
 
 inline void __syncwarp(unsigned = 0xffffffffu) { fgt_emu::warp_barrier(); }

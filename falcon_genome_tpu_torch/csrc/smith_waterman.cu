@@ -127,6 +127,13 @@ sw_kernel(const int8_t* __restrict__ read, const int8_t* __restrict__ win,
     const int q = p - kPad;
     wc[p] = (q >= 0 && q < wl) ? (int)wn[q] : kNoCode;
   }
+  // the boundary where a stripe's last row does not reach: a column right
+  // of the window, whose cells must stay as small as those inside (a
+  // row's best-cell key holds scores below 2^18 only)
+  for (int p = lane; STRIPED && p <= cap; p += 32) {
+    bufH[p] = 0;
+    bufF[p] = kNeg;
+  }
   __syncwarp();
   const int nblk = cap / kBlk;  // pointer words of a row in a stripe
   uint32_t* pb = FULL ? ptr + (size_t)b * (STRIPED ? (R + kRows - 1) / kRows

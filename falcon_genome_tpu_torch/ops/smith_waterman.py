@@ -7,8 +7,9 @@ PyTorch version beside it:
 
 * :func:`sw_score` — score-only sweep (best score and ``bestpos``), used to
   rank the aligner's seed candidates;
-* :func:`sw_pointers` — the full sweep, which also writes one traceback
-  pointer byte per cell;
+* :func:`sw_pointers` — the full sweep, which also writes the traceback
+  pointers (a byte per cell in the plain version, 4 bits in the kernel's
+  own layout, :func:`_pointer_shape`);
 * :func:`sw_traceback` — the pointer walk that emits the packed op stream
   and path coordinates (:func:`sw_full` runs both).  The pointer array
   never leaves the device.
@@ -27,8 +28,11 @@ returning to the host in between.
 
 ``bestpos = d * 4096 + row`` for anti-diagonal ``d = row + j`` (window
 column ``j`` 1-based); ties in score go to the smallest diagonal, then the
-smallest row.  Pointer byte per cell: bits 0-1 hdir (0 stop, 1 diag,
+smallest row.  Pointer per cell: bits 0-1 hdir (0 stop, 1 diag,
 2 from E/deletion, 3 from F/insertion), bit 2 E-extend, bit 3 F-extend.
+The launches are helpers that take the kernel library (``_sw_*_launch``),
+so a host build of the CUDA source can run them on CPU tensors (see
+``tests/test_torch_sw_emulated.py``).
 """
 from __future__ import annotations
 
