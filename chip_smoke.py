@@ -16,7 +16,9 @@ Phases (each prints its numbers; any failure exits non-zero):
 3. kernels vs their plain PyTorch versions on the card at the main
    path's shapes: Smith-Waterman K1-K3 bit-equal (K2/K3 at the aligner's,
    mate rescue's and HaplotypeCaller's buckets, with K2's byte bound from
-   its pointer array), PairHMM K4 (scalar
+   its pointer array, and for K3 the walk per mapped lane, mean and
+   longest, its round trips, its byte bound and its latency floor),
+   PairHMM K4 (scalar
    transitions) and K5 (per-base transition planes) within 1e-4 log10
    with the same -inf lanes (and how many pairs are not bit-equal), also
    on quality-0 rescue pairs whose mass passes through float32's
@@ -104,6 +106,14 @@ PEAK_BYTES = 3.35e12
 # (csrc/pairhmm.cu)
 SW_OPS_PER_CELL = 12
 PAIRHMM_FLOPS_PER_CELL = 11
+# K3's latency floor: the cycles of one round trip of its walk with the
+# pointers already on chip: a shared-memory load (~30 cycles), the
+# shuffle of the cell that ends the run (~25) and 32 other dependent
+# instructions at ~4.5 cycles (test, ballot, bit scan, the step, the next
+# trip's addresses; read from the SASS of sw_traceback_kernel's loop at
+# kDepth 2), at the card's 1.98 GHz
+K3_TRIP_CYCLES = 30 + 25 + 4.5 * 32
+SM_CLOCK = 1.98e9
 
 
 class SmokeFailure(Exception):
@@ -169,6 +179,55 @@ def sw_sweep_counts(so: Path) -> None:
         say(f"K1/K2 {what}: {c['per_step']:.1f} instructions per sweep "
             f"step, {c['counted_per_step']:.1f} of them integer max/min "
             f"({c['trip']} in a trip of {c['steps_per_trip']:.0f} steps)")
+
+
+def walk_trips(torch, ptrs, best, bestpos, max_steps: int, cells: int):
+    """Round trips of K3's walk per lane, replayed on the plain version's
+    pointers (the walk of ``_traceback_core``): a trip starts where the
+    walk does, after a cell that fails its phase's test (hdir 1 in H, the
+    extend bit in E or F; it takes one step and ends the run) and after
+    ``cells`` cells that pass (one trip's loads)."""
+    D, R, B = ptrs.shape
+    flat = ptrs.reshape(D * R, B)
+    bestpos = bestpos.to(torch.int32)
+    d_prog = torch.div(bestpos, 4096, rounding_mode="floor")
+    i = bestpos - d_prog * 4096 + 1
+    j = d_prog - i + 1
+    phase = torch.zeros_like(i)
+    active = best > 0
+    run = torch.zeros_like(i)
+    trips = torch.zeros_like(i)
+    for _ in range(max_steps):
+        if not bool(active.any()):
+            break
+        trips += (active & (run == 0)).int()
+        idx = ((i + j - 1) * R + (i - 1)).clamp(0, D * R - 1)
+        byte = flat.gather(0, idx[None].long())[0].int()
+        hdir = byte & 3
+        ok = active & (i > 0) & (j > 0)
+        passes = ok & torch.where(phase == 0, hdir == 1, torch.where(
+            phase == 1, (byte >> 2) & 1 == 1, (byte >> 3) & 1 == 1))
+        run = torch.where(passes, (run + 1) % cells, 0)
+        is_h = phase == 0
+        stop = ok & is_h & (hdir == 0)
+        do_m = ok & is_h & (hdir == 1)
+        in_e = ok & ((phase == 1) | (is_h & (hdir == 2)))
+        in_f = ok & ((phase == 2) | (is_h & (hdir == 3))) & ~in_e
+        moving = ok & ~stop
+        i = i - (moving & (do_m | in_f)).int()
+        j = j - (moving & (do_m | in_e)).int()
+        phase = torch.where(in_e & ((byte >> 2) & 1 == 1), 1, torch.where(
+            in_f & ((byte >> 3) & 1 == 1), 2, 0))
+        active = moving
+    return trips + (active & (run == 0)).int()
+
+
+def k3_cells_per_trip() -> int:
+    """32 lanes x ``kDepth`` cells: the pointers one trip of K3 loads."""
+    src = (REPO / KERNELS["fgt_sw_traceback"][0]).read_text()
+    m = re.search(r"constexpr int kDepth = (\d+);", src)
+    check(m is not None, "no kDepth in the Smith-Waterman source")
+    return 32 * int(m.group(1))
 
 
 # ---------------------------------------------------------------------------
@@ -424,20 +483,34 @@ def phase_kernels(torch, S, P, results) -> None:
         # W + 31 steps of a lane (``_pointer_shape``); K3 reads the 4-bit
         # pointer of each step it walks (the 2-bit ops it emits)
         packed = kout[0].cpu().numpy()
-        walked = int(sum(((packed >> s) & 3 != 0).sum() for s in (0, 2, 4, 6)))
+        walk = sum(((packed >> s) & 3) != 0 for s in (0, 2, 4, 6)).sum(0)
+        walked = int(walk.sum())
+        mapped = kbest.cpu().numpy() > 0
+        trips = walk_trips(torch, pptr, pbest[0], ppos[0], steps,
+                           k3_cells_per_trip()).cpu().numpy()
         ptr_bytes = kptr.numel() * kptr.element_size()
         b2 = bound(read.numel() + win.numel() + 16 * B + ptr_bytes,
                    SW_OPS_PER_CELL * sw_cells(rl, wl, R, W), PEAK_INT32)
         b3 = bound(walked / 2 + packed.size + 24 * B, 0, PEAK_INT32)
+        # latency floors: the longest chain of round trips, and a walk of
+        # one step a round trip, each trip at K3_TRIP_CYCLES
+        floor3 = int(trips.max()) * K3_TRIP_CYCLES / SM_CLOCK * 1e3
+        floor_step = int(walk.max()) * K3_TRIP_CYCLES / SM_CLOCK * 1e3
         say(f"K2+K3 {label} R={R} W={W} B={B} params={tuple(vars(p).values())}"
             f": bit-equal best, bestpos, op streams, coords; "
             f"K2 kernel {t2:.3f} ms plain {t2p:.3f} ms bound "
             f"{b2['bound_ms']:.3f} ms ({b2['bound_by']}; pointers "
             f"{ptr_bytes / B:.0f} B a lane against (R + W) R = "
             f"{(R + W) * R} before); K3 kernel {t3:.3f} ms plain "
-            f"{t3p:.3f} ms bound {b3['bound_ms']:.4f} ms "
-            f"(max_steps {steps}, {walked} steps walked, mapped "
-            f"{int((kbest > 0).sum())}/{B})")
+            f"{t3p:.3f} ms byte bound {b3['bound_ms']:.4f} ms latency "
+            f"floor {floor3:.4f} ms ({int(trips.max())} round trips of "
+            f"the longest chain at {K3_TRIP_CYCLES:.0f} cycles; "
+            f"{floor_step:.4f} ms for a step a trip) (max_steps {steps}, "
+            f"{walked} steps walked, walk per mapped lane mean "
+            f"{walk[mapped].mean() if mapped.any() else 0:.1f} longest "
+            f"{int(walk.max())}, round trips mean "
+            f"{trips[mapped].mean() if mapped.any() else 0:.2f}, mapped "
+            f"{int(mapped.sum())}/{B})")
         k2.append((e2, t2, t2p, b2))
         k3.append((e3, t3, t3p, b3))
         del kptr, pptr

@@ -30,7 +30,8 @@ such runs (the device's time per call once the host runs ahead).
 device time).  It also reads the checkout's build: registers of the K1
 and K2 instantiations at R=160 (``ptxas -v``) and their instructions per
 sweep step and integer max/min per step (``cuobjdump -sass``, null where
-the toolkit's ``cuobjdump`` is missing).  Give the roots as parent,
+the toolkit's ``cuobjdump`` is missing); K3's registers and the
+instructions of one trip of its walk loop (``k3_per_trip``).  Give the roots as parent,
 change, change, parent, so that drift of the card between runs shows.
 Prints one JSON line per run; without a CUDA device it exits non-zero.
 """
@@ -176,7 +177,8 @@ def three_ways(key: str, fn, name: str, queued: bool = True) -> dict:
 
 
 def build_counts(so: Path) -> dict:
-    """Registers and SASS counts of the K1 and K2 kernels at R = 160."""
+    """Registers and SASS counts of the K1 and K2 kernels at R = 160, and
+    of K3 (registers, instructions in its walk loop)."""
     # this file's own sass.py: an older root's package may have none
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import sass
@@ -195,6 +197,12 @@ def build_counts(so: Path) -> dict:
             print(f"kernel_ab: no SASS count for {key}: {e}",
                   file=sys.stderr)
             out[f"{key}_per_step"] = out[f"{key}_mnmx_per_step"] = None
+    out["k3_registers"] = sass.kernel_registers(text, "sw_traceback_kernel")
+    try:
+        out["k3_per_trip"] = sass.sass_loop_size(so, "sw_traceback_kernel")
+    except (sass.SassError, OSError) as e:
+        print(f"kernel_ab: no SASS count for k3: {e}", file=sys.stderr)
+        out["k3_per_trip"] = None
     return out
 
 

@@ -16,6 +16,8 @@ FP = re.compile(r"\b(FFMA|FMUL|FADD)\b")
 # integer max/min: IMNMX and the DPX forms (VIMNMX, VIMNMX3, VIADDMNMX)
 MNMX = re.compile(r"\b\w*MNMX\w*\b")
 SHFL_UP = re.compile(r"SHFL\.UP")
+# the pointer walk's loop: its ballot (VOTE), or the parent design's load
+WALK = re.compile(r"\bVOTE\b|\bLDG\b")
 
 _sass_text: dict[Path, str] = {}
 
@@ -154,3 +156,18 @@ def sass_sweep_counts(so: Path, kernel: str, *, loop_by=FP, count=FP,
     return dict(steps_per_trip=steps, per_step=len(hot) / steps,
                 counted_per_step=sum(1 for t in hot if count.search(t))
                 / steps, trip=len(hot), cold_block=len(body) - len(hot))
+
+
+def sass_loop_size(so: Path, kernel: str, loop_by=WALK) -> int:
+    """Instructions in the body of ``kernel``'s loop with the most
+    instructions matching ``loop_by``: one trip of the pointer walk,
+    branches both ways included (so an upper count of what a trip
+    issues)."""
+    ins = sass_function(so, kernel)
+    loops = sass_loops(ins)
+    if not loops:
+        raise SassError(f"no loop in {kernel}'s SASS")
+    lo, hi = max(loops, key=lambda r: (
+        sum(1 for a, t in ins if r[0] <= a <= r[1] and loop_by.search(t)),
+        r[0] - r[1]))
+    return sum(1 for a, _ in ins if lo <= a <= hi)

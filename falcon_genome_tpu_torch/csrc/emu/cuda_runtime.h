@@ -7,9 +7,11 @@
 // A launch runs the blocks one after another.  The threads of a block run
 // as coroutines (ucontext), each on a stack of its own; a thread runs until
 // it reaches a warp-wide operation, which is a barrier of the live lanes of
-// its warp: __syncwarp, and the shuffles, which write the lane's value to
-// an exchange slot, wait for the warp, read the source lane's slot and wait
-// again.  Hopper's DPX intrinsics are their plain definitions.  Dynamic
+// its warp: __syncwarp, the shuffles and the ballot, which write the lane's
+// value to an exchange slot, wait for the warp, read the source lane's slot
+// (the ballot: every live lane's) and wait again.  __syncthreads is the same
+// barrier over the live threads of the block.  Hopper's DPX intrinsics are
+// their plain definitions.  Dynamic
 // shared memory is one buffer per block, filled with 0x55 bytes: a kernel
 // that reads what it did not write sees large values, not zeros.  Only
 // what the package's kernels use is here; every pointer is a host
@@ -80,6 +82,8 @@ struct Runtime {
   std::vector<unsigned char> smem;
   std::function<void()> body;
   int cur = -1;
+  int barrived = 0, blive = 0;  // the block's barrier
+  unsigned bgen = 0;
 };
 
 inline Runtime rt;
@@ -102,12 +106,29 @@ inline void warp_barrier() {
   while (rt.gen[w] == g) yield();
 }
 
+inline void release_block_if_complete() {
+  if (rt.barrived > 0 && rt.barrived == rt.blive) {
+    rt.barrived = 0;
+    ++rt.bgen;
+  }
+}
+
+// every live thread of the block gets here before any leaves
+inline void block_barrier() {
+  const unsigned g = rt.bgen;
+  ++rt.barrived;
+  release_block_if_complete();
+  while (rt.bgen == g) yield();
+}
+
 inline void lane_entry(int i) {
   rt.body();
   rt.lanes[i].done = true;
   const int w = i / 32;
   --rt.live[w];
   release_if_complete(w);
+  --rt.blive;
+  release_block_if_complete();
 }
 
 template <class T>
@@ -121,6 +142,19 @@ inline T exchange(T v, int src) {
   T out;
   memcpy(&out, &bits, sizeof(T));
   return out;
+}
+
+// bit l: lane l of the calling thread's warp is live and passed a nonzero
+// ``pred``
+inline unsigned ballot(int pred) {
+  rt.slot[rt.cur] = pred != 0;
+  warp_barrier();
+  unsigned bits = 0;
+  const int w0 = rt.cur & ~31;
+  for (int l = 0; l < 32 && w0 + l < (int)rt.lanes.size(); ++l)
+    if (!rt.lanes[w0 + l].done && rt.slot[w0 + l]) bits |= 1u << l;
+  warp_barrier();
+  return bits;
 }
 
 template <class T>
@@ -142,6 +176,8 @@ inline void launch(int grid, int block, size_t smem, F kernel) {
     rt.arrived.assign(warps, 0);
     rt.gen.assign(warps, 0);
     rt.live.assign(warps, 0);
+    rt.barrived = 0;
+    rt.blive = block;
     for (int i = 0; i < block; ++i) {
       Lane& l = rt.lanes[i];
       l.done = false;
@@ -181,4 +217,19 @@ inline T __shfl_xor_sync(unsigned, T v, int mask, int = 32) {
   return fgt_emu::exchange(v, fgt_emu::rt.cur ^ (mask & 31));
 }
 
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  const int lane = fgt_emu::rt.cur & 31;
+  const int from = (lane & ~(width - 1)) + (src & (width - 1));
+  return fgt_emu::exchange(v, (fgt_emu::rt.cur & ~31) + from);
+}
+
+inline unsigned __ballot_sync(unsigned, int pred) {
+  return fgt_emu::ballot(pred);
+}
+
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+
 inline void __syncwarp(unsigned = 0xffffffffu) { fgt_emu::warp_barrier(); }
+
+inline void __syncthreads() { fgt_emu::block_barrier(); }

@@ -25,7 +25,8 @@
 // memory (a few hundred bytes of input per alignment).  K2 also writes its
 // pointers, 4 bits a cell, 23 KB per alignment at R = 160, W = 256 (0.19
 // GB for 8192 aligner lanes), a DRAM write stream beside the recurrence.
-// K3 is a dependent chain of loads per alignment: latency-bound.
+// K3 follows a chain of dependent pointers per alignment: bound by the
+// latency of its loads, so it loads a run of cells per round trip.
 //
 // Design: one warp per alignment.  Thread t owns NR consecutive rows
 // (NR = ceil(R / 32), a template parameter up to kMaxRows, so the rows'
@@ -59,9 +60,8 @@
 // K2's pointers: row r of a stripe (thread t = r / NR) at step s is 4 bits
 // of word ((stripe * words + s / 8) * 32 NR + r), at bit 4 (s % 8).  A
 // thread gathers 8 steps of its NR rows in NR registers and the warp then
-// stores 32 NR consecutive words.  K3 is one thread per alignment walking
-// that layout: a step left (j - 1) stays in its word 7 times in 8, a step
-// up or diagonal moves to the word beside it.
+// stores 32 NR consecutive words.  K3 reads that layout a cell a lane
+// (sw_traceback_kernel).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -246,58 +246,131 @@ sw_kernel(const int8_t* __restrict__ read, const int8_t* __restrict__ win,
   }
 }
 
-__global__ void sw_traceback_kernel(const uint32_t* __restrict__ ptr,
-                                    const int* __restrict__ best,
-                                    const int* __restrict__ pos, int B,
-                                    int NR, int nst, int nblk, int max_steps,
-                                    uint8_t* __restrict__ packed,
-                                    int* __restrict__ coords) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int rows = 32 * NR;  // rows of a stripe
-  const uint32_t* pb = ptr + (size_t)b * nst * nblk * rows;
-  const int p = pos[b];
-  const int dprog = p / kPosStride, r = p % kPosStride;
-  const int bi = r + 1, bj = dprog - r;
-  int i = bi, j = bj, phase = 0;  // phase 0 = H, 1 = E (D run), 2 = F (I run)
-  bool active = best[b] > 0;
+// K3, the pointer walk: a warp per alignment, in runs.  A step moves
+// from (i, j) to (i-1, j-1) in phase H on a diagonal pointer, to (i, j-1)
+// in a deletion run (phase E), to (i-1, j) in an insertion run (phase F):
+// each phase moves in one direction while its test holds (hdir 1; the
+// E-extend bit; the F-extend bit).  So lane k of the warp loads the
+// pointer of the cell k steps further in the phase's direction (kDepth
+// cells a lane: 32 kDepth cells in flight, one round trip), a ballot finds
+// the first cell where the test fails, every cell before it takes the
+// phase's op, and the cell itself takes one step of the reference's walk,
+// which may change the phase.  A walk of 150 matches is 150 / (32 kDepth)
+// round trips, not 150.  The ops go as whole bytes into shared memory and
+// the block writes its kWalkWarps alignments' bytes of a packed row next
+// to each other; bytes past a walk's end are written as 0 (op -1).
+constexpr int kWalkWarps = 8;  // alignments (warps) per block
+constexpr int kDepth = 2;      // cells a lane loads per round trip
+// a round trip completes at most 8 kDepth + 1 bytes of ops, one a lane,
+// and hands the byte after them on from the lane after the last
+static_assert(kDepth >= 1 && 8 * kDepth + 1 <= 31, "kDepth too large");
+
+template <bool STRIPED>  // reads of more than one stripe
+__global__ void __launch_bounds__(kWalkWarps * 32)
+sw_traceback_kernel(const uint32_t* __restrict__ ptr,
+                    const int* __restrict__ best, const int* __restrict__ pos,
+                    int B, int NR, int nst, int nblk, int max_steps,
+                    uint8_t* __restrict__ packed, int* __restrict__ coords) {
+  FGT_DYNAMIC_SMEM(int, smem);  // kWalkWarps byte counts, then the ops
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const int b0 = blockIdx.x * kWalkWarps;
+  const int b = b0 + wib;
   const int S4 = (max_steps + 3) / 4;
-  unsigned acc = 0;
-  for (int t = 0; t < 4 * S4; ++t) {
-    int op = -1;
-    if (active && t < max_steps && i > 0 && j > 0) {
-      // cell (i, j): row rr of stripe st, swept at step s of its stripe
-      const int st = (i - 1) / rows, rr = i - 1 - st * rows;
-      const int s = j - 1 + rr / NR;
-      const int byte = (int)(pb[((size_t)st * nblk + s / kBlk) * rows + rr]
-                             >> (4 * (s % kBlk))) & 15;
-      const int hdir = byte & 3;
-      const bool is_h = phase == 0;
-      const bool stop = is_h && hdir == 0;
-      const bool do_m = is_h && hdir == 1;
-      const bool in_e = phase == 1 || (is_h && hdir == 2);
-      const bool in_f = !in_e && (phase == 2 || (is_h && hdir == 3));
-      if (!stop) {
-        op = do_m ? 0 : (in_e ? 2 : 1);  // SAM M / D / I
-        if (do_m || in_f) --i;
-        if (do_m || in_e) --j;
+  uint8_t* ops = reinterpret_cast<uint8_t*>(smem + kWalkWarps);
+  if (b < B) {  // uniform across the warp
+    const int rows = 32 * NR;  // rows of a stripe
+    // x / NR = x * inv >> 16 for 0 <= x < 4096 and NR <= 12
+    const int inv = (65536 + NR - 1) / NR;
+    const uint32_t* pb = ptr + (size_t)b * nst * nblk * rows;
+    const int p = pos[b];
+    const int bi = p % kPosStride + 1, bj = p / kPosStride - bi + 1;
+    int i = bi, j = bj, phase = 0, t = 0;  // phase 0 = H, 1 = E, 2 = F
+    bool active = best[b] > 0;
+    unsigned part = 0;  // ops of byte t / 4 so far
+    while (active) {
+      const int ai = phase != 1, aj = phase != 2;  // the run's direction
+      // the phase's test on a pointer: hdir 1, E-extend, F-extend
+      const int tmask = (0x843 >> (4 * phase)) & 15;
+      const int tval = phase == 0 ? 1 : tmask;
+      // the pointers of cells lane + 32 d, all loads in flight at once; a
+      // cell outside the walk reads word 0 and holds 16, which fails
+      // every phase's test
+      int ptr4[kDepth];
+#pragma unroll
+      for (int d = 0; d < kDepth; ++d) {
+        const int k = lane + 32 * d;
+        const int ik = i - ai * k, jk = j - aj * k;
+        const bool valid = ik > 0 && jk > 0 && t + k < max_steps;
+        // cell (ik, jk): row rr of stripe st, swept at step s of it
+        const int g = ik - 1;
+        const int st = STRIPED ? ((g >> 5) * inv) >> 16 : 0;
+        const int rr = g - st * rows;
+        const int s = jk - 1 + ((rr * inv) >> 16);
+        const uint32_t w = pb[valid ? (st * nblk + (s >> 3)) * rows + rr : 0];
+        ptr4[d] = valid ? (int)(w >> (4 * (s & 7))) & 15 : 16;
       }
-      phase = (in_e && ((byte >> 2) & 1)) ? 1
-              : ((in_f && ((byte >> 3) & 1)) ? 2 : 0);
-      active = !stop;
-    } else {
-      active = false;
+      unsigned brk = 0;
+      int n = 32 * kDepth;
+#pragma unroll
+      for (int d = kDepth - 1; d >= 0; --d) {
+        const unsigned m = __ballot_sync(kFull, (ptr4[d] & tmask) != tval);
+        if (m) {
+          brk = m;
+          n = 32 * d + __ffs(m) - 1;
+        }
+      }
+      // cells 0 .. n-1 take the phase's op (SAM op + 1: M 1, I 2, D 3)
+      const int rc = (0x2d >> (2 * phase)) & 3;
+      int ni = i - ai * n, nj = j - aj * n;
+      int bc = 0;  // op + 1 of cell n, 0 for none
+      active = brk != 0 ? false : true;
+      if (brk) {   // cell n: one step of the reference's walk
+        int mine = ptr4[0];  // this lane's cell of cell n's load
+#pragma unroll
+        for (int d = 1; d < kDepth; ++d) mine = n >> 5 == d ? ptr4[d] : mine;
+        const int byte = __shfl_sync(kFull, mine, n & 31);
+        if (ni > 0 && nj > 0 && t + n < max_steps) {
+          // where the step goes: 0 stop, 1 diagonal, 2 E (left), 3 F (up)
+          const int dir = phase == 0 ? byte & 3 : phase + 1;
+          bc = (0xb4 >> (2 * dir)) & 3;
+          ni -= (0xa >> dir) & 1;
+          nj -= (0x6 >> dir) & 1;
+          // E continues on its extend bit (bit 2), F on its own (bit 3)
+          phase = dir >= 2 ? ((byte >> dir) & 1) * (dir - 1) : 0;
+          active = dir != 0;
+        }
+      }
+      // the bytes from t / 4 on: lane l fills byte t / 4 + l with the ops
+      // of its four positions that lie in [t, t + n] (run, then cell n)
+      const int base = (t & ~3) + 4 * lane;
+      const int lo = lane == 0 ? t & 3 : 0;
+      const int hi = min(max(t + n - base, 0), 4);
+      unsigned v = (rc * 0x55u) & ((1u << (2 * hi)) - (1u << (2 * lo)));
+      const int at = t + n - base;
+      if (at >= 0 && at < 4) v |= (unsigned)bc << (2 * at);
+      if (lane == 0) v |= part;
+      const int t_new = t + n + (bc != 0);
+      const int full = (t_new >> 2) - (t >> 2);  // bytes completed
+      if (lane < full) ops[wib * S4 + (t >> 2) + lane] = (uint8_t)v;
+      part = __shfl_sync(kFull, v, full);
+      t = t_new;
+      i = ni;
+      j = nj;
     }
-    acc |= (unsigned)(op + 1) << (2 * (t & 3));
-    if ((t & 3) == 3) {
-      packed[(size_t)(t >> 2) * B + b] = (uint8_t)acc;
-      acc = 0;
-    }
+    if ((t & 3) && lane == 0) ops[wib * S4 + (t >> 2)] = (uint8_t)part;
+    if (lane == 0) smem[wib] = (t + 3) >> 2;
+    if (lane < 4) coords[lane * B + b] = lane == 0 ? i : lane == 1 ? j
+                                         : lane == 2 ? bi : bj;
   }
-  coords[b] = i;
-  coords[B + b] = j;
-  coords[2 * B + b] = bi;
-  coords[3 * B + b] = bj;
+  __syncthreads();
+  // row q of packed holds byte q of every alignment: the block's
+  // kWalkWarps bytes of a row lie side by side
+  for (int x = threadIdx.x; x < S4 * kWalkWarps; x += kWalkWarps * 32) {
+    const int q = x / kWalkWarps, w = x % kWalkWarps;
+    if (b0 + w < B)
+      packed[(size_t)q * B + b0 + w] = q < smem[w] ? ops[w * S4 + q] : 0;
+  }
 }
 
 // The arguments of one sweep call, as the C entry points receive them.
@@ -388,10 +461,20 @@ int fgt_sw_full(const void* read, const void* win, const void* rlen,
 int fgt_sw_traceback(const void* ptr, const void* best, const void* pos,
                      int B, int NR, int nst, int nblk, int max_steps,
                      void* packed, void* coords, void* stream) {
-  const int threads = 128;
-  const int grid = (B + threads - 1) / threads;
+  if (NR < 1 || NR > kMaxRows || max_steps < 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      kWalkWarps * sizeof(int) + (size_t)kWalkWarps * ((max_steps + 3) / 4);
+  auto* kernel = nst > 1 ? sw_traceback_kernel<true>
+                         : sw_traceback_kernel<false>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int grid = (B + kWalkWarps - 1) / kWalkWarps;
   if (grid > 0) {
-    FGT_LAUNCH(sw_traceback_kernel, grid, threads, 0, (cudaStream_t)stream,
+    FGT_LAUNCH(kernel, grid, kWalkWarps * 32, smem, (cudaStream_t)stream,
                (const uint32_t*)ptr, (const int*)best, (const int*)pos, B,
                NR, nst, nblk, max_steps, (uint8_t*)packed, (int*)coords);
   }
