@@ -26,8 +26,8 @@ result back sees, the wrapper's host work included).  ``*_queued_ms``:
 events around 20 calls queued back to back, per call, the median of 5
 such runs (the device's time per call once the host runs ahead).
 ``*_kernel_ms``: the kernel's own device time per launch from
-``torch.profiler`` over 5 calls (null where the profiler records no
-device time).  It also reads the checkout's build: registers of the K1
+``torch.profiler`` over 5 calls (profiled again, up to three times,
+where it records no device time; null if it never does).  It also reads the checkout's build: registers of the K1
 and K2 instantiations at R=160 (``ptxas -v``) and their instructions per
 sweep step and integer max/min per step (``cuobjdump -sass``, null where
 the toolkit's ``cuobjdump`` is missing); K3's registers and the
@@ -151,20 +151,23 @@ def queued_ms(fn) -> float:
                              for _ in range(5))
 
 
-def kernel_ms(fn, name: str) -> float | None:
-    """Device time per launch of the kernels whose name holds ``name``."""
+def kernel_ms(fn, name: str, tries: int = 3) -> float | None:
+    """Device time per launch of the kernels whose name holds ``name``;
+    a profile that recorded no device time for them is taken again, up
+    to ``tries`` profiles."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-    for e in prof.key_averages():
-        if name in e.key and e.count:
-            us = getattr(e, "device_time_total", None) or \
-                getattr(e, "cuda_time_total", 0)
-            return us / e.count / 1e3 if us else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = (getattr(e, "device_time_total", None) or
+                  getattr(e, "cuda_time_total", 0))
+            if name in e.key and e.count and us:
+                return us / e.count / 1e3
     return None
 
 

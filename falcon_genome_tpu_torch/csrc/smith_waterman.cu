@@ -264,6 +264,7 @@ constexpr int kDepth = 2;      // cells a lane loads per round trip
 // a round trip completes at most 8 kDepth + 1 bytes of ops, one a lane,
 // and hands the byte after them on from the lane after the last
 static_assert(kDepth >= 1 && 8 * kDepth + 1 <= 31, "kDepth too large");
+static_assert(kBlk == 8, "K3 takes s / kBlk and s % kBlk as s >> 3, s & 7");
 
 template <bool STRIPED>  // reads of more than one stripe
 __global__ void __launch_bounds__(kWalkWarps * 32)
@@ -302,7 +303,8 @@ sw_traceback_kernel(const uint32_t* __restrict__ ptr,
         const int k = lane + 32 * d;
         const int ik = i - ai * k, jk = j - aj * k;
         const bool valid = ik > 0 && jk > 0 && t + k < max_steps;
-        // cell (ik, jk): row rr of stripe st, swept at step s of it
+        // cell (ik, jk): row rr of stripe st, swept at step s of it, in
+        // word s / kBlk of its row at bit 4 (s % kBlk)
         const int g = ik - 1;
         const int st = STRIPED ? ((g >> 5) * inv) >> 16 : 0;
         const int rr = g - st * rows;
@@ -324,9 +326,9 @@ sw_traceback_kernel(const uint32_t* __restrict__ ptr,
       const int rc = (0x2d >> (2 * phase)) & 3;
       int ni = i - ai * n, nj = j - aj * n;
       int bc = 0;  // op + 1 of cell n, 0 for none
-      active = brk != 0 ? false : true;
+      active = brk == 0;
       if (brk) {   // cell n: one step of the reference's walk
-        int mine = ptr4[0];  // this lane's cell of cell n's load
+        int mine = ptr4[0];  // this lane's cell in cell n's 32
 #pragma unroll
         for (int d = 1; d < kDepth; ++d) mine = n >> 5 == d ? ptr4[d] : mine;
         const int byte = __shfl_sync(kFull, mine, n & 31);

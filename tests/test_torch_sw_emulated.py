@@ -205,11 +205,8 @@ def test_emulated_walk_matches_plain(emu_lib, case):
         assert max(_runs(packed, steps, b, 2) for b in range(1, B, 2)) >= 6
     elif case == "unmapped":
         assert (~mapped).sum() >= B // 2 and mapped.sum() >= 4
-    elif case == "cut_at_max_steps":
-        walked = [sum(_runs(packed[:, [b]], steps, 0, c) > 0
-                      for c in (1, 2, 3)) for b in range(B)]
-        assert all(w > 0 for w in walked)
-        assert ((packed[-1] >> 0) & 3 != 0).all()   # step 36 is taken
+    elif case == "cut_at_max_steps":   # every walk takes step 36
+        assert ((packed[-1] & 3) != 0).all()
     elif case == "long_gaps":
         assert max(_runs(packed, steps, b, 3) for b in range(1, B, 2)) >= 40
         assert max(_runs(packed, steps, b, 2) for b in range(0, B, 2)) >= 40
