@@ -27,12 +27,13 @@ events around 20 calls queued back to back, per call, the median of 5
 such runs (the device's time per call once the host runs ahead).
 ``*_kernel_ms``: the kernel's own device time per launch from
 ``torch.profiler`` over 5 calls (profiled again, up to three times,
-where it records no device time; null if it never does).  It also reads the checkout's build: registers of the K1
-and K2 instantiations at R=160 (``ptxas -v``) and their instructions per
-sweep step and integer max/min per step (``cuobjdump -sass``, null where
-the toolkit's ``cuobjdump`` is missing); K3's registers and the
-instructions of one trip of its walk loop (``k3_per_trip``).  Give the roots as parent,
-change, change, parent, so that drift of the card between runs shows.
+where it records no device time; null if it never does).  It also reads
+the checkout's build: registers of the K1 and K2 instantiations at R=160
+(``ptxas -v``) and their instructions per sweep step and integer max/min
+per step (``cuobjdump -sass``, null where the toolkit's ``cuobjdump`` is
+missing); K3's registers and the instructions of one trip of its walk
+loop (``k3_per_trip``).  Give the roots as parent, change, change,
+parent, so that drift of the card between runs shows.
 Prints one JSON line per run; without a CUDA device it exits non-zero.
 """
 from __future__ import annotations

@@ -11,11 +11,10 @@
 // value to an exchange slot, wait for the warp, read the source lane's slot
 // (the ballot: every live lane's) and wait again.  __syncthreads is the same
 // barrier over the live threads of the block.  Hopper's DPX intrinsics are
-// their plain definitions.  Dynamic
-// shared memory is one buffer per block, filled with 0x55 bytes: a kernel
-// that reads what it did not write sees large values, not zeros.  Only
-// what the package's kernels use is here; every pointer is a host
-// pointer.
+// their plain definitions.  Dynamic shared memory is one buffer per block,
+// filled with 0x55 bytes: a kernel that reads what it did not write sees
+// large values, not zeros.  Only what the package's kernels use is here;
+// every pointer is a host pointer.
 #pragma once
 
 #include <stddef.h>

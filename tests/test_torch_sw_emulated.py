@@ -1,6 +1,6 @@
 """The Smith-Waterman CUDA source on the CPU: ``csrc/smith_waterman.cu``
 built with g++ against the stand-in ``csrc/emu/cuda_runtime.h``, which runs
-each warp's 32 lanes as coroutines (shuffles as exchanges, the DPX
+each warp's 32 lanes as coroutines (shuffles and ballots as exchanges, the DPX
 intrinsics as their plain definitions, the launches as a host loop over
 the blocks).
 
@@ -10,9 +10,12 @@ helpers on CPU tensors, are held bit for bit to the plain versions
 coordinates, at read lengths that reach every rows-per-thread
 instantiation of the sweep (1 to 12 rows a thread) and the stripe loop of
 longer reads, with empty lanes, ragged lengths and score ties, under both
-parameter sets.  What the stand-in cannot show (the card's scheduling,
-its compiler) the ``cuda`` tests of ``test_torch_kernels.py`` hold on the
-card.  Skips only where g++ is missing.
+parameter sets; K3 also on walks chosen for its runs (``WALKS``).  The
+round trips behind K3's latency floor in ``chip_smoke.py`` are held to
+K3's loop written out in Python.  What the stand-in cannot show (the
+card's scheduling, its compiler) the ``cuda`` tests of
+``test_torch_kernels.py`` hold on the card.  Skips only where g++ is
+missing.
 """
 import ctypes
 import shutil
@@ -174,9 +177,9 @@ def test_emulated_walk_matches_plain(emu_lib, case):
     """K3 from the host build against ``_traceback_core`` bit for bit, on
     walks that cross a stripe boundary, lanes that score 0, walks cut at
     ``max_steps`` (not a multiple of 4; also inside a D or I run), D and
-    I runs longer than a batch of cells, a batch that does not fill its last block, and
-    HaplotypeCaller's penalties; each case also checks that its inputs
-    do what it says."""
+    I runs longer than a trip's cells, a batch that does not fill its
+    last block, and HaplotypeCaller's penalties; each case also checks
+    that its inputs do what it says."""
     R, W, B, pset, steps, make = WALKS[case]
     rng = np.random.default_rng(sorted(WALKS).index(case) + 11)
     if make is None:
