@@ -161,8 +161,8 @@ def sass_sweep_counts(so: Path, kernel: str, *, loop_by=FP, count=FP,
 def sass_loop_size(so: Path, kernel: str, loop_by=WALK) -> int:
     """Instructions in the body of ``kernel``'s loop with the most
     instructions matching ``loop_by``: one trip of the pointer walk,
-    branches both ways included (so an upper count of what a trip
-    issues)."""
+    branches both ways included (an upper count of one trip's
+    instructions)."""
     ins = sass_function(so, kernel)
     loops = sass_loops(ins)
     if not loops:
