@@ -12,7 +12,9 @@ Phases (each prints its numbers; any failure exits non-zero):
    (nvcc, sm_90a) and reports build time, registers and spills, and the
    instructions of one sweep step in the library's SASS for the two
    PairHMM instantiations of the main path and for every instantiation
-   of the Smith-Waterman sweep (with its integer max/min);
+   of the Smith-Waterman sweep (with its integer max/min), and of K7's
+   instantiations at the ablation's R = 160 (all 104 checked to hold
+   their sweep loop);
 3. kernels vs their plain PyTorch versions on the card at the main
    path's shapes: Smith-Waterman K1-K3 bit-equal (K2/K3 at the aligner's,
    mate rescue's and HaplotypeCaller's buckets, with K2's byte bound from
@@ -179,6 +181,37 @@ def sw_sweep_counts(so: Path) -> None:
         say(f"K1/K2 {what}: {c['per_step']:.1f} instructions per sweep "
             f"step, {c['counted_per_step']:.1f} of them integer max/min "
             f"({c['trip']} in a trip of {c['steps_per_trip']:.0f} steps)")
+
+
+def ablate_sweep_counts(so: Path) -> None:
+    """Phase 2 for K7: every instantiation of ``sw_ablate_kernel`` (rows
+    per thread NR, the stripe loop, the flags no_best / no_mask /
+    no_window) still holds its sweep loop, unrolled 8 steps a trip (or a
+    multiple of 8) in the library's SASS (a variant whose sweep the
+    compiler deleted would have none); those at R = 160 (NR = 5, the
+    ablation's) hold all three of its loops (a compiler that drops the
+    guarded steps before the band under the mask would leave two) and
+    print their
+    instructions per step in the unguarded loop and in the guarded loops
+    before and after the band."""
+    from falcon_genome_tpu_torch.benchmarks import sass
+    names = sass.sass_names(so, r"16sw_ablate_kernelI")
+    check(len(names) == 8 * 13,
+          f"{len(names)} instantiations of sw_ablate_kernel, not 104")
+    for name in names:
+        loops = sass.sass_step_loops(so, re.escape(name))
+        check(loops[0][0] >= 8 and loops[0][0] % 8 == 0,
+              f"{name}: no sweep loop of 8 steps")
+        m = re.search(r"ILi(\d+)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+        if m and m.group(1) == "5":
+            check(len(loops) == 3, f"{name}: {len(loops)} sweep loops, not "
+                  f"3 (guarded before the band, unguarded, guarded after)")
+            what = "sw_ablate_kernel<5, {}, {}, {}, {}>".format(
+                *("true" if g == "1" else "false" for g in m.groups()[1:]))
+            say(f"K7 {what}: {loops[0][1]:.1f} instructions per sweep step"
+                f", in the guarded loops (before the band, after it) "
+                f"{', '.join(f'{n:.1f}' for _, n, _ in loops[1:])}")
+    say(f"K7: all {len(names)} instantiations hold their sweep loop")
 
 
 def walk_trips(torch, ptrs, best, bestpos, max_steps: int, cells: int):
@@ -1157,6 +1190,7 @@ def main() -> int:
                 f"{c['steps_per_trip']:.0f} steps; the rescale block of "
                 f"{c['cold_block']}, run once in 64 steps, left out)")
         sw_sweep_counts(so)
+        ablate_sweep_counts(so)
         results: dict[str, dict] = {}
         k5_args = phase_kernels(torch, S, P, results)
         work = REPO / "build" / "chip_smoke"

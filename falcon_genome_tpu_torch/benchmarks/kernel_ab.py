@@ -1,5 +1,5 @@
 """Kernel times of several checkouts of the port, interleaved on one NVIDIA
-GPU: Smith-Waterman K1-K3 and PairHMM K4/K5.
+GPU: Smith-Waterman K1-K3, PairHMM K4/K5 and the ablation kernel K7.
 
     python -m falcon_genome_tpu_torch.benchmarks.kernel_ab ROOT [ROOT ...]
 
@@ -20,7 +20,10 @@ then times, each through its wrapper:
   at HaplotypeCaller's shape (R=160, H=384, 8192 pairs, the inputs of
   ``chip_smoke.py``'s phase 3 without its crafted pairs);
 
-each three ways.  ``*_ms``: CUDA events around each of 20 calls after a
+each three ways; and K7 (``sw_score_ablate``) in the ablation's four
+variants at its bucket (R=160, W=416, 2048 lanes; ``ablate_sw.inputs``),
+keys ``k7_base_*``, ``k7_no_best_tracking_*`` and so on, waited for and
+kernel-only.  ``*_ms``: CUDA events around each of 20 calls after a
 warm-up, each call waited for, the median (what a caller that reads every
 result back sees, the wrapper's host work included).  ``*_queued_ms``:
 events around 20 calls queued back to back, per call, the median of 5
@@ -32,7 +35,9 @@ the checkout's build: registers of the K1 and K2 instantiations at R=160
 (``ptxas -v``) and their instructions per sweep step and integer max/min
 per step (``cuobjdump -sass``, null where the toolkit's ``cuobjdump`` is
 missing); K3's registers and the instructions of one trip of its walk
-loop (``k3_per_trip``).  Give the roots as parent, change, change,
+loop (``k3_per_trip``); K7's registers and instructions per sweep step
+of each variant's instantiation at R = 160 (``k7_<variant>_registers``,
+``k7_<variant>_per_step``).  Give the roots as parent, change, change,
 parent, so that drift of the card between runs shows.
 Prints one JSON line per run; without a CUDA device it exits non-zero.
 """
@@ -55,6 +60,11 @@ SW_SHAPES = (("", 8192, 160, 256, None), ("rescue", 2048, 160, 1024, None),
 # the mangled K1 / K2 kernel at R = 160: the one-stripe design's
 # sw_kernel<bool FULL> or the rows-per-thread design's sw_kernel<5, FULL, ...>
 SW_MAIN = r"9sw_kernelI(?:Li5E)?Lb{}E(?:Lb0E)?E"
+# K7 at R = 160 for the flags (no_best, no_mask, no_window): the earlier
+# design's sw_ablate_kernel<flags...> or sw_ablate_kernel<5, false, ...>
+K7_MAIN = r"16sw_ablate_kernelI(?:Li5ELb0E)?Lb{:d}ELb{:d}ELb{:d}EE"
+K7_VARIANTS = (("base", (0, 0, 0)), ("no_best_tracking", (1, 0, 0)),
+               ("no_valid_mask", (0, 1, 0)), ("no_window_shift", (0, 0, 1)))
 
 
 def inputs(rng):
@@ -181,8 +191,8 @@ def three_ways(key: str, fn, name: str, queued: bool = True) -> dict:
 
 
 def build_counts(so: Path) -> dict:
-    """Registers and SASS counts of the K1 and K2 kernels at R = 160, and
-    of K3 (registers, instructions in its walk loop)."""
+    """Registers and SASS counts of the K1, K2 and K7 kernels at R = 160,
+    and of K3 (registers, instructions in its walk loop)."""
     # this file's own sass.py: an older root's package may have none
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import sass
@@ -201,6 +211,16 @@ def build_counts(so: Path) -> dict:
             print(f"kernel_ab: no SASS count for {key}: {e}",
                   file=sys.stderr)
             out[f"{key}_per_step"] = out[f"{key}_mnmx_per_step"] = None
+    for name, flags in K7_VARIANTS:
+        pat = K7_MAIN.format(*flags)
+        out[f"k7_{name}_registers"] = sass.kernel_registers(text, pat)
+        try:
+            out[f"k7_{name}_per_step"] = sass.sass_sweep_counts(
+                so, pat, loop_by=sass.SHFL_UP, shfl_per_step=2)["per_step"]
+        except (sass.SassError, OSError) as e:
+            print(f"kernel_ab: no SASS count for k7 {name}: {e}",
+                  file=sys.stderr)
+            out[f"k7_{name}_per_step"] = None
     out["k3_registers"] = sass.kernel_registers(text, "sw_traceback_kernel")
     try:
         out["k3_per_trip"] = sass.sass_loop_size(so, "sw_traceback_kernel")
@@ -211,10 +231,12 @@ def build_counts(so: Path) -> dict:
 
 
 def time_root(root: Path) -> dict:
-    """Build ``root``'s kernels and time its K1-K5 (this process imports
-    only ``root``'s package)."""
+    """Build ``root``'s kernels and time its K1-K5 and K7 (this process
+    imports only ``root``'s package)."""
     sys.path.insert(0, str(root))
+    from falcon_genome_tpu_torch.benchmarks import ablate_sw as A
     from falcon_genome_tpu_torch.ops import _build
+    from falcon_genome_tpu_torch.ops import bench_kernels as BK
     from falcon_genome_tpu_torch.ops import pairhmm as P
     from falcon_genome_tpu_torch.ops import smith_waterman as S
     if not Path(P.__file__).resolve().is_relative_to(root):
@@ -260,6 +282,12 @@ def time_root(root: Path) -> dict:
     res.update(three_ways(
         "k5", lambda: P.pairhmm_pb(read, q, ins, dele, gcp, rlen, hap,
                                    hlen), "pairhmm_kernel"))
+    args = A.inputs(np.random.default_rng(0), dev)
+    p = S.SWParams()
+    for name, kw in A.VARIANTS:
+        res.update(three_ways(
+            f"k7_{name}", lambda kw=kw: BK.sw_score_ablate(*args, p, **kw),
+            "sw_ablate_kernel", queued=False))
     return res
 
 

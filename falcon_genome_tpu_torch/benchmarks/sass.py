@@ -1,8 +1,9 @@
 """Reading the built kernel library: ``ptxas -v`` reports and the SASS that
 ``cuobjdump -sass`` prints.
 
-Used by ``chip_smoke.py`` (phase 2 and 7) and by ``kernel_ab.py`` to count
-registers and the instructions of one sweep step of a kernel.  Needs the
+Used by ``chip_smoke.py`` (phase 2 and 7), ``kernel_ab.py`` and
+``ablate_sw.py`` to count registers and the instructions of one sweep
+step of a kernel.  Needs the
 CUDA toolkit's ``cuobjdump``; nothing here runs without a built library.
 """
 from __future__ import annotations
@@ -16,6 +17,9 @@ FP = re.compile(r"\b(FFMA|FMUL|FADD)\b")
 # integer max/min: IMNMX and the DPX forms (VIMNMX, VIMNMX3, VIADDMNMX)
 MNMX = re.compile(r"\b\w*MNMX\w*\b")
 SHFL_UP = re.compile(r"SHFL\.UP")
+# integer multiply-adds (IMAD and its MOV/SHL/IADD forms), which the
+# compiler also uses for moves, shifts and adds
+IMAD = re.compile(r"\bIMAD")
 # the pointer walk's loop: its ballot (VOTE), or the parent design's load
 WALK = re.compile(r"\bVOTE\b|\bLDG\b")
 
@@ -156,6 +160,30 @@ def sass_sweep_counts(so: Path, kernel: str, *, loop_by=FP, count=FP,
     return dict(steps_per_trip=steps, per_step=len(hot) / steps,
                 counted_per_step=sum(1 for t in hot if count.search(t))
                 / steps, trip=len(hot), cold_block=len(body) - len(hot))
+
+
+def sass_step_loops(so: Path, kernel: str, shfl_per_step: int = 2,
+                    count=FP) -> list[tuple[float, float, float]]:
+    """(steps per trip, instructions per step, those matching ``count``
+    per step) of every innermost loop of ``kernel`` that holds
+    ``SHFL.UP``: the loop with the most steps per trip first, the others
+    in the order of their addresses.  A sweep run in an unrolled loop
+    between loops of single guarded steps (K7) shows the guarded steps'
+    cost as the later entries."""
+    ins = sass_function(so, kernel)
+    loops = sass_loops(ins)
+    out = []
+    for lo, hi in loops:
+        if any(lo <= a <= b <= hi and (a, b) != (lo, hi) for a, b in loops):
+            continue    # holds another loop
+        body = [t for a, t in ins if lo <= a <= hi]
+        steps = sum(1 for t in body if SHFL_UP.search(t)) / shfl_per_step
+        if steps >= 1:
+            out.append((steps, len(body) / steps,
+                        sum(1 for t in body if count.search(t)) / steps))
+    if not out:
+        raise SassError(f"no sweep step in {kernel}'s SASS")
+    return sorted(out, key=lambda x: -x[0])
 
 
 def sass_loop_size(so: Path, kernel: str, loop_by=WALK) -> int:

@@ -3,6 +3,7 @@
 // a card (tests/test_torch_sw_emulated.py).
 //
 //   g++ -std=c++17 -O1 -fPIC -shared -I csrc/emu -x c++ csrc/smith_waterman.cu
+//   g++ ... -x c++ csrc/bench_kernels.cu
 //
 // A launch runs the blocks one after another.  The threads of a block run
 // as coroutines (ucontext), each on a stack of its own; a thread runs until
@@ -17,6 +18,7 @@
 // every pointer is a host pointer.
 #pragma once
 
+#include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 #include <string.h>

@@ -8,9 +8,13 @@ and the score-only Smith-Waterman ablation (K7).
   its rate is the denominator of ``pairhmm_mfu``.
 * :func:`sw_score_ablate` (``fgt_sw_score_ablate``), the port of
   ``benchmarks/ablate_sw.py``'s ``make_kernel``: the score-only
-  Smith-Waterman sweep with the best tracking, the validity mask or the
-  window shift removed.  The ablated variants compute other scores on
-  purpose; only their time matters.
+  Smith-Waterman sweep over the full band (every diagonal 1..R+W for all
+  R rows) with the best tracking, the validity mask or the window shift
+  removed.  The kernel is K1's sweep design (NR rows a thread, the
+  window's codes in shared memory, one best-cell key a row, 8 warps a
+  block), each flag taking exactly its group of work out of the step.
+  The ablated variants compute other scores on purpose; only their time
+  matters.
 
 A wrapper handed CPU tensors runs the plain version; handed CUDA tensors
 it launches the kernel, or raises; any other device raises.
@@ -163,13 +167,49 @@ def _sw_ablate_plain(read, rlen, win, wlen, params: SWParams, *,
     return score[0], pos[0]
 
 
+def _check_ablate_params(params: SWParams, R: int, W: int) -> None:
+    """What K7's sweep assumes: a row's best cell is kept as one key,
+    score * 4096 + D - jj (jj the diagonal of the thread's first row), so
+    R + W + 12 <= 4096 and scores below 2^18; at least one row and one
+    window column."""
+    if R < 1 or W < 1 or R + W + 12 > POS_STRIDE:
+        raise ValueError(f"sw_score_ablate: bucket {R} x {W} needs R, W >= 1"
+                         f" and R + W <= {POS_STRIDE - 12}")
+    if max(R * params.match, 0) >= 1 << 18:
+        raise ValueError(f"sw_score_ablate: {R} rows with match "
+                         f"{params.match} exceed the kernel's best-cell key")
+
+
+def _sw_ablate_launch(lib, read, rlen, win, wlen, params: SWParams,
+                      flags: int, stream):
+    """Launch K7 from ``lib`` on contiguous lane-major inputs; returns
+    (score, pos) allocated on the inputs' device."""
+    B, R = read.shape
+    W = win.shape[1]
+    _check_ablate_params(params, R, W)
+    score = torch.empty(B, dtype=torch.int32, device=read.device)
+    pos = torch.empty(B, dtype=torch.int32, device=read.device)
+    err = lib.fgt_sw_score_ablate(
+        read.data_ptr(), win.data_ptr(), rlen.data_ptr(), wlen.data_ptr(),
+        B, R, W, params.match, params.mismatch,
+        params.gap_open + params.gap_ext, params.gap_ext, flags,
+        score.data_ptr(), pos.data_ptr(), stream)
+    _build.check(err, "fgt_sw_score_ablate")
+    return score, pos
+
+
 def sw_score_ablate(read, rlen, win, wlen, params: SWParams, *,
                     no_best: bool = False, no_mask: bool = False,
                     no_window: bool = False):
     """K7.  Lane-major inputs as ``smith_waterman.sw_score``: read (B, R)
     int8 codes, win (B, W) int8, rlen/wlen (B,) int32 → ((B,) score,
     (B,) pos) int32 on the inputs' device.  With no flag set it equals
-    ``sw_score`` (kernel K1)."""
+    ``sw_score`` (kernel K1).  On the card the kernel sweeps in K1's
+    layout (a thread's NR = ceil(R / 32) rows on one column a step, the
+    window's codes from shared memory, a best-cell key a row) over the
+    full band, with guarded steps before and after it
+    (``csrc/bench_kernels.cu``); it takes R + W up to 4084 and
+    R * match below 2^18."""
     _check_lanes(read, rlen, win, wlen)
     if read.device.type == "cpu":
         return _sw_ablate_plain(
@@ -177,19 +217,10 @@ def sw_score_ablate(read, rlen, win, wlen, params: SWParams, *,
             wlen[None], params, no_best=no_best, no_mask=no_mask,
             no_window=no_window)
     read, win, rlen, wlen = _cuda_args(read, rlen, win, wlen)
-    B, R = read.shape
-    W = win.shape[1]
-    dev = read.device
     flags = int(no_best) | int(no_mask) << 1 | int(no_window) << 2
-    with torch.cuda.device(dev):
-        score = torch.empty(B, dtype=torch.int32, device=dev)
-        pos = torch.empty(B, dtype=torch.int32, device=dev)
-        err = _build.load().fgt_sw_score_ablate(
-            read.data_ptr(), win.data_ptr(), rlen.data_ptr(),
-            wlen.data_ptr(), B, R, W, params.match, params.mismatch,
-            params.gap_open + params.gap_ext, params.gap_ext, flags,
-            score.data_ptr(), pos.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "fgt_sw_score_ablate")
+    with torch.cuda.device(read.device):
+        out = _sw_ablate_launch(
+            _build.load(), read, rlen, win, wlen, params, flags,
+            torch.cuda.current_stream(read.device).cuda_stream)
         _count("fgt_sw_score_ablate")
-        return score, pos
+        return out

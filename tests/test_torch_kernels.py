@@ -357,3 +357,26 @@ def test_sw_ablate_kernel_matches_plain_on_card(cuda_device, variant):
     if variant == "base":
         k1 = S.sw_score(*dev, p)
         assert torch.equal(got[0], k1[0]) and torch.equal(got[1], k1[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", range(8))
+@pytest.mark.parametrize("R,W", [(27, 35), (160, 416), (384, 392),
+                                 (416, 448)])
+def test_sw_ablate_kernel_all_flags_on_card(cuda_device, R, W, flags):
+    """K7 in all eight flag sets (1 no_best, 2 no_mask, 4 no_window) at
+    1, 5 and 12 rows a thread and two stripes, bit-equal to the plain
+    version; a quarter of the lanes with windows longer than W, whose
+    last diagonal lies inside the mask."""
+    read, rl, win, wl = sw_lanes(12 + R, R, W, 256)
+    wl[0, ::4] = W + R
+    lanes = [torch.from_numpy(np.ascontiguousarray(x)) for x in (
+        read.T.astype(np.int8), rl[0], win.T.astype(np.int8), wl[0])]
+    kw = dict(no_best=bool(flags & 1), no_mask=bool(flags & 2),
+              no_window=bool(flags & 4))
+    p = S.SWParams()
+    want = BK.sw_score_ablate(*lanes, p, **kw)
+    got = BK.sw_score_ablate(*[x.to(cuda_device) for x in lanes], p, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
