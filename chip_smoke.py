@@ -50,7 +50,21 @@ Phases (each prints its numbers; any failure exits non-zero):
    float32 peak; kernel K7 (the Smith-Waterman ablation) bit-equal to its
    plain version in all four variants, its base equal to K1; then
    ``python -m falcon_genome_tpu_torch.bench`` (its JSON line is printed)
-   and the ablation script, each through its ``main``.
+   and the ablation script, each through its ``main``;
+8. (run after phase 5, on phase 4's outputs) the somatic path: a
+   simulated 1 Mb tumor (60x, ~200 somatic SNVs at allele fraction 0.3)
+   and normal (30x) with phase 4's germline variants in both, ``align``
+   and ``markdup`` of each and ``mutect2 -t tumor -n normal`` through the
+   CLI on the card, with the wall of each step, the K2/K3/K4 launches of
+   ``mutect2`` (each > 0, no other kernel), every Smith-Waterman (R, W)
+   and PairHMM (R, H) bucket it launched, and K2/K3 (bit-equal) and K4
+   (1e-4, the same -inf lanes) held against their plain versions at each
+   of them on that run's inputs, with kernel, plain and bound times;
+   somatic SNV sensitivity and precision >= 0.9 and no germline site
+   with ``FILTER=PASS``; ``mutect2`` over six 301 bp windows of the same
+   BAMs with ``--device cpu`` and ``--device cuda``, record-equal; then
+   ``ug``, ``depth``, ``vcf_filter``, ``htc`` gVCFs for ``joint``, and
+   ``concat`` once each on phase 4's outputs (exit 0, non-empty outputs).
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on its path, error against the plain version, kernel, plain and
@@ -67,7 +81,6 @@ import logging
 import os
 import re
 import shutil
-import socket
 import statistics
 import subprocess
 import sys
@@ -770,7 +783,8 @@ def phase_germline(torch, cli, S, P, validate, work: Path, results) -> None:
     say(f"germline accuracy vs planted truth: {json.dumps(acc)}")
     check(acc["snp_sensitivity"] >= 0.98 and acc["precision"] >= 0.98,
           "germline SNP sensitivity or precision below 0.98")
-    shutil.rmtree(work / "1mb", ignore_errors=True)
+    germline_1mb = (sample, work / "1mb" / "calls.vcf.gz.work",
+                    work / "1mb" / "calls.vcf.gz")
 
     # phase 5: plain versions on the CPU vs kernels on the card, 50 kb
     sample = validate.simulate_sample(work / "50kb", 50_000, 30, seed=2)
@@ -791,7 +805,271 @@ def phase_germline(torch, cli, S, P, validate, work: Path, results) -> None:
           "50 kb BAMs differ between --device cpu and --device cuda")
     check(cmp_["vcf_equivalent"] and cmp_["vcf_non_concordant"] == 0,
           "50 kb VCFs differ between --device cpu and --device cuda")
-    return sample, Path(str(out["cuda"]) + ".work")
+    return sample, Path(str(out["cuda"]) + ".work"), germline_1mb
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the somatic path (mutect2) and the host commands
+# ---------------------------------------------------------------------------
+
+class ShapeRecorder:
+    """Wraps the Smith-Waterman (``sw_full``: K2 then K3) and scalar
+    PairHMM (``pairhmm_sc``: K4) wrappers while a run is driven, and
+    keeps, per bucket, the inputs of its widest call.  SW buckets are
+    ``_hap_to_ref_events_multi``'s: the rows R and the window W rounded
+    up to 128 (R at least W); PairHMM buckets are the (R, H) the lanes are
+    padded to.  It launches nothing itself."""
+
+    def __init__(self, S, P):
+        self.S, self.P = S, P
+        self.sw: dict[tuple[int, int], tuple] = {}
+        self.hmm: dict[tuple[int, int], tuple] = {}
+        self.sw_shapes: set[tuple[int, int]] = set()
+        self.calls = {"sw": 0, "hmm": 0}
+
+    def __enter__(self):
+        S, P = self.S, self.P
+        self.real = S.sw_full, P.pairhmm_sc
+
+        def sw_full(read, rlen, win, wlen, params, max_steps):
+            R, W = read.shape[1], win.shape[1]
+            rb = -(-max(R, W, 128) // 128) * 128
+            wb = -(-max(W, 128) // 128) * 128
+            self.calls["sw"] += 1
+            self.sw_shapes.add((R, W))
+            have = self.sw.get((rb, wb))
+            if have is None or have[0].shape[0] < read.shape[0]:
+                self.sw[(rb, wb)] = (read, rlen, win, wlen, params,
+                                     max_steps)
+            return self.real[0](read, rlen, win, wlen, params, max_steps)
+
+        def pairhmm_sc(read, base_q, rlen, hap, hlen, ins_q, del_q, gcp):
+            key = (read.shape[1], hap.shape[1])
+            self.calls["hmm"] += 1
+            have = self.hmm.get(key)
+            if have is None or have[0].shape[0] < read.shape[0]:
+                self.hmm[key] = (read, base_q, rlen, hap, hlen, ins_q,
+                                 del_q, gcp)
+            return self.real[1](read, base_q, rlen, hap, hlen, ins_q,
+                                del_q, gcp)
+        S.sw_full, P.pairhmm_sc = sw_full, pairhmm_sc
+        return self
+
+    def __exit__(self, *exc):
+        self.S.sw_full, self.P.pairhmm_sc = self.real
+
+
+def hold_buckets(torch, S, P, rec: ShapeRecorder) -> list[dict]:
+    """K2/K3 and K4 against their plain versions at every bucket the
+    recorded run launched, on that run's own inputs: SW bit-equal
+    (scores, best positions, op streams, coordinates), PairHMM within
+    1e-4 log10 with the same -inf lanes.  Times and bounds as phase 3."""
+    rows = []
+    for (rb, wb), (read, rl, win, wl, p, steps) in sorted(rec.sw.items()):
+        B, R, W = read.shape[0], read.shape[1], win.shape[1]
+        kptr, kbest, kpos = S.sw_pointers(read, rl, win, wl, p)
+        kout = S.sw_traceback(kptr, kbest, kpos, steps)
+        pptr, pbest, ppos = S._plain_scan(read, rl, win, wl, p)
+        pout = S._traceback_core(pptr, pbest[0], ppos[0], max_steps=steps)
+        torch.cuda.synchronize()
+        e2 = max(int((kbest - pbest[0]).abs().max()),
+                 int((kpos - ppos[0]).abs().max()))
+        e3 = max(int((a.int() - b.int()).abs().max())
+                 for a, b in zip(kout, pout))
+        check(e2 == 0 and e3 == 0,
+              f"K2/K3 differ from the plain versions at mutect2's bucket "
+              f"{rb}/{wb} (R={R} W={W} B={B})")
+        t2 = cuda_ms(torch, lambda: S.sw_pointers(read, rl, win, wl, p), 3)
+        t3 = cuda_ms(torch, lambda: S.sw_traceback(kptr, kbest, kpos,
+                                                   steps), 3)
+        t2p = cuda_ms(torch, lambda: S._plain_scan(read, rl, win, wl, p), 1)
+        t3p = cuda_ms(torch, lambda: S._traceback_core(
+            pptr, pbest[0], ppos[0], max_steps=steps), 1)
+        packed = kout[0].cpu().numpy()
+        walked = int(sum(((packed >> s) & 3) != 0
+                         for s in (0, 2, 4, 6)).sum())
+        b2 = bound(read.numel() + win.numel() + 16 * B
+                   + kptr.numel() * kptr.element_size(),
+                   SW_OPS_PER_CELL * sw_cells(rl, wl, R, W), PEAK_INT32)
+        b3 = bound(walked / 2 + packed.size + 24 * B, 0, PEAK_INT32)
+        say(f"mutect2 bucket K2+K3 {rb}/{wb} (R={R} W={W} B={B}, "
+            f"{-(-R // 384)} stripe(s), max_steps {steps}): bit-equal; K2 "
+            f"kernel {t2:.3f} ms plain {t2p:.3f} ms bound "
+            f"{b2['bound_ms']:.4f} ms ({b2['bound_by']}); K3 kernel "
+            f"{t3:.3f} ms plain {t3p:.3f} ms byte bound "
+            f"{b3['bound_ms']:.4f} ms")
+        rows.append(dict(kernel="K2", bucket=[rb, wb], R=R, W=W, B=B,
+                         ms=t2, plain_ms=t2p, **b2))
+        rows.append(dict(kernel="K3", bucket=[rb, wb], R=R, W=W, B=B,
+                         ms=t3, plain_ms=t3p, **b3))
+        del kptr, pptr
+    for (R, H), args in sorted(rec.hmm.items()):
+        read, bq, rl, hap, hl, ins_q, del_q, gcp = args
+        B = read.shape[0]
+
+        def plain():
+            return P._pairhmm_plain(read.T, bq.T, ins_q, del_q, gcp,
+                                    rl[None], hl[None], hap.T, R=R, H=H)
+        got = P.pairhmm_sc(*args)
+        e4, n4 = hold_pairhmm(torch, f"K4 at mutect2's bucket {R}/{H}", got,
+                              plain())
+        t4 = cuda_ms(torch, lambda: P.pairhmm_sc(*args), 3)
+        t4p = cuda_ms(torch, plain, 1)
+        cells = int((rl.cpu().numpy().astype(np.int64)
+                     * hl.cpu().numpy()).sum())
+        b4 = bound(2 * B * R + B * H + 12 * B,
+                   PAIRHMM_FLOPS_PER_CELL * cells, PEAK_F32)
+        say(f"mutect2 bucket K4 {R}/{H} (B={B}, {ins_q}/{del_q}/{gcp}): "
+            f"max |dlog10| {e4:.3g}, {n4} finite pairs not bit-equal, "
+            f"-inf lanes equal ({int((~torch.isfinite(got)).sum())}); "
+            f"kernel {t4:.3f} ms plain {t4p:.3f} ms bound "
+            f"{b4['bound_ms']:.4f} ms ({b4['bound_by']})")
+        rows.append(dict(kernel="K4", bucket=[R, H], B=B, ms=t4,
+                         plain_ms=t4p, max_abs_err=e4, **b4))
+    return rows
+
+
+def run_cli(cli, argv: list[str]) -> float:
+    """One command through the port's CLI; its wall in seconds."""
+    t0 = time.time()
+    rc = cli.main(argv)
+    check(rc == 0, f"{' '.join(argv[:3])} exited {rc}")
+    return time.time() - t0
+
+
+def tumor_normal_bams(cli, tn, out: Path) -> tuple[dict, dict]:
+    """``align`` then ``markdup`` of each sample on the card: the BAMs
+    and the wall of each step."""
+    bams, walls = {}, {}
+    for name, reads in (("tumor", tn.tumor), ("normal", tn.normal)):
+        aligned = out / f"{name}.aligned.bam"
+        walls[f"align {name}"] = run_cli(cli, [
+            "--device", "cuda", "align", "-r", tn.ref, "-1", reads.fastq1,
+            "-2", reads.fastq2, "-o", str(aligned), "-S", name, "-R", name,
+            "-f"])
+        bams[name] = str(out / f"{name}.bam")
+        walls[f"markdup {name}"] = run_cli(cli, [
+            "--device", "cuda", "markdup", "-i", str(aligned),
+            "-o", bams[name], "-f"])
+    return bams, walls
+
+
+def mutect2_argv(tn, bams: dict, out: Path, device: str) -> list[str]:
+    return ["--device", device, "mutect2", "-r", tn.ref, "-t", bams["tumor"],
+            "-n", bams["normal"], "-o", str(out), "-f"]
+
+
+def phase_somatic(torch, cli, S, P, validate, work: Path) -> list[dict]:
+    t0 = time.time()
+    tn = validate.simulate_tumor_normal(work / "tn1mb", 1_000_000, seed=5)
+    say(f"somatic sample: one 1 Mb contig (genome length cut from a 3.1 Gb "
+        f"human genome to fit the smoke's time; widths as in production), "
+        f"normal {tn.normal.n_pairs} pairs (30x), tumor {tn.tumor.n_pairs} "
+        f"pairs (60x) x 2 x 150 bp; in both {len(tn.snps)} germline het "
+        f"SNPs and {len(tn.indels)} indels; in the tumor only "
+        f"{len(tn.somatic)} somatic SNVs at allele fraction 0.3; simulated "
+        f"in {time.time() - t0:.1f} s")
+    bams, walls = tumor_normal_bams(cli, tn, work / "tn1mb")
+    vcf = work / "tn1mb" / "somatic.vcf.gz"
+    for d in (S.LAUNCHES, P.LAUNCHES):
+        for k in d:
+            d[k] = 0
+    torch.cuda.synchronize()
+    with ShapeRecorder(S, P) as rec:
+        walls["mutect2"] = run_cli(cli, mutect2_argv(tn, bams, vcf, "cuda"))
+        torch.cuda.synchronize()
+    launches = {k: n for k, n in {**S.LAUNCHES, **P.LAUNCHES}.items() if n}
+    say(f"mutect2 steps on the card (s): "
+        f"{json.dumps({k: round(v, 2) for k, v in walls.items()})}; "
+        f"mutect2 kernel launches {launches}")
+    for k in ("fgt_sw_full", "fgt_sw_traceback", "fgt_pairhmm"):
+        check(launches.get(k, 0) > 0, f"kernel {k} was not launched by "
+              f"mutect2")
+    check(set(launches) == {"fgt_sw_full", "fgt_sw_traceback",
+                            "fgt_pairhmm"},
+          f"mutect2 launched kernels other than K2-K4: {launches}")
+    say(f"mutect2 buckets: SW (R, W) {sorted(rec.sw)} ({rec.calls['sw']} "
+        f"calls, {len(rec.sw_shapes)} distinct unpadded shapes, R up to "
+        f"{max(r for r, _ in rec.sw_shapes)}); PairHMM (R, H) "
+        f"{sorted(rec.hmm)} ({rec.calls['hmm']} calls)")
+    rows = hold_buckets(torch, S, P, rec)
+    del rec
+    acc = validate.score_somatic(str(vcf), tn)
+    say(f"somatic accuracy vs planted truth: {json.dumps(acc)}")
+    check(acc["somatic_sensitivity"] >= 0.9
+          and acc["somatic_precision"] >= 0.9,
+          "somatic SNV sensitivity or precision below 0.9")
+    check(acc["germline_sites_pass"] == 0,
+          "a germline het site passed the somatic filters")
+
+    # plain versions on the CPU vs kernels on the card, on the same BAMs
+    # over windows of 301 bp around six somatic sites: the plain
+    # PairHMM's time on the host sets the cut (tens of seconds a kb)
+    windows = work / "tn1mb" / "windows.list"
+    windows.write_text("".join(f"chr1:{p - 149}-{p + 151}\n"
+                               for p in sorted(tn.somatic)[:6]))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = work / "tn1mb" / f"{dev}.vcf.gz"
+        wall = run_cli(cli, mutect2_argv(tn, bams, out[dev], dev)
+                       + ["-L", str(windows), "-O", "gatk.nprocs=1"])
+        say(f"mutect2 over six 301 bp windows --device {dev}: {wall:.2f} s")
+    recs = {d: validate.vcf_records(str(v)) for d, v in out.items()}
+    c = validate.compare_vcf(str(out["cpu"]), str(out["cuda"]))
+    say(f"mutect2 windows cpu vs cuda: {len(recs['cuda'])} records, "
+        f"record-equal {recs['cpu'] == recs['cuda']}, concordant "
+        f"{c.concordant}, non-concordant "
+        f"{c.only_a + c.only_b + c.discordant_gt}")
+    check(recs["cpu"] == recs["cuda"] and len(recs["cuda"]) > 0
+          and c.equivalent,
+          "mutect2 VCFs differ between --device cpu and cuda")
+    shutil.rmtree(work / "tn1mb", ignore_errors=True)
+    return rows
+
+
+def phase_host(cli, sample, run_dir: Path, vcf: Path, work: Path) -> None:
+    """The host commands once each on phase 4's outputs (recalibrated
+    reads, calls and their shard parts): ``ug`` and ``htc`` gVCFs for
+    ``joint`` over a 200 kb interval, ``depth`` over the contig,
+    ``vcf_filter`` and ``concat``.  Each must exit 0 and write a
+    non-empty output."""
+    work.mkdir(parents=True, exist_ok=True)
+    iv = work / "200kb.list"
+    iv.write_text("chr1:400001-600000\n")
+    recal = str(run_dir / "recal")
+    gvcfs = work / "gvcfs"
+    gvcfs.mkdir()
+    steps = [
+        ("ug", ["ug", "-r", sample.ref, "-i", recal, "-L", str(iv),
+                "-o", str(work / "ug.vcf")], work / "ug.vcf"),
+        ("depth", ["depth", "-r", sample.ref, "-i", recal, "-b",
+                   "-o", str(work / "depth")],
+         work / "depth.sample_summary"),
+        ("vcf_filter", ["vcf_filter", "-r", sample.ref, "-i", str(vcf),
+                        "--filter-expression", "QUAL < 50",
+                        "--filter-name", "LowQual",
+                        "-o", str(work / "filtered.vcf")],
+         work / "filtered.vcf"),
+        ("concat", ["concat", "-i", str(vcf) + ".parts",
+                    "-o", str(work / "concat.vcf.gz")],
+         work / "concat.vcf.gz"),
+    ] + [
+        (f"htc gVCF {s}", ["htc", "-r", sample.ref, "-i", recal, "-L",
+                           str(iv), "-S", s,
+                           "-o", str(gvcfs / f"{s}.g.vcf.gz")],
+         gvcfs / f"{s}.g.vcf.gz") for s in ("s1", "s2")
+    ] + [
+        ("joint", ["joint", "-r", sample.ref, "-i", str(gvcfs),
+                   "-o", str(work / "joint.vcf.gz")],
+         work / "joint.vcf.gz")]
+    walls = {}
+    for name, argv, out in steps:
+        walls[name] = run_cli(cli, ["--device", "cuda", *argv, "-f"])
+        check(out.exists() and out.stat().st_size > 0,
+              f"{name} wrote no output")
+    walls = {k: round(v, 2) for k, v in walls.items()}
+    say(f"host commands on the 1 Mb germline outputs, exit 0 and non-empty "
+        f"outputs (s): {json.dumps(walls)}")
 
 
 # ---------------------------------------------------------------------------
@@ -903,12 +1181,6 @@ def run_processes(argvs, log_dir: Path, timeout: float) -> list[str]:
     return outs
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def phase_dist(torch, cli, validate, sample, run_dir: Path, work: Path,
                device: str = "cuda") -> None:
     """(b): bqsr and htc through the CLI in two gloo processes vs one."""
@@ -938,14 +1210,16 @@ def phase_dist(torch, cli, validate, sample, run_dir: Path, work: Path,
     for cmd, inp, out, extra in (
             ("bqsr", dedup, two / "recal.bam", ()),
             ("htc", str(one / "recal.bam"), two / "calls.vcf", ("-v",))):
-        port = free_port()
+        # the processes meet through a file: process 0 binds a free port
+        # and writes its number there
+        coord = f"file://{two / f'rendezvous-{cmd}'}"
         logs.append(run_processes([
             [sys.executable, "-m", "falcon_genome_tpu_torch.cli",
              "--device", device, *argv(cmd, inp, out, extra),
              "-O", f"log_dir={two / f'log{i}'}",
              "-O", "tpu.dist.num_processes=2",
              "-O", f"tpu.dist.process_id={i}",
-             "-O", f"tpu.dist.coordinator=localhost:{port}"]
+             "-O", f"tpu.dist.coordinator={coord}"]
             for i in range(2)], two, 600))
     t2 = time.time()
     for outs in logs:
@@ -1195,8 +1469,16 @@ def main() -> int:
         k5_args = phase_kernels(torch, S, P, results)
         work = REPO / "build" / "chip_smoke"
         shutil.rmtree(work, ignore_errors=True)
-        sample, run_dir = phase_germline(torch, cli, S, P, validate, work,
-                                         results)
+        sample, run_dir, germline_1mb = phase_germline(
+            torch, cli, S, P, validate, work, results)
+        t8 = time.time()
+        buckets = phase_somatic(torch, cli, S, P, validate, work)
+        phase_host(cli, *germline_1mb, work / "host")
+        shutil.rmtree(work / "1mb", ignore_errors=True)
+        shutil.rmtree(work / "host", ignore_errors=True)
+        say(json.dumps({"mutect2_buckets": buckets}))
+        say(f"phase 8 (somatic path, host commands) "
+            f"{time.time() - t8:.1f} s")
         t6 = time.time()
         count = torch.cuda.device_count()
         phase_mesh(torch, P, validate, sample, run_dir, k5_args, results,

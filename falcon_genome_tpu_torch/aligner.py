@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .device import DEFAULT_DEVICE
 from .io import native_ext
 from .io.columns import RecordColumns
 from .io.dna import _COMP_LUT, BASE_N, revcomp_codes
@@ -523,7 +524,7 @@ class AlignerEngine:
     aligner windows are read_len + 2 * window_pad <= 160 + 64."""
 
     def __init__(self, index: MinimizerIndex, params: AlignerParams = None,
-                 device: torch.device = torch.device("cpu"),
+                 device: torch.device = DEFAULT_DEVICE,
                  bucket: SWBucket | None = None):
         self.index = index
         self.params = params or AlignerParams()

@@ -259,8 +259,9 @@ def time_root(root: Path) -> dict:
         else:
             read, rl, win, wl = to(*sw_lanes(rng, genome, n, r, w,
                                              (150, 150)))
-            steps = S._traceback_steps_bound(150, w - 8, p,
-                                             S.SWBucket(r, w))
+            # the bucket only sizes the step bound
+            steps = S._traceback_steps_bound(
+                150, w - 8, p, S.SWBucket(r, w, torch.device("cpu")))
         ptr, best, pos = S.sw_pointers(read, rl, win, wl, p)
         suffix = f"_{label}" if label else ""
         if not label:

@@ -7,9 +7,11 @@ internal error 255).  One global option is added:
 
   ``--device {cuda,cpu}`` (default ``cuda``) — where the kernels run.
   ``cuda`` without a card is an error (exit 1), never a move to the CPU;
-  ``cpu`` runs the kernels' plain PyTorch versions.
+  ``cpu`` runs the kernels' plain PyTorch versions.  The device is
+  resolved for the reference's device commands only; the host commands
+  (markdup, joint, depth, vcf_filter, concat, conf) need no card.
 
-Before a command that runs kernels, the device mesh comes up as in the
+Before a device command, the device mesh comes up as in the
 reference (``parallel.mesh.initialize_from_conf``): one process shards
 over every visible card (``tpu.mesh.*``); several processes
 (``-O tpu.dist.num_processes=N -O tpu.dist.process_id=i
@@ -17,8 +19,9 @@ over every visible card (``tpu.mesh.*``); several processes
 ``FCS_TPU__DIST__*`` environment variables) join one ``gloo`` group and
 split each stage's tasks; process i runs on ``cuda:(i % device_count)``.
 
-Ported: align, markdup, bqsr, htc, germline.  Every other subcommand of
-the reference exits with the invalid-parameter code: not yet ported.
+Ported: every command of the reference but ``indel`` and ``gatk``, which
+exit with the invalid-parameter code: not yet ported.  ``conf`` prints the
+configuration before any parser runs, as in the reference.
 """
 from __future__ import annotations
 
@@ -38,15 +41,24 @@ log = logging.getLogger("falcon_genome_tpu")
 COMMANDS = {
     "align": "align pair-end FASTQ files into a sorted BAM file",
     "markdup": "mark duplicates in a BAM file or bucket folder",
+    "baserecal": "build the base-quality recalibration table",
+    "printreads": "apply recalibration, emit sharded BAM",
     "bqsr": "base recalibration + print reads (chained)",
     "htc": "call germline variants with the HaplotypeCaller model",
+    "mutect2": "call somatic variants on a tumor/normal pair",
+    "joint": "joint genotyping across per-sample gVCFs",
+    "ug": "call variants with the legacy pileup genotyper",
+    "depth": "depth of coverage analysis",
+    "vcf_filter": "filter variants by expression",
     "germline": "one-command germline pipeline (align → markdup → bqsr → htc)",
+    "concat": "concatenate per-shard VCFs",
+    "conf": "print all configuration options",
 }
-# commands whose stages launch kernels: they bring up the device mesh
-# and the process group first (the reference's DEVICE_COMMANDS)
-DEVICE_COMMANDS = {"align", "bqsr", "htc", "germline"}
-NOT_PORTED = ("baserecal", "printreads", "mutect2", "indel", "joint", "ug",
-              "gatk", "depth", "vcf_filter", "concat", "conf")
+NOT_PORTED = ("indel", "gatk")
+# the reference's DEVICE_COMMANDS less those not ported: they resolve
+# the device and bring up the device mesh and the process group first
+DEVICE_COMMANDS = {"align", "baserecal", "printreads", "bqsr", "htc",
+                   "mutect2", "ug", "germline"}
 
 
 def print_help() -> None:
@@ -193,7 +205,8 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def dispatch(args: argparse.Namespace, conf, device: torch.device) -> None:
+def dispatch(args: argparse.Namespace, conf, device: str | torch.device
+             ) -> None:
     from . import stages
 
     for kv in getattr(args, "option", []) or []:
@@ -205,6 +218,7 @@ def dispatch(args: argparse.Namespace, conf, device: torch.device) -> None:
     cmd = args.command
     if cmd in DEVICE_COMMANDS:
         from .parallel.mesh import initialize_from_conf, process_device
+        device = resolve_device(device)
         initialize_from_conf(conf, device)
         device = process_device(device)
         if device.type == "cuda":
@@ -222,6 +236,14 @@ def dispatch(args: argparse.Namespace, conf, device: torch.device) -> None:
     elif cmd == "markdup":
         stages.run_markdup(conf, args.input, args.output, force=args.force,
                            extra_opts=args.extra_options)
+    elif cmd == "baserecal":
+        stages.run_baserecal(conf, args.ref, args.input, args.output,
+                             known_sites=args.knownSites, force=args.force,
+                             extra_opts=args.extra_options)
+    elif cmd == "printreads":
+        stages.run_printreads(conf, args.ref, args.input, args.bqsr,
+                              args.output, force=args.force,
+                              extra_opts=args.extra_options)
     elif cmd == "bqsr":
         stages.run_bqsr(conf, args.ref, args.input, args.output,
                         known_sites=args.knownSites, force=args.force,
@@ -232,6 +254,43 @@ def dispatch(args: argparse.Namespace, conf, device: torch.device) -> None:
                        intervals=args.intervals, sample=args.sample_id,
                        force=args.force, extra_opts=args.extra_options,
                        device=device)
+    elif cmd == "mutect2":
+        stages.run_mutect2(conf, args.ref, args.tumor, args.output,
+                           normal_path=args.normal,
+                           intervals=args.intervals,
+                           run_filter=not args.skip_filter,
+                           force=args.force,
+                           tumor_name=args.tumor_name,
+                           normal_name=args.normal_name,
+                           dbsnp=args.dbsnp, cosmic=args.cosmic,
+                           germline=args.germline,
+                           panels_of_normals=args.panels_of_normals,
+                           contamination_table=args.contamination_table,
+                           extra_opts=args.extra_options, device=device)
+    elif cmd == "joint":
+        stages.run_joint(conf, args.ref, args.input_dir, args.output,
+                         force=args.force, extra_opts=args.extra_options)
+    elif cmd == "ug":
+        stages.run_ug(conf, args.ref, args.input, args.output,
+                      intervals=args.intervals, sample=args.sample_id,
+                      force=args.force, extra_opts=args.extra_options)
+    elif cmd == "depth":
+        # per-base output is on by default as in the reference (GATK
+        # DepthOfCoverage); -b/--omitBaseOutput turns it off
+        omit_base = args.omit_base if args.omit_base is not None else False
+        stages.run_depth(conf, args.ref, args.input, args.output,
+                         intervals=args.intervals, sample=args.sample_id,
+                         gene_list=args.gene_list,
+                         omit_base_output=omit_base,
+                         omit_intervals=args.omit_intervals,
+                         omit_sample_summary=args.omit_summary,
+                         force=args.force, extra_opts=args.extra_options)
+    elif cmd == "vcf_filter":
+        stages.run_vcf_filter(conf, args.ref, args.input, args.output,
+                              filter_expr=args.filter_expression,
+                              filter_name=args.filter_name,
+                              force=args.force,
+                              extra_opts=args.extra_options)
     elif cmd == "germline":
         stages.run_germline(conf, args.ref, args.output,
                             fastq1=args.fastq1, fastq2=args.fastq2,
@@ -240,6 +299,9 @@ def dispatch(args: argparse.Namespace, conf, device: torch.device) -> None:
                             produce_vcf=args.produce_vcf,
                             long_reads=args.long_reads, force=args.force,
                             extra_opts=args.extra_options, device=device)
+    elif cmd == "concat":
+        stages.run_concat(conf, args.input_dir, args.output,
+                          force=args.force)
     else:
         raise InvalidParam(f"unknown command {cmd!r}")
 
@@ -259,13 +321,16 @@ def main(argv: list[str] | None = None) -> int:
             return 0
         if argv[0] in NOT_PORTED:
             raise InvalidParam(f"{argv[0]}: not yet ported")
+        conf = config_mod.init()
+        if argv[0] == "conf":
+            print(conf.dump())
+            return 0
         if argv[0] not in COMMANDS:
             print_help()
             raise InvalidParam(f"unknown command {argv[0]!r}")
-        conf = config_mod.init()
         args = build_parser().parse_args(argv)
         try:
-            dispatch(args, conf, resolve_device(ns.device))
+            dispatch(args, conf, ns.device)
         finally:
             from .parallel.mesh import set_active_mesh, shutdown
             set_active_mesh(None)

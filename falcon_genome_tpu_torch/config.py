@@ -166,7 +166,9 @@ def build_option_table() -> dict[str, Option]:
         O("tpu.dist.process_id", int, 0,
           "this process's rank in the multi-host job", env_ok=True),
         O("tpu.dist.coordinator", str, "",
-          "coordinator address host:port for jax.distributed", env_ok=True),
+          "coordinator address host:port (or file://<path>: process 0 "
+          "binds a port and writes it there) for torch.distributed",
+          env_ok=True),
         O("tpu.batch.reads", int, 4096, "reads per device batch"),
         O("tpu.align.spill_mb", int, 512,
           "FASTQ inputs above this spill aligned records to per-bucket "

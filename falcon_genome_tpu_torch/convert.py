@@ -6,9 +6,9 @@ reference's (``falcon_genome_tpu``) classes into the port's, so that both
 packages compute from identical state:
 
 * parameter dataclasses (``SWParams``, ``SWBucket``, ``PairPolicy``,
-  ``PairHMMParams``, ``AlignerParams``, ``HTCParams``) field by field,
-  nested ones included; a reference ``backend`` field becomes the given
-  ``torch.device``;
+  ``PairHMMParams``, ``AlignerParams``, ``HTCParams``, ``Mutect2Params``)
+  field by field, nested ones included; a reference ``backend`` field
+  becomes the given ``torch.device``;
 * the genome (int8 codes), padded read tables and the BQSR
   recalibration table as tensors on a given device;
 * the reference's time-major example batch of its sharded steps
@@ -36,6 +36,7 @@ from .io.sam import SamRecord
 from .models.activeregion import ActiveRegionParams
 from .models.assembly import AssemblyParams
 from .models.haplotypecaller import HTCParams
+from .models.mutect2 import Mutect2Params
 from .ops.pairhmm import PairHMMParams
 from .ops.smith_waterman import PairPolicy, SWBucket, device_genome, \
     device_reads
@@ -83,6 +84,12 @@ def htc_params(ref, device: torch.device) -> HTCParams:
     """The reference's unused ``pairhmm`` field has no counterpart; the
     HaplotypeCaller's PairHMM bucket is sized per batch."""
     return _convert(ref, HTCParams, device)
+
+
+def mutect2_params(ref, device: torch.device) -> Mutect2Params:
+    """The reference's Mutect2 parameters, with the device its batches
+    run on."""
+    return _convert(ref, Mutect2Params, device)
 
 
 def genome_tensor(codes: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -1,14 +1,21 @@
 """Device selection: the one place a ``torch.device`` is made from a name.
 
 The entry point resolves the device once and passes it down; no module
-probes for a default.  Asking for ``cuda`` on a machine without a card is
-an error, never a silent move to the CPU.
+probes for a default.  Every ``device`` default of the package, in its
+parameter dataclasses and stage signatures, is :data:`DEFAULT_DEVICE`, the
+card: a caller that means the CPU says ``device=torch.device("cpu")``.
+Asking for ``cuda`` on a machine without a card is an error, never a
+silent move to the CPU.
 """
 from __future__ import annotations
 
 import torch
 
 from .utils.errors import InvalidParam
+
+
+# the device a call runs on when its caller names none
+DEFAULT_DEVICE = torch.device("cuda")
 
 
 class DeviceUnavailable(InvalidParam):

@@ -417,3 +417,22 @@ def query_vcf_positions(vcf_gz: str | Path, contig: str, start: int,
                 poss.append(p - 1)
                 lens.append(rl)
     return (np.asarray(poss, np.int64), np.asarray(lens, np.int64))
+
+
+def query_vcf_region(vcf_gz: str | Path, contig: str, start: int, end: int):
+    """Fetch VcfRecords overlapping a 1-based inclusive region using .tbi."""
+    from .vcf import record_from_line
+
+    idx = TabixIndex.read(str(vcf_gz) + ".tbi")
+    chunks = idx.query_chunks(contig, start - 1, end)
+    out = []
+    for u, v in chunks:
+        text = read_bgzf_at(vcf_gz, u, v).decode(errors="replace")
+        for line in text.splitlines():
+            if not line or line.startswith("#"):
+                continue
+            rec = record_from_line(line)
+            rec_end = int(rec.info.get("END", rec.pos + len(rec.ref) - 1))
+            if rec.contig == contig and rec.pos <= end and rec_end >= start:
+                out.append(rec)
+    return out

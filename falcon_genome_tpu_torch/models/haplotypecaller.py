@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE
 from ..io.dna import decode_seq, encode_seq
 from ..io.sam import CIGAR_D, CIGAR_M, SamRecord, cigar_ref_len
 from ..io.vcf import VcfRecord
@@ -104,7 +105,7 @@ class HTCParams:
     emit_gvcf: bool = False
     gcp: int = 10                    # gap-continuation penalty phred
     sample: str = "SAMPLE"
-    device: torch.device = torch.device("cpu")   # SW + PairHMM batches
+    device: torch.device = DEFAULT_DEVICE   # SW + PairHMM batches
 
 # hap-to-ref alignment uses GATK-ish heavier gap penalties to canonicalize
 # indels
@@ -140,7 +141,7 @@ def _hap_to_ref_events(haps: list[np.ndarray], ref: np.ndarray,
 def read_hap_likelihood_matrix(reads: list[SamRecord],
                                haps: list[np.ndarray],
                                rstart: int, rend: int, gcp: int = 10,
-                               device: torch.device = torch.device("cpu")
+                               device: torch.device = DEFAULT_DEVICE
                                ) -> tuple[np.ndarray, list[np.ndarray]]:
     """Clip reads to the region, batch PairHMM over read×hap pairs, floor.
 

@@ -38,6 +38,7 @@ import threading
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE
 from . import _build
 
 LOG10_2 = math.log10(2.0)
@@ -60,7 +61,7 @@ class PairHMMParams:
     """Read/haplotype bucket (inputs are padded to it) and the device."""
     max_read_len: int = 160
     max_hap_len: int = 512
-    device: torch.device = torch.device("cpu")
+    device: torch.device = DEFAULT_DEVICE
 
 
 def _phred_to_prob(q) -> torch.Tensor:

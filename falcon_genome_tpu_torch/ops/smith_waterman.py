@@ -42,6 +42,7 @@ import threading
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE
 from ..io import native_ext
 from ..io.sam import CIGAR_S, Cigar
 
@@ -70,7 +71,7 @@ class SWBucket:
     """Largest read and window a call accepts, and the device it runs on."""
     max_read_len: int = 160
     max_win_len: int = 416
-    device: torch.device = torch.device("cpu")
+    device: torch.device = DEFAULT_DEVICE
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,7 +13,10 @@ that shards over it (``ops.pairhmm``, ``bqsr.accumulate_table``,
 ``parallel.coordinate_order``, ``parallel.sharded``) runs one piece per
 grid cell and combines the pieces as the reference's collectives do.
 
-Several processes (``tpu.dist.*``) join one ``gloo`` process group.  The
+Several processes (``tpu.dist.*``) join one ``gloo`` process group, at a
+coordinator given as ``host:port`` or, for processes of one host, as
+``file://<path>``: process 0 then binds a free port itself and hands its
+number to the others in that file (:func:`distributed_initialize`).  The
 reference's cross-process mode needs only barriers and the shared file
 system: the runner splits a stage's tasks over the processes and every
 task runs under ``use_mesh(None)``.  Each process has its own device, so
@@ -25,7 +28,10 @@ import contextlib
 import dataclasses
 import datetime
 import logging
+import os
 import threading
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -117,10 +123,33 @@ def process_device(device: torch.device) -> torch.device:
     return device
 
 
+def _file_store(path: Path, world: int, rank: int) -> dist.TCPStore:
+    """The rendezvous store of ``file://<path>``: process 0 listens on a
+    port of its own choosing on ``localhost`` and writes the number to
+    ``path`` (whole, by rename); the others wait for the file and connect.
+    ``path`` must name a file that does not exist yet."""
+    if rank == 0:
+        store = dist.TCPStore("localhost", 0, world, True,
+                              timeout=DIST_TIMEOUT, wait_for_workers=False)
+        tmp = path.with_name(path.name + ".tmp")
+        tmp.write_text(str(store.port))
+        os.replace(tmp, path)
+        return store
+    deadline = time.monotonic() + DIST_TIMEOUT.total_seconds()
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no rendezvous port in {path}")
+        time.sleep(0.05)
+    return dist.TCPStore("localhost", int(path.read_text()), world, False,
+                         timeout=DIST_TIMEOUT)
+
+
 def distributed_initialize(coordinator: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None) -> None:
-    """Join the ``gloo`` process group at ``tcp://<coordinator>``.
+    """Join the ``gloo`` process group at ``tcp://<coordinator>``, or,
+    for a ``file://<path>`` coordinator, at the port that process 0 binds
+    and writes to ``<path>``.
 
     No-op for a single process.  A failed initialisation raises."""
     if not num_processes or num_processes <= 1:
@@ -128,10 +157,15 @@ def distributed_initialize(coordinator: str | None = None,
     if not coordinator:
         raise ValueError("tpu.dist.coordinator (host:port) is required "
                          "with tpu.dist.num_processes > 1")
+    world, rank = int(num_processes), int(process_id or 0)
+    if coordinator.startswith("file://"):
+        store = _file_store(Path(coordinator[len("file://"):]), world, rank)
+        dist.init_process_group("gloo", store=store, world_size=world,
+                                rank=rank, timeout=DIST_TIMEOUT)
+        return
     dist.init_process_group(
-        "gloo", init_method=f"tcp://{coordinator}",
-        world_size=int(num_processes), rank=int(process_id or 0),
-        timeout=DIST_TIMEOUT)
+        "gloo", init_method=f"tcp://{coordinator}", world_size=world,
+        rank=rank, timeout=DIST_TIMEOUT)
 
 
 # ---------------------------------------------------------------------------

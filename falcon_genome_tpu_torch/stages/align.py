@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..io import native_ext
 from ..io.bam import BamColumnsWriter, write_bam_columns
 from ..io.columns import F_FLAG, F_POS, F_TID, RecordColumns
@@ -246,8 +247,9 @@ def run_align(conf: Config, ref: str, output: str,
               num_buckets: int | None = None, merge: bool = True,
               long_reads: bool = False, force: bool = False,
               extra_opts: list[str] | None = None,
-              device: torch.device = torch.device("cpu")) -> list[str]:
+              device: torch.device = DEFAULT_DEVICE) -> list[str]:
     """Returns the list of written BAM paths (one per sample)."""
+    device = resolve_device(device)
     if long_reads:
         raise InvalidParam("--long-reads: not yet ported")
     xo = ExtraOpts(extra_opts)

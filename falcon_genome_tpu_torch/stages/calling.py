@@ -1,10 +1,11 @@
-"""Caller stage ``htc`` (HaplotypeCaller).
+"""Caller stages: ``htc`` (HaplotypeCaller), ``mutect2``, ``ug``.
 
-Port of ``falcon_genome_tpu/stages/calling.py``, the ``htc`` driver only
-(``mutect2`` and ``ug`` are not ported yet).  Mirrors the reference
-driver: per-contig-shard caller scatter over the gatk.ncontigs interval
+Port of ``falcon_genome_tpu/stages/calling.py``.  Mirrors the reference
+drivers: per-contig-shard caller scatter over the gatk.ncontigs interval
 plan, per-shard ``part-%06d.gvcf``/``.vcf`` outputs, then concat → bgzip
-(src/worker-htc.cpp:19-181).
+(src/worker-htc.cpp:19-181, worker-mutect2.cpp:17-277,
+worker-ug.cpp:16-160).  ``htc`` and ``mutect2`` run their device batches
+on ``device``; ``ug`` is host code.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from pathlib import Path
 import torch
 
 from ..config import Config
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..io.intervals import (
     Interval, intersect_intervals, read_interval_list)
 from ..io.vcf import (
@@ -23,6 +25,10 @@ from ..utils.common import check_output, get_contig_fname
 from ..utils.extraopts import ExtraOpts
 
 from ..models.haplotypecaller import HaplotypeCaller, HTCParams
+from ..models.mutect2 import (
+    Mutect2, Mutect2Params, SomaticResources, annotate_resources,
+    filter_mutect_calls)
+from ..models.ug import UGParams, call_pileup
 from ..parallel import is_primary, sync_processes
 from ..pipeline.runner import PipelineRunner, stage
 from .bamstages import BamInputSource
@@ -102,8 +108,9 @@ def run_htc(conf: Config, ref: str, input_path: str, output: str,
             produce_vcf: bool = False, intervals: str | None = None,
             sample: str = "SAMPLE", force: bool = False,
             extra_opts: list[str] | None = None,
-            device: torch.device = torch.device("cpu")) -> str:
+            device: torch.device = DEFAULT_DEVICE) -> str:
     """HaplotypeCaller scatter → per-shard gVCF parts → merged vcf.gz."""
+    device = resolve_device(device)
     emit_gvcf = not produce_vcf or str(output).endswith(
         (".g.vcf", ".g.vcf.gz", ".gvcf", ".gvcf.gz"))
     output = check_output(output, force)
@@ -151,4 +158,141 @@ def run_htc(conf: Config, ref: str, input_path: str, output: str,
         concat_vcfs(parts, output, sort=False)  # shards in genome order
     sync_processes("htc:gather")
     log.info("htc → %s", output)
+    return output
+
+
+def run_mutect2(conf: Config, ref: str, tumor_path: str, output: str,
+                normal_path: str | None = None,
+                intervals: str | None = None,
+                run_filter: bool = True, force: bool = False,
+                tumor_name: str = "TUMOR", normal_name: str = "NORMAL",
+                dbsnp: list[str] | None = None,
+                cosmic: list[str] | None = None,
+                germline: str | None = None,
+                panels_of_normals: str | None = None,
+                contamination_table: str | None = None,
+                extra_opts: list[str] | None = None,
+                device: torch.device = DEFAULT_DEVICE) -> str:
+    """Mutect2 scatter → per-shard VCF parts (annotated against the
+    resources, filtered unless ``run_filter`` is off) → merged VCF."""
+    device = resolve_device(device)
+    output = check_output(output, force)
+    fa = load_fasta(ref)
+    t_src = BamInputSource.from_conf(conf, tumor_path)
+    n_src = (BamInputSource.from_conf(conf, normal_path)
+             if normal_path else None)
+    shards = _shard_plan(conf, fa, intervals)
+    xo = ExtraOpts(extra_opts)
+    params = Mutect2Params(tumor_sample=tumor_name,
+                           normal_sample=normal_name, device=device)
+    params.tlod_threshold = xo.get_float(
+        "--tumor_lod", "-tumor-lod-to-emit", "--tumor-lod-to-emit",
+        default=params.tlod_threshold)
+    params.nlod_threshold = xo.get_float(
+        "--normal_lod", "--normal-lod", default=params.nlod_threshold)
+    params.min_mapq = xo.get_int(
+        "-mmq", "--min_mapping_quality_score",
+        "--minimum-mapping-quality", default=params.min_mapq)
+    xo.warn_unused("mutect2")
+    # resource surface (Mutect2Worker.cpp:124-168, filter :66-68)
+    res = SomaticResources.load(
+        pon=panels_of_normals, germline=germline, dbsnp=dbsnp,
+        cosmic=cosmic, contamination_table=contamination_table)
+    m2 = Mutect2(params)
+    samples = [tumor_name] + ([normal_name] if normal_path else [])
+    vcf_header = _vcf_header(fa, samples)
+    vcf_header.meta.append(
+        '##INFO=<ID=TLOD,Number=A,Type=Float,Description='
+        '"Tumor log-odds of variant">')
+    vcf_header.meta.append(
+        '##INFO=<ID=NLOD,Number=A,Type=Float,Description='
+        '"Normal log-odds of being reference">')
+    if res.pon:
+        vcf_header.meta.append(
+            '##INFO=<ID=PON,Number=0,Type=Flag,Description='
+            '"site found in panel of normals">')
+    if res.germline:
+        vcf_header.meta.append(
+            '##INFO=<ID=POPAF,Number=A,Type=Float,Description='
+            '"negative log10 population allele frequency">')
+    part_dir = Path(output).parent / (Path(output).name + ".parts")
+    part_dir.mkdir(parents=True, exist_ok=True)
+    part_paths = [get_contig_fname(part_dir, i, "vcf")
+                  for i in range(len(shards))]
+
+    def one(shard, idx):
+        recs = []
+        for iv in shard:
+            codes = fa.contig_codes(iv.contig)
+            a0 = max(0, iv.start - 1 - SHARD_PAD)
+            a1 = min(len(codes), iv.end + SHARD_PAD)
+            piv = Interval(iv.contig, a0 + 1, a1)
+            t_sub = t_src.records_for([piv])
+            n_sub = n_src.records_for([piv]) if n_src is not None else None
+            iv_recs = m2.call_interval(
+                t_sub, n_sub, codes, iv.contig, a0, a1,
+                emit_start=iv.start - 1, emit_end=iv.end)
+            recs.extend(annotate_resources(
+                iv_recs, iv.contig, iv.start - 1, iv.end, res))
+        if run_filter:
+            recs = filter_mutect_calls(
+                recs, contamination=res.contamination)
+        return _write_part(part_paths[idx], vcf_header, recs)
+
+    runner = PipelineRunner.from_conf("Mutect2", conf, force=force)
+    tasks = [(lambda s=s, i=i: one(s, i)) for i, s in enumerate(shards)]
+    (parts,) = runner.run([stage(
+        "Mutect2", tasks, outputs=part_paths,
+        nprocs=conf.get("gatk.mutect2.nprocs"))]).values()
+    if is_primary():
+        concat_vcfs(parts, output, sort=False)
+    sync_processes("mutect2:gather")
+    log.info("mutect2 → %s", output)
+    return output
+
+
+def run_ug(conf: Config, ref: str, input_path: str, output: str,
+           intervals: str | None = None, sample: str = "SAMPLE",
+           force: bool = False,
+           extra_opts: list[str] | None = None) -> str:
+    output = check_output(output, force)
+    fa = load_fasta(ref)
+    src = BamInputSource.from_conf(conf, input_path)
+    shards = _shard_plan(conf, fa, intervals)
+    xo = ExtraOpts(extra_opts)
+    ug_params = UGParams()
+    ug_params.min_call_qual = xo.get_float(
+        "-stand_call_conf",
+        "--standard_min_confidence_threshold_for_calling",
+        default=ug_params.min_call_qual)
+    ug_params.min_base_qual = xo.get_int(
+        "-mbq", "--min_base_quality_score", default=ug_params.min_base_qual)
+    ug_params.min_mapq = xo.get_int(
+        "-mmq", "--min_mapping_quality_score", default=ug_params.min_mapq)
+    xo.warn_unused("ug")
+    vcf_header = _vcf_header(fa, [sample])
+    part_dir = Path(output).parent / (Path(output).name + ".parts")
+    part_dir.mkdir(parents=True, exist_ok=True)
+    part_paths = [get_contig_fname(part_dir, i, "vcf")
+                  for i in range(len(shards))]
+
+    def one(shard, idx):
+        recs = []
+        for iv in shard:
+            codes = fa.contig_codes(iv.contig)
+            sub = src.records_for([iv])
+            recs.extend(call_pileup(sub, codes, iv.contig,
+                                    iv.start - 1, iv.end, ug_params))
+        return _write_part(part_paths[idx], vcf_header, recs)
+
+    runner = PipelineRunner.from_conf("Unified Genotyper", conf,
+                                      force=force)
+    tasks = [(lambda s=s, i=i: one(s, i)) for i, s in enumerate(shards)]
+    (parts,) = runner.run([stage(
+        "UnifiedGenotyper", tasks, outputs=part_paths,
+        nprocs=conf.get("gatk.ug.nprocs"))]).values()
+    if is_primary():
+        concat_vcfs(parts, output, sort=False)
+    sync_processes("ug:gather")
+    log.info("ug → %s", output)
     return output

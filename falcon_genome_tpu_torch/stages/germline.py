@@ -24,6 +24,7 @@ from pathlib import Path
 import torch
 
 from ..config import Config
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..utils.common import check_output
 
 from .align import run_align
@@ -53,7 +54,8 @@ def run_germline(conf: Config, ref: str, output_vcf: str,
                  work_dir: str | None = None, long_reads: bool = False,
                  force: bool = False,
                  extra_opts: list[str] | None = None,
-                 device: torch.device = torch.device("cpu")) -> str:
+                 device: torch.device = DEFAULT_DEVICE) -> str:
+    device = resolve_device(device)
     # validate the final output BEFORE any alignment work (the reference
     # checks outputs in Worker::check() ahead of execution —
     # src/common.cpp:75-114); run_htc re-checks, by then it's gone/allowed

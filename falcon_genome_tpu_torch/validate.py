@@ -7,7 +7,9 @@ SNPs (about one per kb) and short indels (1-10 bp, half het, half hom);
 two haplotypes; 150 bp read pairs with a normal insert size, a share of
 duplicate fragments, and per-base qualities with substitution errors
 drawn from them.  It writes ``ref.fa`` and gzip-free ``reads_1.fastq`` /
-``reads_2.fastq`` and returns the truth.
+``reads_2.fastq`` and returns the truth.  :func:`simulate_tumor_normal`
+makes a normal and a tumor sample from one such genome, the tumor with
+somatic SNVs of its own at a given allele fraction.
 """
 from __future__ import annotations
 
@@ -36,6 +38,23 @@ class Sample:
     indels: list[tuple[int, str, str]]  # (1-based VCF pos, REF, ALT)
 
 
+@dataclasses.dataclass
+class Reads:
+    fastq1: str
+    fastq2: str
+    n_pairs: int
+
+
+@dataclasses.dataclass
+class TumorNormal:
+    ref: str
+    tumor: Reads
+    normal: Reads
+    snps: dict[int, int]              # germline: 0-based pos → alt code
+    indels: list[tuple[int, str, str]]  # germline (1-based VCF pos, REF, ALT)
+    somatic: dict[int, int]           # tumor only: 0-based pos → alt code
+
+
 def host_extension_available() -> bool:
     """Whether the fgio C++ host extension (``native/``) built here."""
     return native_ext.available()
@@ -51,24 +70,23 @@ def _write_fastq(path: Path, names: list[str], codes: np.ndarray,
                     + b"\n+\n" + qual[i].tobytes() + b"\n")
 
 
-def simulate_sample(out_dir, genome_len: int, coverage: float, seed: int,
-                    read_len: int = 150, insert_mean: int = 350,
-                    insert_sd: int = 30, snp_per_kb: float = 1.0,
-                    n_indels: int = 100, error_rate: float = 0.005,
-                    dup_frac: float = 0.05, contig: str = "chr1") -> Sample:
-    out = Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    rng = np.random.default_rng(seed)
+def _germline(rng, genome_len: int, snp_per_kb: float, n_indels: int,
+              n_other: int = 0):
+    """A random genome with het SNPs (``snp_per_kb``) and short indels
+    (1-10 bp, half het, half hom), all at least 30 bp apart and 500 bp
+    from the ends: (genome, per-haplotype edits, snps, indels, other
+    sites).  ``n_other`` more sites, as far from the variants, are drawn
+    for the caller to use."""
     genome = rng.integers(0, 4, genome_len).astype(np.uint8)
-
-    # variant sites at least 30 bp apart and 500 bp from the ends
     n_snp = int(genome_len * snp_per_kb / 1000)
     cand = np.sort(rng.choice(np.arange(500, genome_len - 500),
-                              size=n_snp + n_indels + 200, replace=False))
+                              size=n_snp + n_indels + n_other + 200,
+                              replace=False))
     keep = np.concatenate([[True], np.diff(cand) >= 30])
     cand = rng.permutation(cand[keep])
     snp_pos = np.sort(cand[:n_snp])
     indel_pos = np.sort(cand[n_snp:n_snp + n_indels])
+    other = np.sort(cand[n_snp + n_indels:n_snp + n_indels + n_other])
 
     # per haplotype: list of (pos, ref_len, alt codes) edits
     edits: list[list[tuple[int, int, np.ndarray]]] = [[], []]
@@ -92,20 +110,33 @@ def simulate_sample(out_dir, genome_len: int, coverage: float, seed: int,
         indels.append((p + 1, decode_seq(ref_s), decode_seq(alt_s)))
         for h in ((0, 1) if k % 4 < 2 else (int(rng.integers(0, 2)),)):
             edits[h].append((p, len(ref_s), alt_s))
-    haps = []
-    for h in range(2):
-        parts, at = [], 0
-        for p, rlen, alt in sorted(edits[h], key=lambda e: e[0]):
-            parts.append(genome[at:p])
-            parts.append(alt)
-            at = p + rlen
-        parts.append(genome[at:])
-        haps.append(np.concatenate(parts))
+    return genome, edits, snps, indels, other
 
-    # fragments: a share of them duplicates of earlier ones
+
+def _apply(genome: np.ndarray, edits) -> np.ndarray:
+    """The haplotype that carries ``edits`` (pos, ref_len, alt codes)."""
+    parts, at = [], 0
+    for p, rlen, alt in sorted(edits, key=lambda e: e[0]):
+        parts.append(genome[at:p])
+        parts.append(alt)
+        at = p + rlen
+    parts.append(genome[at:])
+    return np.concatenate(parts)
+
+
+def _reads(rng, out: Path, stem: str, prefix: str, haps: list[np.ndarray],
+           hap_p: np.ndarray | None, coverage: float, genome_len: int,
+           read_len: int, insert_mean: int, insert_sd: int,
+           error_rate: float, dup_frac: float) -> tuple[str, str, int]:
+    """Read pairs from ``haps`` (drawn uniformly from the first two, or
+    by ``hap_p``) with a normal insert size, a share of duplicate
+    fragments, and per-base qualities with substitution errors drawn from
+    them; written as ``<stem>_1.fastq`` / ``<stem>_2.fastq``, the reads
+    named ``<prefix><i>``."""
     n_pairs = int(coverage * genome_len / (2 * read_len))
     n_uniq = int(n_pairs * (1 - dup_frac))
-    hap_of = rng.integers(0, 2, n_uniq)
+    hap_of = (rng.integers(0, 2, n_uniq) if hap_p is None
+              else rng.choice(len(haps), n_uniq, p=hap_p))
     ins = np.clip(np.rint(rng.normal(insert_mean, insert_sd, n_uniq)),
                   read_len, 2 * insert_mean).astype(np.int64)
     start = (rng.random(n_uniq)
@@ -121,7 +152,7 @@ def simulate_sample(out_dir, genome_len: int, coverage: float, seed: int,
     offs = np.arange(read_len)
     r1 = np.empty((n_pairs, read_len), np.uint8)
     r2 = np.empty((n_pairs, read_len), np.uint8)
-    for h in range(2):
+    for h in range(len(haps)):
         m = hap_of == h
         left = haps[h][start[m, None] + offs]
         right = haps[h][(start[m] + ins[m] - read_len)[:, None] + offs]
@@ -143,12 +174,72 @@ def simulate_sample(out_dir, genome_len: int, coverage: float, seed: int,
         return reads, q.astype(np.uint8)
 
     (r1, q1), (r2, q2) = sequence(r1), sequence(r2)
-    names = [f"sim{i}" for i in range(n_pairs)]
+    names = [f"{prefix}{i}" for i in range(n_pairs)]
+    fq1, fq2 = out / f"{stem}_1.fastq", out / f"{stem}_2.fastq"
+    _write_fastq(fq1, names, r1, q1)
+    _write_fastq(fq2, names, r2, q2)
+    return str(fq1), str(fq2), n_pairs
+
+
+def simulate_sample(out_dir, genome_len: int, coverage: float, seed: int,
+                    read_len: int = 150, insert_mean: int = 350,
+                    insert_sd: int = 30, snp_per_kb: float = 1.0,
+                    n_indels: int = 100, error_rate: float = 0.005,
+                    dup_frac: float = 0.05, contig: str = "chr1") -> Sample:
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    genome, edits, snps, indels, _ = _germline(rng, genome_len, snp_per_kb,
+                                               n_indels)
+    haps = [_apply(genome, e) for e in edits]
     write_fasta(out / "ref.fa", {contig: decode_seq(genome)})
-    _write_fastq(out / "reads_1.fastq", names, r1, q1)
-    _write_fastq(out / "reads_2.fastq", names, r2, q2)
-    return Sample(str(out / "ref.fa"), str(out / "reads_1.fastq"),
-                  str(out / "reads_2.fastq"), n_pairs, snps, indels)
+    fq1, fq2, n_pairs = _reads(rng, out, "reads", "sim", haps, None,
+                               coverage, genome_len, read_len, insert_mean,
+                               insert_sd, error_rate, dup_frac)
+    return Sample(str(out / "ref.fa"), fq1, fq2, n_pairs, snps, indels)
+
+
+def simulate_tumor_normal(out_dir, genome_len: int, seed: int,
+                          normal_coverage: float = 30.0,
+                          tumor_coverage: float = 60.0,
+                          somatic_per_kb: float = 0.2,
+                          somatic_af: float = 0.3, read_len: int = 150,
+                          insert_mean: int = 350, insert_sd: int = 30,
+                          snp_per_kb: float = 1.0, n_indels: int = 100,
+                          error_rate: float = 0.005, dup_frac: float = 0.05,
+                          contig: str = "chr1") -> TumorNormal:
+    """A tumor/normal pair over one genome: the germline variants of
+    :func:`simulate_sample` in both samples, and somatic SNVs
+    (``somatic_per_kb``, at least 30 bp from every other variant) in the
+    tumor only, each on one haplotype, carried by a share ``2 *
+    somatic_af`` of that haplotype's tumor fragments, so that its allele
+    fraction is ``somatic_af``.  Writes ``ref.fa``, ``normal_{1,2}.fastq``
+    and ``tumor_{1,2}.fastq``."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n_som = int(genome_len * somatic_per_kb / 1000)
+    genome, edits, snps, indels, som_pos = _germline(
+        rng, genome_len, snp_per_kb, n_indels, n_som)
+    somatic: dict[int, int] = {}
+    som_edits: list[list] = [list(edits[0]), list(edits[1])]
+    for p in som_pos:
+        alt = (int(genome[p]) + int(rng.integers(1, 4))) % 4
+        somatic[int(p)] = alt
+        som_edits[int(rng.integers(0, 2))].append(
+            (int(p), 1, np.array([alt], np.uint8)))
+    haps = [_apply(genome, e) for e in edits + som_edits]
+    write_fasta(out / "ref.fa", {contig: decode_seq(genome)})
+    common = (genome_len, read_len, insert_mean, insert_sd, error_rate,
+              dup_frac)
+    normal = _reads(rng, out, "normal", "normal", haps[:2], None,
+                    normal_coverage, *common)
+    carried = 2 * somatic_af
+    tumor = _reads(rng, out, "tumor", "tumor", haps,
+                   np.array([1 - carried, 1 - carried, carried, carried])
+                   / 2, tumor_coverage, *common)
+    return TumorNormal(str(out / "ref.fa"), Reads(*tumor), Reads(*normal),
+                       snps, indels, somatic)
 
 
 def score_calls(vcf_path: str, sample: Sample) -> dict[str, float]:
@@ -182,6 +273,31 @@ def score_calls(vcf_path: str, sample: Sample) -> dict[str, float]:
         snp_sensitivity=len(snp_hit) / max(1, len(sample.snps)),
         indel_sensitivity=len(indel_hit) / max(1, len(sample.indels)),
         precision=good / max(1, len(calls)))
+
+
+def score_somatic(vcf_path: str, tn: TumorNormal) -> dict[str, float]:
+    """Somatic SNV sensitivity and precision of a ``mutect2`` VCF against
+    the planted truth, over the records with ``FILTER=PASS``; and how many
+    records lie at a germline variant site (a SNP's position, or within
+    10 bp of an indel), in all and with ``FILTER=PASS``."""
+    _, recs = read_vcf(vcf_path)
+    passed = [r for r in recs if r.filter == "PASS"]
+    hit = {r.pos - 1 for r in passed
+           if len(r.ref) == 1 and len(r.alts[0]) == 1
+           and tn.somatic.get(r.pos - 1) == "ACGT".find(r.alts[0])}
+    indel_pos = np.array(sorted(p for p, _, _ in tn.indels), np.int64)
+
+    def germline(r) -> bool:
+        near = (indel_pos.size and
+                np.abs(indel_pos - r.pos).min() <= 10)
+        return (r.pos - 1) in tn.snps or bool(near)
+    return dict(
+        n_records=len(recs), n_pass=len(passed),
+        n_somatic=len(tn.somatic),
+        somatic_sensitivity=len(hit) / max(1, len(tn.somatic)),
+        somatic_precision=len(hit) / max(1, len(passed)),
+        germline_sites_emitted=sum(germline(r) for r in recs),
+        germline_sites_pass=sum(germline(r) for r in passed))
 
 
 def bam_covariates(bam_path: str, ref_path: str):

@@ -230,3 +230,96 @@ def test_port_runs_with_jax_and_the_jax_package_refused():
     n = int(res.stdout.split("ISOLATED")[1])
     assert n == len([p for p in PKG.rglob("*.py")
                      if p.name != "__init__.py" or p.parent != PKG])
+
+
+def _device_defaults() -> dict[str, object]:
+    """Every default of a ``device`` parameter of a public function or
+    method, or of a dataclass field, in the port, by qualified name."""
+    import importlib
+    import inspect
+    import pkgutil
+    found = {}
+    for m in pkgutil.walk_packages(falcon_genome_tpu_torch.__path__,
+                                   "falcon_genome_tpu_torch."):
+        mod = importlib.import_module(m.name)
+        for name, obj in vars(mod).items():
+            if getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            fns = [(name, obj)]
+            if inspect.isclass(obj):
+                if dataclasses.is_dataclass(obj):
+                    for f in dataclasses.fields(obj):
+                        if f.name == "device":
+                            found[f"{m.name}.{name}"] = f.default
+                    continue
+                fns = [(f"{name}.{k}", v) for k, v in vars(obj).items()
+                       if inspect.isfunction(v)]
+            for qual, fn in fns:
+                leaf = qual.split(".")[-1]
+                if not callable(fn) or (leaf.startswith("_")
+                                        and leaf != "__init__"):
+                    continue
+                try:
+                    par = inspect.signature(fn).parameters.get("device")
+                except (TypeError, ValueError):
+                    continue
+                if par is not None and par.default is not par.empty:
+                    found[f"{m.name}.{qual}"] = par.default
+    return found
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """Every dataclass and ``run_*`` (and every other signature) of the
+    port that takes a device defaults to the card.  Without a card a call
+    that takes the default raises, writes no output and never runs the
+    plain versions."""
+    from falcon_genome_tpu_torch.device import DEFAULT_DEVICE
+    defaults = _device_defaults()
+    for name in ("ops.smith_waterman.SWBucket", "ops.pairhmm.PairHMMParams",
+                 "models.haplotypecaller.HTCParams",
+                 "models.mutect2.Mutect2Params", "stages.align.run_align",
+                 "stages.calling.run_htc", "stages.calling.run_mutect2",
+                 "stages.germline.run_germline",
+                 "aligner.AlignerEngine.__init__",
+                 "models.haplotypecaller.read_hap_likelihood_matrix"):
+        assert f"falcon_genome_tpu_torch.{name}" in defaults, name
+    assert DEFAULT_DEVICE == torch.device("cuda")
+    wrong = {k: v for k, v in defaults.items() if v != DEFAULT_DEVICE}
+    assert not wrong, wrong
+    if torch.cuda.is_available():
+        return
+    from falcon_genome_tpu_torch.config import Config, Machine
+    from falcon_genome_tpu_torch.device import DeviceUnavailable
+    from falcon_genome_tpu_torch.io.bam import write_bam
+    from falcon_genome_tpu_torch.io.dna import decode_seq
+    from falcon_genome_tpu_torch.io.fasta import write_fasta
+    from falcon_genome_tpu_torch.io.sam import (
+        SamHeader, SamRecord, cigar_from_str)
+    from falcon_genome_tpu_torch.stages import run_htc
+    rng = np.random.default_rng(0)
+    ref = rng.integers(0, 4, 2000).astype(np.uint8)
+    write_fasta(tmp_path / "ref.fa", {"chr1": decode_seq(ref)})
+    recs = [SamRecord(f"r{i}", 0, 0, p, 60, cigar_from_str("100M"),
+                      seq=decode_seq(ref[p:p + 100]), qual="I" * 100)
+            for i, p in enumerate(range(0, 1900, 10))]
+    write_bam(tmp_path / "in.bam", SamHeader(contigs=[("chr1", 2000)]),
+              recs)
+    conf = Config(machine=Machine(2, 4), environ={}, load_files=False)
+    conf.set("log_dir", str(tmp_path / "log"))
+    out = tmp_path / "calls.vcf"
+    before = {p.name for p in tmp_path.iterdir()}
+    with pytest.raises(DeviceUnavailable, match="no CUDA device"):
+        run_htc(conf, str(tmp_path / "ref.fa"), str(tmp_path / "in.bam"),
+                str(out), produce_vcf=True)
+    assert not out.exists()
+    assert {p.name for p in tmp_path.iterdir()} == before
+    # below the stages: a bucket or parameter set left at its default
+    # puts its first tensor on the card, which raises here
+    reads = rng.integers(0, 4, (4, 64)).astype(np.uint8)
+    lens = np.full(4, 64, np.int32)
+    with pytest.raises((RuntimeError, AssertionError)):
+        smith_waterman.sw_extend_batch(reads, lens, reads, lens,
+                                       SWParams(), smith_waterman.SWBucket())
+    with pytest.raises((RuntimeError, AssertionError)):
+        pairhmm.pairhmm_logp(reads, np.full((4, 64), 30, np.uint8), 45, 45,
+                             10, lens, reads, lens)

@@ -9,15 +9,16 @@ PairHMM within 1e-5 of the reference's (as ``tests/test_parallel.py``);
 tables, orders and VCF records exactly equal.
 
 Run as a script, this file is the worker of the two-process tests:
-``python tests/test_torch_parallel.py {htc,baserecal} <pid> <host:port>
-<work dir>``.
+``python tests/test_torch_parallel.py {htc,baserecal,mutect2} <pid>
+<coordinator> <work dir>``, the coordinator ``host:port`` or
+``file://<path>`` (the tests' own: process 0 binds a free port and
+writes it there).
 """
 import logging
 import os
-import re
-import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -173,7 +174,7 @@ class TestActiveMeshPipeline:
         gcp = np.full((B, R), 10, np.uint8) if planes else 10
         rl = rng.integers(8, R + 1, B).astype(np.int32)
         hl = rng.integers(8, H + 1, B).astype(np.int32)
-        params = PairHMMParams(max_read_len=R, max_hap_len=H)
+        params = PairHMMParams(max_read_len=R, max_hap_len=H, device=CPU)
         with TM.use_mesh(None):
             single = pairhmm_logp(reads, q, q, q, gcp, rl, haps, hl, params)
         with TM.use_mesh(mesh):
@@ -396,12 +397,6 @@ class TestDistributedSort:
 
 # ---- stages split over two gloo processes ---------------------------------
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _conf(work: Path, ncontigs: int, tag: str) -> Config:
     conf = Config(machine=Machine(2, 4), environ={}, load_files=False)
     conf.set("gatk.ncontigs", ncontigs)
@@ -410,39 +405,25 @@ def _conf(work: Path, ncontigs: int, tag: str) -> Config:
     return conf
 
 
-# a worker that could not reach the rendezvous: the port was taken between
-# _free_port() closing its socket and process 0 binding it (another test
-# process can get the same port from the kernel), or the peer died first
-_RENDEZVOUS_ERROR = re.compile(
-    r"address already in use|EADDRINUSE|connection (refused|reset)|"
-    r"failed to (bind|connect|listen)|connect\(\) timed out|"
-    r"timed out waiting for clients|DistNetworkError", re.I)
-
-
 def _run_workers(kind: str, work: Path, cli: bool = False) -> list[str]:
-    """Two processes of this file's worker, or of the port's CLI.  When a
-    worker fails at the rendezvous, before any process has split its
-    tasks, the pair runs once more on a fresh port."""
-    for attempt in (0, 1):
-        codes, outs = _start_workers(kind, work, cli)
-        lost_port = any(rc != 0 and _RENDEZVOUS_ERROR.search(out)
-                        for rc, out in zip(codes, outs)) and \
-            not any("local to process" in out for out in outs)
-        if not (lost_port and attempt == 0):
-            break
+    """Two processes of this file's worker, or of the port's CLI; both
+    must exit 0 (their last lines are reported otherwise)."""
+    codes, outs = _start_workers(kind, work, cli)
     tails = "\n".join(f"--- process {i} (exit {rc}), last lines:\n"
                       + "\n".join(out.splitlines()[-25:])
                       for i, (rc, out) in enumerate(zip(codes, outs)))
     for i, (rc, out) in enumerate(zip(codes, outs)):
-        assert rc == 0, f"process {i} failed (attempt {attempt + 1}):\n{tails}"
+        assert rc == 0, f"process {i} failed:\n{tails}"
         assert cli or f"DIST{kind.upper()} {i} OK" in out, tails
     return outs
 
 
 def _start_workers(kind: str, work: Path, cli: bool
                    ) -> tuple[list[int], list[str]]:
-    """(exit codes, outputs) of one run of the two processes."""
-    coord = f"localhost:{_free_port()}"
+    """(exit codes, outputs) of one run of the two processes.  They meet
+    through a file of the work directory: process 0 binds a free port
+    itself and writes its number there."""
+    coord = f"file://{work / f'rendezvous-{time.time_ns()}'}"
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
 
     def argv(i):
@@ -523,8 +504,42 @@ def _bqsr_world(work: Path) -> None:
         recs)
 
 
+def _m2_world(work: Path) -> None:
+    """12 kb at 20x; a tumor of 2400 100 bp reads, half of them carrying
+    somatic SNVs at 3001 and 9001, and a normal of reference reads."""
+    from falcon_genome_tpu_torch.io.bam import write_bam
+    from falcon_genome_tpu_torch.io.dna import decode_seq
+    from falcon_genome_tpu_torch.io.fasta import write_fasta
+    from falcon_genome_tpu_torch.io.sam import (
+        SamHeader, SamRecord, cigar_from_str)
+    rng = np.random.default_rng(21)
+    G, L = 12_000, 100
+    ref = rng.integers(0, 4, G).astype(np.uint8)
+    tum = ref.copy()
+    for p in (3000, 9000):
+        tum[p] = (tum[p] + 1) % 4
+    header = SamHeader(contigs=[("chr1", G)])
+    for name, hap in (("t", tum), ("n", ref)):
+        recs = []
+        for i in range(2400):
+            pos = int(rng.integers(0, G - L))
+            src = hap if i % 2 else ref
+            flag = (0x10 if i % 4 >= 2 else 0) | (0x80 if i % 8 >= 4 else 0)
+            recs.append(SamRecord(
+                f"{name}{i}", flag, 0, pos, 60, cigar_from_str(f"{L}M"),
+                seq=decode_seq(src[pos:pos + L]), qual="I" * L))
+        recs.sort(key=lambda r: r.pos)
+        write_bam(work / f"{name}.bam", header, recs)
+    write_fasta(work / "ref.fa", {"chr1": decode_seq(ref)})
+
+
 def _run_stage(kind: str, conf: Config, work: Path, out: Path) -> None:
-    if kind == "htc":
+    if kind == "mutect2":
+        from falcon_genome_tpu_torch.stages.calling import run_mutect2
+        run_mutect2(conf, str(work / "ref.fa"), str(work / "t.bam"),
+                    str(out), normal_path=str(work / "n.bam"), force=True,
+                    device=CPU)
+    elif kind == "htc":
         from falcon_genome_tpu_torch.stages.calling import run_htc
         run_htc(conf, str(work / "ref.fa"), str(work / "in.bam"), str(out),
                 produce_vcf=True, force=True, device=CPU)
@@ -603,33 +618,54 @@ class TestMultiProcessStage:
                                   getattr(expect, name)), name
 
 
-    @pytest.mark.parametrize("first,runs", [
-        ("RuntimeError: ... Address already in use", 2),
-        ("ValueError: a fault of the stage itself", 1),
-        ("(3 local to process 1/2)\nConnection reset by peer", 1)])
-    def test_workers_rerun_only_after_a_lost_port(self, tmp_path,
-                                                  monkeypatch, first, runs):
-        """A pair that fails at the rendezvous, before any task split, runs
-        once more on a fresh port; any other failure is reported at once,
-        with both processes' last lines."""
+    def test_two_process_mutect2_stage(self, tmp_path):
+        """The mutect2 scatter (tumor and normal, 8 shards) splits over two
+        gloo processes; process 0's gathered VCF is record-equal to a
+        single-process run."""
+        from falcon_genome_tpu_torch.io.vcf import read_vcf
+        _m2_world(tmp_path)
+        single = tmp_path / "single.vcf"
+        _run_stage("mutect2", _conf(tmp_path, 8, "1p"), tmp_path, single)
+        _, expect = read_vcf(str(single))
+        outs = _run_workers("mutect2", tmp_path)
+        for out in outs:
+            assert "(4 local to process" in out
+        _, got = read_vcf(str(tmp_path / "dist.vcf"))
+        assert [vars(r) for r in got] == [vars(r) for r in expect]
+        assert {r.pos for r in got if r.filter == "PASS"} >= {3001, 9001}
+
+    @pytest.mark.parametrize("first", [
+        "ValueError: a fault of the stage itself",
+        "(3 local to process 1/2)\nConnection reset by peer"])
+    def test_a_failed_worker_is_reported_at_once(self, tmp_path,
+                                                 monkeypatch, first):
+        """A failed process fails the pair on its first run, with both
+        processes' last lines (no rerun: the rendezvous cannot lose its
+        port)."""
         started = []
 
         def start(kind, work, cli):
             started.append(kind)
-            if len(started) == 1:
-                return [0, 1], ["DISTHTC 0 OK", first]
-            return [0, 0], ["DISTHTC 0 OK", "DISTHTC 1 OK"]
+            return [0, 1], ["DISTHTC 0 OK", first]
 
         monkeypatch.setattr(sys.modules[__name__], "_start_workers", start)
-        if runs == 2:
-            assert _run_workers("htc", tmp_path) == ["DISTHTC 0 OK",
-                                                     "DISTHTC 1 OK"]
-        else:
-            with pytest.raises(AssertionError, match="process 1 failed") as e:
-                _run_workers("htc", tmp_path)
-            assert "process 0 (exit 0)" in str(e.value)
-            assert first.splitlines()[-1] in str(e.value)
-        assert len(started) == runs
+        with pytest.raises(AssertionError, match="process 1 failed") as e:
+            _run_workers("htc", tmp_path)
+        assert "process 0 (exit 0)" in str(e.value)
+        assert first.splitlines()[-1] in str(e.value)
+        assert len(started) == 1
+
+    def test_file_rendezvous_peer_waits_for_the_port(self, tmp_path,
+                                                     monkeypatch):
+        """A peer of a ``file://`` coordinator waits for process 0's port
+        file, and gives up at the timeout without joining."""
+        import datetime
+        monkeypatch.setattr(TM, "DIST_TIMEOUT",
+                            datetime.timedelta(seconds=0.3))
+        path = tmp_path / "rendezvous"
+        with pytest.raises(TimeoutError, match="no rendezvous port"):
+            TM.distributed_initialize(f"file://{path}", 2, 1)
+        assert TM.process_info() == (0, 1)
 
 
 _NO_JAX = r"""
@@ -664,13 +700,13 @@ def _worker(kind: str, pid: int, coordinator: str, work: Path) -> int:
     """One of the two processes: the SAME stage call in each; the runner
     splits the tasks and process 0 gathers."""
     logging.basicConfig(level=logging.INFO, stream=sys.stdout)
-    conf = _conf(work, 8 if kind == "htc" else 6, str(pid))
+    conf = _conf(work, 6 if kind == "baserecal" else 8, str(pid))
     conf.set("tpu.dist.num_processes", 2)
     conf.set("tpu.dist.process_id", pid)
     conf.set("tpu.dist.coordinator", coordinator)
     assert TM.initialize_from_conf(conf, CPU) is None
     assert TM.process_info() == (pid, 2)
-    out = work / ("dist.vcf" if kind == "htc" else "dist.recal.npz")
+    out = work / ("dist.recal.npz" if kind == "baserecal" else "dist.vcf")
     try:
         _run_stage(kind, conf, work, out)
         if pid == 0:
