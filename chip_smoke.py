@@ -64,11 +64,30 @@ Phases (each prints its numbers; any failure exits non-zero):
    with ``FILTER=PASS``; ``mutect2`` over six 301 bp windows of the same
    BAMs with ``--device cpu`` and ``--device cuda``, record-equal; then
    ``ug``, ``depth``, ``vcf_filter``, ``htc`` gVCFs for ``joint``, and
-   ``concat`` once each on phase 4's outputs (exit 0, non-empty outputs).
+   ``concat`` once each on phase 4's outputs (exit 0, non-empty outputs);
+9. (run after phase 8) long reads, indel realignment and the ``gatk``
+   passthrough through the CLI on the card: (a) ``align --long-reads`` of
+   ONT-class reads (log-normal lengths, median 10 kb, 3-30 kb, 5% errors,
+   both strands) at 10x of a simulated 1 Mb contig, in production widths
+   (512 reads a batch, sub-batches of 256, chunks of 144/240 in the
+   160/256 bucket), with its wall, Mbp/s and reads/s, its K2/K3 launches
+   (no other kernel), every Smith-Waterman (R, W) bucket and the widest
+   call, K2/K3 held against their plain versions at each bucket on that
+   run's own gathered inputs, and mapped >= 0.95 and placed (100 bp, right
+   strand) >= 0.95; (b) ``germline --long-reads`` on a 200 kb contig with
+   40 het SNVs at 30x of 10 kb reads (the reference test's error profile):
+   its buckets, K4 held at those past 256 rows, SNV sensitivity >= 0.7,
+   precision printed; (c) ``indel`` on phase 4's 1 Mb / 30x deduplicated BAM: wall,
+   reads realigned, K2/K3 launches and buckets held as in (a), lanes with
+   wlen > W; (d) ``--device cpu`` against ``--device cuda``, record-equal
+   BAMs: ``indel`` on phase 5's 50 kb BAM, ``align --long-reads`` of 20
+   reads of 5 kb on a 100 kb contig; (e) ``gatk HaplotypeCaller -R -I -O``
+   on phase 5's 50 kb BAM record-equal to ``htc --produce-vcf``.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on its path, error against the plain version, kernel, plain and
-bound times); the last line is ``{"ok": true, "device": {...}}``.
+bound times; K2/K3 also their launches per path); the last line is
+``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
@@ -812,20 +831,29 @@ def phase_germline(torch, cli, S, P, validate, work: Path, results) -> None:
 # phase 8: the somatic path (mutect2) and the host commands
 # ---------------------------------------------------------------------------
 
+def mutect2_bucket(R: int, W: int) -> tuple[int, int]:
+    """``_hap_to_ref_events_multi``'s SW bucket of a call: the rows R and
+    the window W rounded up to 128 (R at least W)."""
+    return -(-max(R, W, 128) // 128) * 128, -(-max(W, 128) // 128) * 128
+
+
 class ShapeRecorder:
     """Wraps the Smith-Waterman (``sw_full``: K2 then K3) and scalar
     PairHMM (``pairhmm_sc``: K4) wrappers while a run is driven, and
     keeps, per bucket, the inputs of its widest call.  SW buckets are
-    ``_hap_to_ref_events_multi``'s: the rows R and the window W rounded
-    up to 128 (R at least W); PairHMM buckets are the (R, H) the lanes are
-    padded to.  It launches nothing itself."""
+    ``bucket(R, W)`` of a call's read rows and window columns (by default
+    the shape itself); PairHMM buckets are the (R, H) the lanes are padded
+    to.  It also sums, on the device, the lanes whose wlen exceeds the
+    window's W.  It launches nothing itself."""
 
-    def __init__(self, S, P):
+    def __init__(self, S, P, bucket=lambda R, W: (R, W)):
         self.S, self.P = S, P
+        self.bucket = bucket
         self.sw: dict[tuple[int, int], tuple] = {}
         self.hmm: dict[tuple[int, int], tuple] = {}
         self.sw_shapes: set[tuple[int, int]] = set()
         self.calls = {"sw": 0, "hmm": 0}
+        self.over_w = 0
 
     def __enter__(self):
         S, P = self.S, self.P
@@ -833,14 +861,13 @@ class ShapeRecorder:
 
         def sw_full(read, rlen, win, wlen, params, max_steps):
             R, W = read.shape[1], win.shape[1]
-            rb = -(-max(R, W, 128) // 128) * 128
-            wb = -(-max(W, 128) // 128) * 128
+            key = self.bucket(R, W)
             self.calls["sw"] += 1
             self.sw_shapes.add((R, W))
-            have = self.sw.get((rb, wb))
+            self.over_w = self.over_w + (wlen > W).sum()
+            have = self.sw.get(key)
             if have is None or have[0].shape[0] < read.shape[0]:
-                self.sw[(rb, wb)] = (read, rlen, win, wlen, params,
-                                     max_steps)
+                self.sw[key] = (read, rlen, win, wlen, params, max_steps)
             return self.real[0](read, rlen, win, wlen, params, max_steps)
 
         def pairhmm_sc(read, base_q, rlen, hap, hlen, ins_q, del_q, gcp):
@@ -859,7 +886,7 @@ class ShapeRecorder:
         self.S.sw_full, self.P.pairhmm_sc = self.real
 
 
-def hold_buckets(torch, S, P, rec: ShapeRecorder) -> list[dict]:
+def hold_buckets(torch, S, P, rec: ShapeRecorder, label: str) -> list[dict]:
     """K2/K3 and K4 against their plain versions at every bucket the
     recorded run launched, on that run's own inputs: SW bit-equal
     (scores, best positions, op streams, coordinates), PairHMM within
@@ -877,7 +904,7 @@ def hold_buckets(torch, S, P, rec: ShapeRecorder) -> list[dict]:
         e3 = max(int((a.int() - b.int()).abs().max())
                  for a, b in zip(kout, pout))
         check(e2 == 0 and e3 == 0,
-              f"K2/K3 differ from the plain versions at mutect2's bucket "
+              f"K2/K3 differ from the plain versions at {label}'s bucket "
               f"{rb}/{wb} (R={R} W={W} B={B})")
         t2 = cuda_ms(torch, lambda: S.sw_pointers(read, rl, win, wl, p), 3)
         t3 = cuda_ms(torch, lambda: S.sw_traceback(kptr, kbest, kpos,
@@ -892,7 +919,7 @@ def hold_buckets(torch, S, P, rec: ShapeRecorder) -> list[dict]:
                    + kptr.numel() * kptr.element_size(),
                    SW_OPS_PER_CELL * sw_cells(rl, wl, R, W), PEAK_INT32)
         b3 = bound(walked / 2 + packed.size + 24 * B, 0, PEAK_INT32)
-        say(f"mutect2 bucket K2+K3 {rb}/{wb} (R={R} W={W} B={B}, "
+        say(f"{label} bucket K2+K3 {rb}/{wb} (R={R} W={W} B={B}, "
             f"{-(-R // 384)} stripe(s), max_steps {steps}): bit-equal; K2 "
             f"kernel {t2:.3f} ms plain {t2p:.3f} ms bound "
             f"{b2['bound_ms']:.4f} ms ({b2['bound_by']}); K3 kernel "
@@ -911,7 +938,7 @@ def hold_buckets(torch, S, P, rec: ShapeRecorder) -> list[dict]:
             return P._pairhmm_plain(read.T, bq.T, ins_q, del_q, gcp,
                                     rl[None], hl[None], hap.T, R=R, H=H)
         got = P.pairhmm_sc(*args)
-        e4, n4 = hold_pairhmm(torch, f"K4 at mutect2's bucket {R}/{H}", got,
+        e4, n4 = hold_pairhmm(torch, f"K4 at {label}'s bucket {R}/{H}", got,
                               plain())
         t4 = cuda_ms(torch, lambda: P.pairhmm_sc(*args), 3)
         t4p = cuda_ms(torch, plain, 1)
@@ -919,7 +946,7 @@ def hold_buckets(torch, S, P, rec: ShapeRecorder) -> list[dict]:
                      * hl.cpu().numpy()).sum())
         b4 = bound(2 * B * R + B * H + 12 * B,
                    PAIRHMM_FLOPS_PER_CELL * cells, PEAK_F32)
-        say(f"mutect2 bucket K4 {R}/{H} (B={B}, {ins_q}/{del_q}/{gcp}): "
+        say(f"{label} bucket K4 {R}/{H} (B={B}, {ins_q}/{del_q}/{gcp}): "
             f"max |dlog10| {e4:.3g}, {n4} finite pairs not bit-equal, "
             f"-inf lanes equal ({int((~torch.isfinite(got)).sum())}); "
             f"kernel {t4:.3f} ms plain {t4p:.3f} ms bound "
@@ -975,7 +1002,7 @@ def phase_somatic(torch, cli, S, P, validate, work: Path) -> list[dict]:
         for k in d:
             d[k] = 0
     torch.cuda.synchronize()
-    with ShapeRecorder(S, P) as rec:
+    with ShapeRecorder(S, P, mutect2_bucket) as rec:
         walls["mutect2"] = run_cli(cli, mutect2_argv(tn, bams, vcf, "cuda"))
         torch.cuda.synchronize()
     launches = {k: n for k, n in {**S.LAUNCHES, **P.LAUNCHES}.items() if n}
@@ -992,7 +1019,7 @@ def phase_somatic(torch, cli, S, P, validate, work: Path) -> list[dict]:
         f"calls, {len(rec.sw_shapes)} distinct unpadded shapes, R up to "
         f"{max(r for r, _ in rec.sw_shapes)}); PairHMM (R, H) "
         f"{sorted(rec.hmm)} ({rec.calls['hmm']} calls)")
-    rows = hold_buckets(torch, S, P, rec)
+    rows = hold_buckets(torch, S, P, rec, "mutect2")
     del rec
     acc = validate.score_somatic(str(vcf), tn)
     say(f"somatic accuracy vs planted truth: {json.dumps(acc)}")
@@ -1070,6 +1097,176 @@ def phase_host(cli, sample, run_dir: Path, vcf: Path, work: Path) -> None:
     walls = {k: round(v, 2) for k, v in walls.items()}
     say(f"host commands on the 1 Mb germline outputs, exit 0 and non-empty "
         f"outputs (s): {json.dumps(walls)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: long reads, indel realignment and the gatk passthrough
+# ---------------------------------------------------------------------------
+
+class Realigned(logging.Handler):
+    """The read count of ``indel``'s closing log line."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.n = None
+
+    def emit(self, record):
+        m = re.match(r"indel: (\d+) reads realigned", record.getMessage())
+        if m:
+            self.n = int(m.group(1))
+
+
+def drive_sw_path(torch, cli, S, P, label: str, argv: list[str]):
+    """One command on the card with every count at 0 just before it and
+    the Smith-Waterman wrapper recorded: it must launch K2 and K3 and no
+    other kernel.  Prints its buckets and the widest call, then holds K2/K3
+    against their plain versions at each bucket on the run's own inputs.
+    Returns (wall, launches, hold rows, lanes with wlen > W)."""
+    for d in (S.LAUNCHES, P.LAUNCHES):
+        for k in d:
+            d[k] = 0
+    torch.cuda.synchronize()
+    with ShapeRecorder(S, P) as rec:
+        wall = run_cli(cli, argv)
+        torch.cuda.synchronize()
+    launches = {k: n for k, n in {**S.LAUNCHES, **P.LAUNCHES}.items() if n}
+    check(set(launches) == {"fgt_sw_full", "fgt_sw_traceback"},
+          f"{label} launched kernels other than K2/K3: {launches}")
+    over_w = int(rec.over_w)
+    say(f"{label} SW buckets (R, W): {sorted(rec.sw)}, {rec.calls['sw']} "
+        f"calls, widest call {max(a[0].shape[0] for a in rec.sw.values())} "
+        f"lanes, lanes with wlen > W {over_w}; kernel launches {launches}")
+    rows = hold_buckets(torch, S, P, rec, label)
+    return wall, launches, rows, over_w
+
+
+def same_bams(validate, a: str, b: str, what: str) -> int:
+    d = validate.compare_bam(a, b, compare_tags=True)
+    check(d.equivalent and d.matching > 0,
+          f"{what}: BAMs differ between --device cpu and --device cuda")
+    return d.matching
+
+
+def phase_long_indel(torch, cli, S, P, validate, germline_1mb, sample_50kb,
+                     run_dir_50kb: Path, work: Path, results) -> list[dict]:
+    """Phase 9 (a)-(e).  Returns the hold rows of (a)-(c)."""
+    work.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    rows = []
+
+    # (a) long reads at full width: only the genome is cut
+    t0 = time.time()
+    lr = validate.simulate_long_reads(work / "lr1mb", 1_000_000, 10, seed=9)
+    say(f"long-read sample: one 1 Mb contig (genome length cut from a "
+        f"3.1 Gb human genome to fit the smoke's time; widths as in "
+        f"production: 512 reads a batch, sub-batches of 256, chunks of "
+        f"144/240 in the 160/256 bucket), {lr.n_reads} ONT-class reads, "
+        f"{lr.n_bases / 1e6:.2f} Mbp (10x; log-normal lengths, median "
+        f"10 kb, 3-30 kb; 5% errors, 60% substitutions and 40% deletions; "
+        f"both strands), simulated in {time.time() - t0:.1f} s")
+    bam = work / "lr1mb" / "long.bam"
+    wall, launches, got, _ = drive_sw_path(
+        torch, cli, S, P, "align --long-reads",
+        ["--device", "cuda", "align", "-r", lr.ref, "-1", lr.fastq,
+         "-o", str(bam), "--long-reads", "-f"])
+    rows += got
+    paths["align --long-reads"] = launches
+    acc = validate.score_long_alignments(str(bam), lr)
+    say(f"align --long-reads on the card: wall {wall:.2f} s, "
+        f"{lr.n_bases / wall / 1e6:.3f} Mbp/s, {lr.n_reads / wall:.1f} "
+        f"reads/s; {json.dumps(acc)}")
+    check(acc["mapped"] >= 0.95 and acc["placed"] >= 0.95,
+          "long reads mapped or placed below 0.95")
+
+    # (b) germline --long-reads: planted het SNVs, at the coverage and
+    # with the error profile of the reference's own gate
+    # (tests/test_longread.py: 30x, insertions, deletions and
+    # substitutions a third each of 5%)
+    g = validate.simulate_long_reads(work / "lr200kb", 200_000, 30, seed=10,
+                                     sigma=0.0, n_snps=40, insertions=True)
+    vcf = work / "lr200kb" / "calls.vcf.gz"
+    with ShapeRecorder(S, P) as rec:
+        wall = run_cli(cli, ["--device", "cuda", "germline", "-r", g.ref,
+                             "-1", g.fastq, "-o", str(vcf), "--long-reads",
+                             "-S", "lr", "-v", "-f"])
+        torch.cuda.synchronize()
+    say(f"germline --long-reads buckets: SW (R, W) {sorted(rec.sw)}, "
+        f"PairHMM (R, H) {sorted(rec.hmm)} ({rec.calls['hmm']} calls)")
+    # reads clipped to active regions pass 256 bases: K4 there (9-12
+    # rows a thread) is held on this run's inputs; the SW buckets are
+    # (a)'s and phase 8's
+    rec.sw = {}
+    rec.hmm = {k: v for k, v in rec.hmm.items() if k[0] > 256}
+    rows += hold_buckets(torch, S, P, rec, "germline --long-reads")
+    acc = validate.score_calls(str(vcf), g)
+    say(f"germline --long-reads on the card: 200 kb, {len(g.snps)} het "
+        f"SNVs, {g.n_reads} reads of 10 kb (30x, 5% errors, a third each "
+        f"insertions, deletions, substitutions): wall "
+        f"{wall:.2f} s; calls {acc['n_calls']}, SNV sensitivity "
+        f"{acc['snp_sensitivity']:.3f}, precision {acc['precision']:.3f}")
+    check(acc["snp_sensitivity"] >= 0.7,
+          "germline --long-reads SNV sensitivity below 0.7")
+
+    # (c) indel on phase 4's 1 Mb / 30x deduplicated BAM
+    sample, run_dir, _ = germline_1mb
+    log = logging.getLogger("falcon_genome_tpu")
+    counter = Realigned()
+    log.addHandler(counter)
+    try:
+        wall, launches, got, over_w = drive_sw_path(
+            torch, cli, S, P, "indel",
+            ["--device", "cuda", "indel", "-r", sample.ref,
+             "-i", str(run_dir / "dedup.bam"),
+             "-o", str(work / "realigned.bam"), "-f"])
+    finally:
+        log.removeHandler(counter)
+    rows += got
+    paths["indel"] = launches
+    check(counter.n is not None, "indel logged no count of realigned reads")
+    say(f"indel on the card: 1 Mb / 30x deduplicated BAM, wall {wall:.2f} "
+        f"s, {counter.n} reads realigned, {over_w} lanes with a window "
+        f"longer than W")
+
+    # (d) plain versions on the CPU against the kernels on the card
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = str(work / f"indel50kb.{dev}.bam")
+        w = run_cli(cli, ["--device", dev, "indel", "-r", sample_50kb.ref,
+                          "-i", str(run_dir_50kb / "dedup.bam"),
+                          "-o", out[dev], "-f", "-O", "gatk.nprocs=1"])
+        say(f"indel 50 kb --device {dev}: {w:.2f} s")
+    n = same_bams(validate, out["cpu"], out["cuda"], "indel 50 kb")
+    say(f"indel 50 kb cpu vs cuda: record-equal, {n} records")
+    lr = validate.simulate_long_reads(work / "lr100kb", 100_000, 1.0,
+                                      seed=11, median=5000, sigma=0.0)
+    for dev in ("cpu", "cuda"):
+        out[dev] = str(work / f"lr100kb.{dev}.bam")
+        w = run_cli(cli, ["--device", dev, "align", "-r", lr.ref,
+                          "-1", lr.fastq, "-o", out[dev], "--long-reads",
+                          "-f"])
+        say(f"align --long-reads 100 kb ({lr.n_reads} reads of 5 kb) "
+            f"--device {dev}: {w:.2f} s")
+    n = same_bams(validate, out["cpu"], out["cuda"], "align --long-reads")
+    say(f"align --long-reads cpu vs cuda: record-equal, {n} records")
+
+    # (e) the gatk passthrough against the command it translates to
+    dedup = str(run_dir_50kb / "dedup.bam")
+    a, b = str(work / "gatk.vcf.gz"), str(work / "htc.vcf.gz")
+    wa = run_cli(cli, ["--device", "cuda", "gatk", "HaplotypeCaller",
+                       "-R", sample_50kb.ref, "-I", dedup, "-O", a, "-f"])
+    wb = run_cli(cli, ["--device", "cuda", "htc", "-r", sample_50kb.ref,
+                       "-i", dedup, "-o", b, "--produce-vcf", "-f"])
+    va, vb = validate.vcf_records(a), validate.vcf_records(b)
+    check(va == vb and len(va) > 0,
+          "gatk HaplotypeCaller differs from htc --produce-vcf")
+    say(f"gatk HaplotypeCaller -R -I -O on the 50 kb BAM ({wa:.2f} s) "
+        f"record-equal to htc --produce-vcf ({wb:.2f} s): {len(va)} "
+        f"records")
+    for k in ("fgt_sw_full", "fgt_sw_traceback"):
+        results[k]["launches_by_path"] = {
+            "germline": results[k]["launches"],
+            **{path: n[k] for path, n in paths.items()}}
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1381,6 +1578,7 @@ def phase_bench(torch, S, BK, results, so: Path, work: Path) -> None:
           and res["device"] == torch.cuda.get_device_name(0)
           and all(ex[k] > 0 for k in ("sw_score_gcups",
                                       "align_pair_reads_per_s",
+                                      "longread_mbp_per_s",
                                       "fma_ceiling_gflops", "pairhmm_mfu")),
           f"the bench's JSON line lacks a metric: {line}")
     check(ex["germline_e2e_sensitivity"] >= 0.98
@@ -1474,11 +1672,18 @@ def main() -> int:
         t8 = time.time()
         buckets = phase_somatic(torch, cli, S, P, validate, work)
         phase_host(cli, *germline_1mb, work / "host")
-        shutil.rmtree(work / "1mb", ignore_errors=True)
         shutil.rmtree(work / "host", ignore_errors=True)
         say(json.dumps({"mutect2_buckets": buckets}))
         say(f"phase 8 (somatic path, host commands) "
             f"{time.time() - t8:.1f} s")
+        t9 = time.time()
+        buckets = phase_long_indel(torch, cli, S, P, validate, germline_1mb,
+                                   sample, run_dir, work / "long_indel",
+                                   results)
+        shutil.rmtree(work / "1mb", ignore_errors=True)
+        shutil.rmtree(work / "long_indel", ignore_errors=True)
+        say(json.dumps({"long_read_indel_buckets": buckets}))
+        say(f"phase 9 (long reads, indel, gatk) {time.time() - t9:.1f} s")
         t6 = time.time()
         count = torch.cuda.device_count()
         phase_mesh(torch, P, validate, sample, run_dir, k5_args, results,
@@ -1499,10 +1704,14 @@ def main() -> int:
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by")
     # no single PyTorch call computes any of these functions
-    say(json.dumps({"kernels": [
-        dict(name=k, route="cuda", source=src, replaces=rep,
-             **{f: results[k][f] for f in keys}, library_ms=None)
-        for k, (src, rep) in KERNELS.items()]}))
+    rows = []
+    for k, (src, rep) in KERNELS.items():
+        rows.append(dict(name=k, route="cuda", source=src, replaces=rep,
+                         **{f: results[k][f] for f in keys},
+                         library_ms=None))
+        if "launches_by_path" in results[k]:
+            rows[-1]["launches_by_path"] = results[k]["launches_by_path"]
+    say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -165,6 +165,39 @@ class MinimizerIndex:
         contigs = [(c.name, fasta.contig_codes(c.name)) for c in fasta.dict]
         return cls(contigs, params)
 
+    # -- prebuilt-index serialization (the reference's .mmi probe:
+    #    Minimap2Worker.cpp check() swaps in get_fname_by_ext(ref,"mmi")
+    #    when it exists; ours is an .npz of the built arrays, the same
+    #    file as the JAX package's) ---------------------------------------
+    def save(self, path) -> str:
+        np.savez_compressed(
+            path, k=self.params.k, w=self.params.w,
+            max_hits=self.params.max_hits,
+            names=np.array(self.contig_names),
+            lengths=np.asarray(self.contig_lengths, np.int64),
+            genome=self.genome, hashes=self.hashes,
+            positions=self.positions, strands=self.strands)
+        return str(path)
+
+    @classmethod
+    def load(cls, path) -> "MinimizerIndex":
+        z = np.load(path, allow_pickle=False)
+        idx = cls.__new__(cls)
+        idx.params = IndexParams(k=int(z["k"]), w=int(z["w"]),
+                                 max_hits=int(z["max_hits"]))
+        idx.contig_names = [str(n) for n in z["names"]]
+        idx.contig_lengths = [int(x) for x in z["lengths"]]
+        idx.offsets = np.concatenate(
+            [[0], np.cumsum(idx.contig_lengths)]).astype(np.int64)
+        idx.genome = z["genome"]
+        idx.contig_codes = [
+            idx.genome[idx.offsets[i]:idx.offsets[i + 1]]
+            for i in range(len(idx.contig_names))]
+        idx.hashes = z["hashes"]
+        idx.positions = z["positions"]
+        idx.strands = z["strands"]
+        return idx
+
     def tid_of(self, gpos: int) -> tuple[int, int]:
         """Global position → (tid, local position)."""
         tid = int(np.searchsorted(self.offsets, gpos, side="right")) - 1
@@ -186,6 +219,24 @@ class MinimizerIndex:
         lo[o] = lo_s
         hi[o] = hi_s
         return lo, hi
+
+    def lookup(self, query_hashes: np.ndarray
+               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """For each query hash: (query_idx, ref_gpos, ref_strand) hit
+        arrays; hashes with more than ``max_hits`` hits are dropped."""
+        lo, hi = self.lookup_ranges(np.asarray(query_hashes))
+        counts = hi - lo
+        counts = np.where(counts > self.params.max_hits, 0, counts)
+        qidx = np.repeat(np.arange(len(query_hashes)), counts)
+        if len(qidx) == 0:
+            return (qidx, np.zeros(0, np.int64), np.zeros(0, bool))
+        # ragged-range gather: flat[j] = lo[i] + (j - start[i]) per run i
+        starts = np.cumsum(counts) - counts
+        flat = (np.repeat(lo, counts)
+                + np.arange(int(counts.sum()), dtype=np.int64)
+                - np.repeat(starts, counts))
+        return qidx, self.positions[flat], self.strands[flat]
+
 
 # ---------------------------------------------------------------------------
 # seeding + chaining

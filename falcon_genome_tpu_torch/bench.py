@@ -16,6 +16,8 @@ metric names:
   align_reads_per_s         ``AlignerEngine.align_batch``: 5000 x 150 bp
                             reads against a 1 Mb genome (+ mapped fraction);
   align_pair_reads_per_s    the pair path: 4096 pairs against 4 Mb;
+  longread_mbp_per_s        ``LongReadAligner.align_batch``: 128 x 10 kb
+                            reads at 5% error against 1 Mb;
   germline_e2e_*            ``germline`` on a 240 kb simulated contig;
   fma_ceiling_gflops        kernel K6, the 64-chain FMA ceiling of K4's
                             tile (the reference's
@@ -23,8 +25,7 @@ metric names:
   pairhmm_mfu               K4's arithmetic rate over that ceiling, 15
                             flops per executed cell.
 
-Not carried over: ``longread_mbp_per_s`` (long-read alignment is not
-ported yet) and ``pairhmm_issue_util`` / ``sw_issue_util``, which count
+Not carried over: ``pairhmm_issue_util`` / ``sw_issue_util``, which count
 the TPU kernels' vector-issue slots and say nothing of the CUDA kernels.
 
 Kernel times are CUDA events around ``N_INNER`` (20) launches after a
@@ -60,6 +61,7 @@ SW_B, SW_R_REAL, SW_W_REAL = 2048, 150, 400
 SW_BUCKET_R, SW_BUCKET_W = 160, 416
 ALIGN_GENOME, ALIGN_READS = 1_000_000, 5000
 PAIR_GENOME, PAIR_FRAGS = 4_000_000, 4096
+LONG_GENOME, LONG_READS, LONG_LEN = 1_000_000, 128, 10_000
 GERMLINE_GENOME = 240_000
 N_INNER = 20
 
@@ -259,6 +261,38 @@ def bench_align_pair(rng, device: torch.device):
     return 2 * B1 / best, mapped
 
 
+def bench_longread(rng, device: torch.device) -> float:
+    """``LongReadAligner.align_batch`` on ONT-class reads (5% errors: 60%
+    substitutions, 40% deletions) against a 1 Mb genome; 128 reads are
+    the engine's host/device pipeline over sub-batches (production
+    batches are 512, ``tpu.batch.long_reads``).  Returns Mbp/s (best of
+    3, after one warm-up call)."""
+    from .aligner import IndexParams, MinimizerIndex
+    from .longread import LongReadAligner, LongReadParams
+    G, n, L = LONG_GENOME, LONG_READS, LONG_LEN
+    genome = rng.integers(0, 4, G).astype(np.uint8)
+    lp = LongReadParams(index=IndexParams(k=19, w=10, max_hits=256))
+    eng = LongReadAligner(MinimizerIndex([("chr1", genome)], lp.index), lp,
+                          device=device)
+    reads = []
+    for _ in range(n):
+        p = int(rng.integers(0, G - L))
+        r = genome[p:p + L].copy()
+        err = rng.random(L) < 0.05
+        sub = rng.random(L) < 0.6
+        r[err & sub] = (r[err & sub] + 1) % 4
+        reads.append(r[~(err & ~sub)])
+    eng.align_batch(reads)
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = eng.align_batch(reads)
+        best = min(best, time.perf_counter() - t0)
+    if sum(a.mapped for a in res) < n * 0.9:
+        raise RuntimeError("longread mapped fraction below 0.9")
+    return sum(len(r) for r in reads) / best / 1e6
+
+
 def bench_germline_e2e(rng, device: torch.device, work: str):
     """``germline`` (align → markdup → bqsr → htc) on a simulated contig:
     error-free quality-40 pairs every 11 bp, a het SNP every 2 kb.  Returns
@@ -327,6 +361,7 @@ def run(device: torch.device, devices: list[torch.device], work: str) -> dict:
     rps, mapped = bench_align_pair(rng, device)
     extras["align_pair_reads_per_s"] = round(rps, 1)
     extras["align_pair_mapped_frac"] = round(mapped, 4)
+    extras["longread_mbp_per_s"] = round(bench_longread(rng, device), 3)
     ceiling, _ = bench_fma_ceiling(device)
     extras["fma_ceiling_gflops"] = round(ceiling, 1)
     extras["pairhmm_mfu"] = round(pairhmm_mfu(gcups, ceiling), 3)

@@ -19,9 +19,11 @@ over every visible card (``tpu.mesh.*``); several processes
 ``FCS_TPU__DIST__*`` environment variables) join one ``gloo`` group and
 split each stage's tasks; process i runs on ``cuda:(i % device_count)``.
 
-Ported: every command of the reference but ``indel`` and ``gatk``, which
-exit with the invalid-parameter code: not yet ported.  ``conf`` prints the
-configuration before any parser runs, as in the reference.
+Every command of the reference is here.  ``conf`` prints the
+configuration before any parser runs, and ``gatk`` takes its arguments
+raw, translates a GATK3 or GATK4 walker invocation onto the matching
+subcommand and runs it on the device chosen before it, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -46,19 +48,20 @@ COMMANDS = {
     "bqsr": "base recalibration + print reads (chained)",
     "htc": "call germline variants with the HaplotypeCaller model",
     "mutect2": "call somatic variants on a tumor/normal pair",
+    "indel": "indel realignment (legacy)",
     "joint": "joint genotyping across per-sample gVCFs",
     "ug": "call variants with the legacy pileup genotyper",
+    "gatk": "dispatch a GATK-style walker invocation to in-repo stages",
     "depth": "depth of coverage analysis",
     "vcf_filter": "filter variants by expression",
     "germline": "one-command germline pipeline (align → markdup → bqsr → htc)",
     "concat": "concatenate per-shard VCFs",
     "conf": "print all configuration options",
 }
-NOT_PORTED = ("indel", "gatk")
-# the reference's DEVICE_COMMANDS less those not ported: they resolve
-# the device and bring up the device mesh and the process group first
+# the reference's DEVICE_COMMANDS: they resolve the device and bring up
+# the device mesh and the process group first
 DEVICE_COMMANDS = {"align", "baserecal", "printreads", "bqsr", "htc",
-                   "mutect2", "ug", "germline"}
+                   "mutect2", "indel", "ug", "germline", "gatk"}
 
 
 def print_help() -> None:
@@ -69,7 +72,6 @@ def print_help() -> None:
     print("Commands:")
     for name, desc in COMMANDS.items():
         print(f"  {name:12s} {desc}")
-    print(f"\nNot yet ported: {', '.join(NOT_PORTED)}")
 
 
 def _base(p: argparse.ArgumentParser, ref=True, output=True):
@@ -267,6 +269,10 @@ def dispatch(args: argparse.Namespace, conf, device: str | torch.device
                            panels_of_normals=args.panels_of_normals,
                            contamination_table=args.contamination_table,
                            extra_opts=args.extra_options, device=device)
+    elif cmd == "indel":
+        stages.run_indel(conf, args.ref, args.input, args.output,
+                         force=args.force, extra_opts=args.extra_options,
+                         device=device)
     elif cmd == "joint":
         stages.run_joint(conf, args.ref, args.input_dir, args.output,
                          force=args.force, extra_opts=args.extra_options)
@@ -306,6 +312,86 @@ def dispatch(args: argparse.Namespace, conf, device: str | torch.device
         raise InvalidParam(f"unknown command {cmd!r}")
 
 
+_GATK_TOOL_MAP = {
+    "HaplotypeCaller": "htc",
+    "BaseRecalibrator": "baserecal",
+    "PrintReads": "printreads",
+    "ApplyBQSR": "printreads",
+    "Mutect2": "mutect2",
+    "UnifiedGenotyper": "ug",
+    "DepthOfCoverage": "depth",
+    "VariantFiltration": "vcf_filter",
+    "GenotypeGVCFs": "joint",
+}
+
+
+def _dispatch_gatk(conf, gatk_args: list[str],
+                   device: str | torch.device) -> None:
+    """``gatk`` passthrough (ref worker-gatk.cpp): the reference escapes
+    args into a stock GATK jar; there is no external GATK here, so
+    recognizable walker invocations (GATK3 ``-T Tool`` or GATK4
+    ``Tool ...``) are translated onto the equivalent in-repo subcommand
+    and dispatched on ``device``.  A translated vector that the
+    subcommand's parser refuses exits as argparse does (code 2)."""
+    tool = None
+    args = list(gatk_args)
+    for i, a in enumerate(args):
+        if a in ("-T", "--analysis_type") and i + 1 < len(args):
+            tool = args[i + 1]
+            del args[i:i + 2]
+            break
+        if a in _GATK_TOOL_MAP:
+            tool = a
+            del args[i]
+            break
+    if tool is None or tool not in _GATK_TOOL_MAP:
+        raise InvalidParam(
+            "gatk passthrough: unrecognized walker; supported: "
+            + ", ".join(sorted(_GATK_TOOL_MAP)))
+    sub = _GATK_TOOL_MAP[tool]
+
+    flag_map = {
+        "-R": "-r", "--reference": "-r", "--reference_sequence": "-r",
+        "-I": "-i", "--input": "-i", "--input_file": "-i",
+        "-O": "-o", "--output": "-o",
+        "-L": "-L", "--intervals": "-L",
+        "-bqsr": "-b", "--bqsr-recal-file": "-b", "-BQSR": "-b",
+        "-f": "-f", "--force": "-f",
+    }
+    translated: list[str] = [sub]
+    produce_vcf = True
+    i = 0
+    while i < len(args):
+        a = args[i]
+        if a in ("-o",):                    # GATK3 lowercase output
+            translated += ["-o", args[i + 1]]
+            i += 2
+        elif a in ("-ERC", "--emit-ref-confidence", "--emitRefConfidence"):
+            if i + 1 < len(args) and args[i + 1].upper() == "GVCF":
+                produce_vcf = False
+            i += 2
+        elif a in ("-tumor", "--tumor-sample"):
+            i += 2                           # sample naming is implicit
+        elif a in ("-normal", "--normal-sample"):
+            i += 2
+        elif a in flag_map:
+            tgt = flag_map[a]
+            if tgt == "-f":
+                translated.append("-f")
+                i += 1
+            else:
+                translated += [tgt, args[i + 1]]
+                i += 2
+        else:
+            log.warning("gatk passthrough: ignoring argument %r", a)
+            i += 1
+    if sub == "htc" and produce_vcf:
+        translated.append("--produce-vcf")
+    log.info("gatk passthrough: %s %s → falcon-genome-tpu %s",
+             tool, " ".join(gatk_args), " ".join(translated))
+    dispatch(build_parser().parse_args(translated), conf, device)
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     logging.basicConfig(
@@ -319,8 +405,6 @@ def main(argv: list[str] | None = None) -> int:
         if not argv or argv[0] in ("-h", "--help", "help"):
             print_help()
             return 0
-        if argv[0] in NOT_PORTED:
-            raise InvalidParam(f"{argv[0]}: not yet ported")
         conf = config_mod.init()
         if argv[0] == "conf":
             print(conf.dump())
@@ -328,9 +412,13 @@ def main(argv: list[str] | None = None) -> int:
         if argv[0] not in COMMANDS:
             print_help()
             raise InvalidParam(f"unknown command {argv[0]!r}")
-        args = build_parser().parse_args(argv)
         try:
-            dispatch(args, conf, ns.device)
+            if argv[0] == "gatk":
+                # verbatim passthrough (argparse REMAINDER chokes on a
+                # leading GATK3 '-T'; the reference escapes args untouched)
+                _dispatch_gatk(conf, argv[1:], ns.device)
+            else:
+                dispatch(build_parser().parse_args(argv), conf, ns.device)
         finally:
             from .parallel.mesh import set_active_mesh, shutdown
             set_active_mesh(None)

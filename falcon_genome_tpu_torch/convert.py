@@ -6,9 +6,10 @@ reference's (``falcon_genome_tpu``) classes into the port's, so that both
 packages compute from identical state:
 
 * parameter dataclasses (``SWParams``, ``SWBucket``, ``PairPolicy``,
-  ``PairHMMParams``, ``AlignerParams``, ``HTCParams``, ``Mutect2Params``)
-  field by field, nested ones included; a reference ``backend`` field
-  becomes the given ``torch.device``;
+  ``PairHMMParams``, ``AlignerParams``, ``LongReadParams``, ``HTCParams``,
+  ``Mutect2Params``) field by field, nested ones included; a reference
+  ``backend`` field becomes the given ``torch.device``;
+* a built ``MinimizerIndex`` (its arrays, copied);
 * the genome (int8 codes), padded read tables and the BQSR
   recalibration table as tensors on a given device;
 * the reference's time-major example batch of its sharded steps
@@ -28,11 +29,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from .aligner import AlignerParams, IndexParams
+from .aligner import AlignerParams, IndexParams, MinimizerIndex
 from .bqsr import RecalTable
 from .config import Config, Machine
 from .io.columns import RecordColumns
 from .io.sam import SamRecord
+from .longread import LongReadParams
 from .models.activeregion import ActiveRegionParams
 from .models.assembly import AssemblyParams
 from .models.haplotypecaller import HTCParams
@@ -78,6 +80,26 @@ def pairhmm_params(ref, device: torch.device) -> PairHMMParams:
 
 def aligner_params(ref) -> AlignerParams:
     return _convert(ref, AlignerParams)
+
+
+def long_read_params(ref) -> LongReadParams:
+    return _convert(ref, LongReadParams)
+
+
+def minimizer_index(ref) -> MinimizerIndex:
+    """A built reference index as the port's: the same parameters,
+    contigs and sorted arrays (copied), without rebuilding it."""
+    idx = MinimizerIndex.__new__(MinimizerIndex)
+    idx.params = _convert(ref.params, IndexParams)
+    idx.contig_names = list(ref.contig_names)
+    idx.contig_lengths = list(ref.contig_lengths)
+    idx.offsets = np.array(ref.offsets)
+    idx.genome = np.array(ref.genome)
+    idx.contig_codes = [idx.genome[idx.offsets[i]:idx.offsets[i + 1]]
+                        for i in range(len(idx.contig_names))]
+    for f in ("hashes", "positions", "strands"):
+        setattr(idx, f, np.array(getattr(ref, f)))
+    return idx
 
 
 def htc_params(ref, device: torch.device) -> HTCParams:

@@ -66,8 +66,9 @@
 //     repeats of its last base, so the byte of diagonal d is at a fixed
 //     offset from d with no clipping.  Row k of a thread needs at diagonal
 //     d the byte row k - 1 used at d - 1: the thread's NR masks live in one
-//     32-bit window that shifts by 4 bits per diagonal and takes one new
-//     byte;
+//     window (32 bits up to NR = 8, 64 bits for the 9-12 rows a thread of
+//     reads up to 384 bases) that shifts by 4 bits per diagonal and takes
+//     one new byte;
 //   * a trip of the sweep takes four diagonals, the two state sets
 //     swapping roles by name, so no register moves from "d - 1" to "d - 2"
 //     and a quarter of the loop's own instructions per diagonal; the
@@ -98,6 +99,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kWarps = 8;  // pairs (warps) per block: 8 timed 4% below 4
@@ -127,14 +130,19 @@ struct Above {
   float M, I, D;
 };
 
+// NR masks of 4 bits: one 32-bit word up to 8 rows a thread, else 64
+template <int NR>
+using Window = typename std::conditional<(NR > 8), unsigned long long,
+                                         unsigned>::type;
+
 // One thread's per-row constants, in registers.
 template <int NR>
 struct Rows {
   float pm[NR], pmm[NR];  // prior on a match, on a mismatch
   // K5's transitions (unused, and eliminated, for K4)
   float ti[NR], td[NR], tc[NR], tmm[NR], tim[NR];
-  unsigned rmask;   // the rows' read-base masks, 4 bits each
-  unsigned inside;  // bit k: row k < R (kRagged only)
+  Window<NR> rmask;  // the rows' read-base masks, 4 bits each
+  unsigned inside;   // bit k: row k < R (kRagged only)
 };
 
 // Diagonal d from X (diagonal d - 1) and Y (d - 2); the result overwrites
@@ -144,7 +152,7 @@ struct Rows {
 template <int NR, bool kPerBase, bool kRagged, bool kSum>
 __device__ __forceinline__ void sweep_step(
     const Rows<NR>& c, const Trans& tr, bool lane0, float bound,
-    unsigned hap_byte, unsigned& win, const Diag<NR>& X, Diag<NR>& Y,
+    unsigned hap_byte, Window<NR>& win, const Diag<NR>& X, Diag<NR>& Y,
     Above& uX, const Above& uY, float (&acc)[NR]) {
   uX.M = __shfl_up_sync(kFull, X.M[NR - 1], 1);
   uX.I = __shfl_up_sync(kFull, X.I[NR - 1], 1);
@@ -162,7 +170,8 @@ __device__ __forceinline__ void sweep_step(
     const float d2u = k == 0 ? uY.D : Y.D[k - 1];
     const float m1u = k == 0 ? uX.M : X.M[k - 1];
     const float i1u = k == 0 ? uX.I : X.I[k - 1];
-    const bool match = (win & c.rmask & (15u << (4 * k))) != 0u;
+    const bool match =
+        (win & c.rmask & (Window<NR>(15u) << (4 * k))) != 0u;
     const float prior = match ? c.pm[k] : c.pmm[k];
     const float p_ins = kPerBase ? c.ti[k] : tr.p_ins;
     const float p_del = kPerBase ? c.td[k] : tr.p_del;
@@ -185,7 +194,7 @@ __device__ __forceinline__ void sweep_step(
 template <int NR, bool kPerBase, bool kRagged, bool kSum>
 __device__ __forceinline__ void sweep_two(
     const Rows<NR>& c, const Trans& tr, bool lane0, float bound,
-    const uint8_t* hp, int d, unsigned& win, Diag<NR>& S0, Diag<NR>& S1,
+    const uint8_t* hp, int d, Window<NR>& win, Diag<NR>& S0, Diag<NR>& S1,
     Above& u0, Above& u1, float (&acc)[NR]) {
   sweep_step<NR, kPerBase, kRagged, kSum>(c, tr, lane0, bound, hp[d], win,
                                           S1, S0, u1, u0, acc);
@@ -270,7 +279,7 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
     const size_t at = (size_t)b * R + r;
     // phred -> probability through the wrapper's 256-entry table
     const float pe = row ? __ldg(prob + base_q[at]) : 0.0f;
-    c.rmask |= base_mask(row ? read[at] : 4u) << (4 * k);
+    c.rmask |= Window<NR>(base_mask(row ? read[at] : 4u)) << (4 * k);
     c.inside |= (row ? 1u : 0u) << k;
     c.pm[k] = 1.0f - pe;
     c.pmm[k] = pe * (1.0f / 3.0f);
@@ -299,7 +308,7 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   // rows above: u0 starts as zeros, so diagonal 1 (row 0 at j = 0) stays
   // zero; from diagonal 2 on row 0 sees D(0, j - 1) = bound
   Above u0{0.0f, 0.0f, 0.0f}, u1{0.0f, 0.0f, 0.0f};
-  unsigned win = 0u;
+  Window<NR> win = 0u;
   const int dmax = min(rl + hl, R + H);
   const bool has_row = rl >= 1 && rl <= R;
   // up to diagonal rlen, row rlen - 1 is left of the matrix and its sum
@@ -397,9 +406,13 @@ int dispatch_rows(const Call& a) {
     FGT_CASE(6)
     FGT_CASE(7)
     FGT_CASE(8)
+    FGT_CASE(9)
+    FGT_CASE(10)
+    FGT_CASE(11)
+    FGT_CASE(12)
 #undef FGT_CASE
     default:
-      return (int)cudaErrorInvalidValue;  // R > 256: the wrapper refuses it
+      return (int)cudaErrorInvalidValue;  // R > 384: the wrapper refuses it
   }
 }
 

@@ -375,6 +375,24 @@ def seed_and_chain(codes: np.ndarray, lens: np.ndarray, k: int, w: int,
     return out_diag, out_rev, out_nseeds, out_span, out_counts
 
 
+def chain_anchors(qs: np.ndarray, rs: np.ndarray, k: int, lookback: int,
+                  max_gap: int):
+    """minimap2-class chaining DP (longread.chain_anchors inner loop).
+    Returns (f, parent, best_end) or None without the native lib."""
+    lib = load()
+    if lib is None:
+        return None
+    qs = np.ascontiguousarray(qs, np.int64)
+    rs = np.ascontiguousarray(rs, np.int64)
+    n = len(qs)
+    f = np.empty(n, np.float64)
+    parent = np.empty(n, np.int64)
+    end = lib.fg_chain_anchors(qs.ctypes.data, rs.ctypes.data, n,
+                               k, lookback, max_gap,
+                               f.ctypes.data, parent.ctypes.data)
+    return f, parent, int(end)
+
+
 def ops_rle_batch(packed: np.ndarray, max_steps: int, read_start: np.ndarray,
                   read_end: np.ndarray, best: np.ndarray,
                   read_lens: np.ndarray, max_ops: int = 160):

@@ -49,7 +49,7 @@ RESCALE_FACTOR = 2.0 ** 100
 RESCALE_SHIFT_LOG10 = 100 * LOG10_2
 FLT_MIN = 2.0 ** -126            # smallest normal float32
 MAX_PAIRS_PER_CALL = 8192
-MAX_KERNEL_READ_LEN = 256        # 32 lanes x 8 rows per lane
+MAX_KERNEL_READ_LEN = 384        # 32 lanes x 12 rows per lane
 
 # kernel launches since the last reset
 LAUNCHES = {"fgt_pairhmm": 0, "fgt_pairhmm_pb": 0}
@@ -225,7 +225,7 @@ def _pairhmm_plain(read_codes, base_q, ins_q, del_q, gcp, rlen, hlen,
 
 
 def _check_kernel_inputs(name: str, R: int, typed) -> None:
-    """What the kernels do not take: a read bucket past 256 rows, or a
+    """What the kernels do not take: a read bucket past 384 rows, or a
     tensor (``typed`` pairs each with its dtype) of another dtype or on
     another device than the first."""
     if R > MAX_KERNEL_READ_LEN:

@@ -24,7 +24,11 @@ device (:func:`device_genome`), reads are shipped once per batch
 window gather and reverse complement (:func:`_lane_inputs`).  The pair
 path (:func:`sw_pair_dispatch`) scores every candidate, picks each
 fragment's best mate combination, and extends the winners without
-returning to the host in between.
+returning to the host in between.  The long-read path
+(:func:`sw_extend_win_dispatch`) ships its chunk reads and gathers their
+windows from the resident genome; it only enqueues, and its handle is
+collected later.  A gathered window is at most the bucket's W columns
+(:func:`_check_windows`).
 
 ``bestpos = d * 4096 + row`` for anti-diagonal ``d = row + j`` (window
 column ``j`` 1-based); ties in score go to the smallest diagonal, then the
@@ -233,12 +237,15 @@ def _cuda_args(read, rlen, win, wlen):
 
 def _plain_scan(read, rlen, win, wlen, params):
     """Lane-major inputs → time-major plain sweep, cut to the longest
-    read and window (rows and columns past every lane's length are
-    invalid in every lane, so the cut is exact)."""
+    read and window.  A lane's cells are its rows below rlen and its
+    columns up to min(wlen, W), as in the kernels (rows and columns past
+    every lane's length are then invalid in every lane, so the cut is
+    exact).  ``_sw_scan_core`` alone, like the reference's, sweeps on
+    past column W for a longer wlen (see :func:`_check_windows`)."""
     R = max(1, int(rlen.max())) if len(rlen) else 1
-    W = max(1, int(wlen.max())) if len(wlen) else 1
     R = min(R, read.shape[1])
-    W = min(W, win.shape[1])
+    wlen = torch.clamp(wlen, max=win.shape[1])
+    W = max(1, int(wlen.max())) if len(wlen) else 1
     return _sw_scan_core(read[:, :R].T.to(torch.int32), rlen[None],
                          win[:, :W].T.to(torch.int32), wlen[None],
                          params=params, R=R, W=W)
@@ -430,6 +437,18 @@ def _lane_meta(device, *arrays):
             for a in arrays]
 
 
+def _check_windows(win_lens, bucket: SWBucket) -> None:
+    """Gathered windows are cut to the bucket's W columns.  The reference
+    sweeps a longer ``wlen`` on past column W (its last code repeated, up
+    to the sweep's last anti-diagonal) where the kernels stop at W; no
+    path makes such a lane (the aligner's windows are its reads plus
+    2 x 32, indel's targets at most 300 bases), so one is refused rather
+    than aligned differently."""
+    if len(win_lens) and int(np.max(win_lens)) > bucket.max_win_len:
+        raise ValueError(f"a window of {int(np.max(win_lens))} columns "
+                         f"exceeds the bucket's {bucket.max_win_len}")
+
+
 def sw_score_gather(reads8_dev, read_idx, is_rev, read_lens, genome_dev,
                     win_starts, win_lens, params: SWParams = SWParams(),
                     bucket: SWBucket = SWBucket()
@@ -439,6 +458,7 @@ def sw_score_gather(reads8_dev, read_idx, is_rev, read_lens, genome_dev,
     B = len(read_idx)
     if B == 0:
         return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    _check_windows(win_lens, bucket)
     ridx, rev, rl, st, wl = _lane_meta(reads8_dev.device, read_idx, is_rev,
                                        read_lens, win_starts, win_lens)
     read, win = _lane_inputs(reads8_dev, ridx, rev, rl, genome_dev, st,
@@ -463,6 +483,7 @@ def sw_extend_gather(reads8_dev, read_idx, is_rev, read_lens, genome_dev,
                 reads8_dev, read_idx[s:e], is_rev[s:e], read_lens[s:e],
                 genome_dev, win_starts[s:e], win_lens[s:e], params, bucket))
         return out
+    _check_windows(win_lens, bucket)
     max_steps = _traceback_steps_bound(
         int(np.max(read_lens)), int(np.max(win_lens)), params, bucket)
     ridx, rev, rl, st, wl = _lane_meta(reads8_dev.device, read_idx, is_rev,
@@ -586,6 +607,7 @@ def sw_pair_dispatch(reads8_dev, j_read, j_rev, j_rlen, genome_dev,
     NR = len(read_lens)
     J = len(j_read)
     K = pair.max_candidates
+    _check_windows(j_wlen, bucket)
     j_read = np.asarray(j_read, np.int64)
     ranks = np.arange(J) - slice_of[j_read]
     flat = torch.from_numpy(j_read * K + ranks).to(reads8_dev.device)
@@ -792,16 +814,68 @@ def _sw_extend_dispatch_one(reads, read_lens, windows, win_lens, params,
     read = device_reads(reads, dev)
     win = device_reads(windows, dev)
     rl_d, wl_d = _lane_meta(dev, rl, win_lens)
-    packed, coords, best = sw_full(read, rl_d, win, wl_d, params, max_steps)
+    return _handle(sw_full(read, rl_d, win, wl_d, params, max_steps),
+                   max_steps, rl)
+
+
+def _handle(out, max_steps: int, read_lens: np.ndarray):
+    """The ``("one", collect, collect_arrays)`` handle over one enqueued
+    :func:`sw_full`; only collecting copies the results to the host."""
+    packed, coords, best = out
 
     def fetch():
         return packed.cpu().numpy(), coords.cpu().numpy(), best.cpu().numpy()
 
     def collect():
         p, c, b = fetch()
-        return _results_from_packed(p, max_steps, c, b, rl)
+        return _results_from_packed(p, max_steps, c, b, read_lens)
 
     def collect_arrays():
         p, c, b = fetch()
-        return (*_cigar_arrays(p, max_steps, c, b, rl), c, b)
+        return (*_cigar_arrays(p, max_steps, c, b, read_lens), c, b)
     return ("one", collect, collect_arrays)
+
+
+# ---------------------------------------------------------------------------
+# window-gather entry (long-read chunks)
+# ---------------------------------------------------------------------------
+
+def sw_extend_win_dispatch(reads: np.ndarray, read_lens: np.ndarray,
+                           genome_dev: torch.Tensor, win_starts: np.ndarray,
+                           win_lens: np.ndarray,
+                           params: SWParams = SWParams(),
+                           bucket: SWBucket = SWBucket()):
+    """Window-gather extension: the (B, <= R) reads ship to the device of
+    the resident genome (the bucket's) and each lane's window,
+    ``win_starts`` + [0, W), is gathered there (code 5 outside it).  K2 then K3 are
+    enqueued and nothing waits for the device: the returned handle is
+    read by :func:`sw_extend_collect` or :func:`sw_extend_collect_arrays`.
+    Calls above ``MAX_LANES_PER_CALL`` lanes split into several."""
+    B = reads.shape[0]
+    if B > MAX_LANES_PER_CALL:
+        return ("multi", [sw_extend_win_dispatch(
+            reads[s:s + MAX_LANES_PER_CALL],
+            read_lens[s:s + MAX_LANES_PER_CALL], genome_dev,
+            win_starts[s:s + MAX_LANES_PER_CALL],
+            win_lens[s:s + MAX_LANES_PER_CALL], params, bucket)
+            for s in range(0, B, MAX_LANES_PER_CALL)])
+    R, W = bucket.max_read_len, bucket.max_win_len
+    if reads.shape[1] > R:
+        raise ValueError("reads exceed the SW bucket's rows")
+    _check_windows(win_lens, bucket)
+    if genome_dev.device.type != torch.device(bucket.device).type:
+        raise ValueError(f"the genome is on {genome_dev.device}, the "
+                         f"bucket on {bucket.device}")
+    rl = np.asarray(read_lens, np.int32)
+    max_steps = _traceback_steps_bound(
+        int(rl.max()) if B else 0,
+        int(np.max(win_lens)) if B else 0, params, bucket)
+    pad = np.full((B, R), 4, np.int8)
+    pad[:, :reads.shape[1]] = reads
+    reads8 = device_reads(pad, genome_dev.device)
+    ridx, rev, rl_d, st, wl_d = _lane_meta(
+        genome_dev.device, np.arange(B), np.zeros(B), rl, win_starts,
+        win_lens)
+    read, win = _lane_inputs(reads8, ridx, rev, rl_d, genome_dev, st, W)
+    return _handle(sw_full(read, rl_d, win, wl_d, params, max_steps),
+                   max_steps, rl)

@@ -1,11 +1,13 @@
 """``align`` stage: FASTQ → coordinate-sorted (optionally bucketed) BAM.
 
-Port of ``falcon_genome_tpu/stages/align.py`` for short reads (the
-long-read ``--long-reads`` path is not ported yet).  Mirrors the
-reference's align driver (src/worker-align.cpp:19-255): per sample
-(sample-sheet loop), per read-group alignment, bucketed sorted output with
+Port of ``falcon_genome_tpu/stages/align.py``.  Mirrors the reference's
+align command (src/worker-align.cpp:19-255): per sample (sample-sheet
+loop), per read-group alignment, bucketed sorted output with
 ``part-%06d.bam`` naming, then merge.  Compute is the in-repo aligner
-engine (minimizer seeding on the host, Smith-Waterman on the device).
+engine (minimizer seeding on the host, Smith-Waterman on the device), or
+with ``--long-reads`` the long-read aligner (``longread.py``: gap-cost
+chaining on the host, chunk Smith-Waterman on the device, single-end
+records).
 
 Record emission is columnar end-to-end: alignments become RecordColumns,
 sorting is a lexsort permutation, and the native encoder writes BAM bytes
@@ -36,13 +38,16 @@ from ..io.sam import FLAG_UNMAPPED
 from ..samples import SampleDetails, load_sample_sheet
 from ..utils.common import (
     check_input, check_output, get_bucket_fname)
-from ..utils.errors import InvalidParam, MissingParam
+from ..utils.errors import MissingParam
 from ..utils.extraopts import ExtraOpts
 
-from ..aligner import AlignerEngine, AlignerParams, alignments_to_columns
+from ..aligner import (
+    AlignerEngine, AlignerParams, IndexParams, alignments_to_columns)
+from ..longread import LongReadAligner, LongReadParams
 from ..parallel import coordinate_order
 from ..pipeline.runner import PipelineRunner, stage
-from .common import header_from_fasta, load_fasta, load_index
+from .common import header_from_fasta, load_fasta, load_index, \
+    load_long_index
 
 log = logging.getLogger("falcon_genome_tpu")
 
@@ -130,8 +135,9 @@ def _align_read_group(engine, det: SampleDetails,
     reader = FastqReader(check_input(det.fastq1),
                          check_input(det.fastq2) if det.fastq2 else None,
                          batch_size=batch_size)
+    long_mode = isinstance(engine, LongReadAligner)
     n = 0
-    if det.fastq2:
+    if not long_mode and det.fastq2:
         # paired reads (the hot path): the engine's dispatch/collect split
         # pipelines WITHOUT threads — while the device computes batch N,
         # this thread decodes + seeds batch N+1 and emits batch N-1's
@@ -158,25 +164,39 @@ def _align_read_group(engine, det: SampleDetails,
                 read_group=det.read_group))
         return n
 
+    def align(b1, b2):
+        if not long_mode:
+            return engine.align_batch(b1.codes, b1.lengths), None
+        # long reads are single-end (no proper-pair model); a second FASTQ
+        # aligns as independent reads (Minimap2Worker takes both files
+        # but minimap has no pairing either)
+        def rows(b):
+            return [b.codes[i, :b.lengths[i]] for i in range(len(b.lengths))]
+        return (engine.align_batch(rows(b1)),
+                engine.align_batch(rows(b2)) if b2 is not None else None)
+
+    def emit(b1, b2, res1, res2):
+        sink.add(alignments_to_columns(b1, res1, read_group=det.read_group))
+        if b2 is not None:
+            sink.add(alignments_to_columns(b2, res2,
+                                           read_group=det.read_group))
+
     # single-end: batch N+1's device work runs in a worker thread while
     # this thread builds batch N's record columns
-    def emit(b1, res1):
-        sink.add(alignments_to_columns(b1, res1, read_group=det.read_group))
-
     with ThreadPoolExecutor(max_workers=1) as pool:
-        pending = None            # (b1, future)
-        for b1, _ in reader:
-            n += len(b1.lengths)
-            fut = pool.submit(engine.align_batch, b1.codes, b1.lengths)
+        pending = None            # (b1, b2, future)
+        for b1, b2 in reader:
+            n += len(b1.lengths) + (len(b2.lengths) if b2 else 0)
+            fut = pool.submit(align, b1, b2)
             if pending is not None:
-                p1, pf = pending
-                pending = (b1, fut)
-                emit(p1, pf.result())
+                p1, p2, pf = pending
+                pending = (b1, b2, fut)
+                emit(p1, p2, *pf.result())
             else:
-                pending = (b1, fut)
+                pending = (b1, b2, fut)
         if pending is not None:
-            p1, pf = pending
-            emit(p1, pf.result())
+            p1, p2, pf = pending
+            emit(p1, p2, *pf.result())
     return n
 
 
@@ -250,8 +270,6 @@ def run_align(conf: Config, ref: str, output: str,
               device: torch.device = DEFAULT_DEVICE) -> list[str]:
     """Returns the list of written BAM paths (one per sample)."""
     device = resolve_device(device)
-    if long_reads:
-        raise InvalidParam("--long-reads: not yet ported")
     xo = ExtraOpts(extra_opts)
     # bwa-flow surface (BWAWorker.cpp:134-147): --chunk_size batches the
     # offload, --num_buckets overrides the bucket-spill width, -R sets
@@ -268,8 +286,19 @@ def run_align(conf: Config, ref: str, output: str,
             sample_id = rg_tags.get("SM", sample_id)
     xo.warn_unused("align")
     fa = load_fasta(ref)
-    engine = AlignerEngine(load_index(ref), AlignerParams(), device=device)
-    batch_size = chunk_override or conf.get("tpu.batch.reads")
+    if long_reads:
+        # minimap-flow analog (Minimap2Worker.cpp:51-106): longer k/w
+        # seeding, gap-cost chaining, no proper-pair model
+        lp = LongReadParams(index=IndexParams(
+            k=conf.get("minimap.k"), w=conf.get("minimap.w"),
+            max_hits=256))
+        engine = LongReadAligner(load_long_index(ref, lp.index), lp,
+                                 device=device)
+        batch_size = chunk_override or conf.get("tpu.batch.long_reads")
+    else:
+        engine = AlignerEngine(load_index(ref), AlignerParams(),
+                               device=device)
+        batch_size = chunk_override or conf.get("tpu.batch.reads")
 
     if sample_sheet:
         sheet = load_sample_sheet(sample_sheet)
@@ -294,7 +323,9 @@ def run_align(conf: Config, ref: str, output: str,
             for d in details for p in (d.fastq1, d.fastq2)
             if p and Path(p).exists())
         spill = fastq_bytes > spill_bytes
-        nb_spill = (num_buckets or conf.get("bwa.num_buckets")) if spill \
+        default_nb = conf.get("minimap.num_buckets" if long_reads
+                              else "bwa.num_buckets")
+        nb_spill = (num_buckets or default_nb) if spill \
             else (num_buckets or 1)
         sink = AlignSink(fa, nb_spill, spill, conf.get("temp_dir"))
         if sink.spill:

@@ -1,6 +1,6 @@
 """Shared stage plumbing: reference/index loading, shard partitioning.
 
-Port of ``falcon_genome_tpu/stages/common.py`` (short-read index only)."""
+Port of ``falcon_genome_tpu/stages/common.py``."""
 from __future__ import annotations
 
 import logging
@@ -58,6 +58,22 @@ def load_index(ref_path: str, params: IndexParams = IndexParams()
         log.info("built aligner index → %s", cache)
     _INDEX_CACHE[key] = idx
     return idx
+
+
+def load_long_index(ref_path: str, params: IndexParams) -> MinimizerIndex:
+    """Long-read index: probe a prebuilt ``.mmi.npz`` next to the
+    reference first (the reference's .mmi swap, Minimap2Worker.cpp
+    check()), else build/cache at the long-read k/w via load_index."""
+    ref_path = check_input(ref_path)
+    for cand in (Path(ref_path).with_suffix(".mmi.npz"),
+                 Path(str(ref_path) + ".mmi.npz")):
+        if cand.exists():
+            key = f"{cand}"
+            if key not in _INDEX_CACHE:
+                log.info("loading prebuilt long-read index %s", cand)
+                _INDEX_CACHE[key] = MinimizerIndex.load(cand)
+            return _INDEX_CACHE[key]
+    return load_index(ref_path, params)
 
 
 def interval_shards(conf: Config, fa: FastaFile) -> list[list[Interval]]:

@@ -12,8 +12,9 @@ and recomputes everything — the reference's per-subcommand re-runnability
 against deterministic artifacts (scripts/pipeline.sh:24-63,
 common.h:232-245) fused into one driver.
 
-Port of ``falcon_genome_tpu/stages/germline.py`` (short reads): align and
-htc run their kernels on ``device``; markdup and bqsr run on the host.
+Port of ``falcon_genome_tpu/stages/germline.py`` (short reads, or long
+reads with ``long_reads``): align and htc run their kernels on
+``device``; markdup and bqsr run on the host.
 """
 from __future__ import annotations
 
@@ -80,7 +81,8 @@ def run_germline(conf: Config, ref: str, output_vcf: str,
             conf, ref, str(aligned), fastq1=fastq1, fastq2=fastq2,
             sample_sheet=sample_sheet, sample_id=sample_id,
             read_group=read_group, long_reads=long_reads, force=True,
-            num_buckets=conf.get("bwa.num_buckets"),
+            num_buckets=conf.get("minimap.num_buckets" if long_reads
+                                 else "bwa.num_buckets"),
             merge=False, extra_opts=extra_opts, device=device)
         _done_marker(work, "align").touch()
     bam = str(bucket_dir)

@@ -10,6 +10,8 @@ drawn from them.  It writes ``ref.fa`` and gzip-free ``reads_1.fastq`` /
 ``reads_2.fastq`` and returns the truth.  :func:`simulate_tumor_normal`
 makes a normal and a tumor sample from one such genome, the tumor with
 somatic SNVs of its own at a given allele fraction.
+:func:`simulate_long_reads` makes ONT-class long reads of a random genome
+(optionally with het SNVs), with each read's true start and strand.
 """
 from __future__ import annotations
 
@@ -53,6 +55,17 @@ class TumorNormal:
     snps: dict[int, int]              # germline: 0-based pos → alt code
     indels: list[tuple[int, str, str]]  # germline (1-based VCF pos, REF, ALT)
     somatic: dict[int, int]           # tumor only: 0-based pos → alt code
+
+
+@dataclasses.dataclass
+class LongReads:
+    ref: str
+    fastq: str
+    n_reads: int
+    n_bases: int
+    truth: list[tuple[int, bool]]     # read lr<i>: (0-based start, reverse)
+    snps: dict[int, int]              # het SNVs: 0-based pos → alt code
+    indels: list[tuple[int, str, str]]  # none planted (for score_calls)
 
 
 def host_extension_available() -> bool:
@@ -242,7 +255,85 @@ def simulate_tumor_normal(out_dir, genome_len: int, seed: int,
                        snps, indels, somatic)
 
 
-def score_calls(vcf_path: str, sample: Sample) -> dict[str, float]:
+def simulate_long_reads(out_dir, genome_len: int, coverage: float,
+                        seed: int, median: int = 10_000, sigma: float = 0.45,
+                        min_len: int = 3_000, max_len: int = 30_000,
+                        n_snps: int = 0, error_rate: float = 0.05,
+                        insertions: bool = False,
+                        contig: str = "chr1") -> LongReads:
+    """ONT-class reads of a random genome: lengths log-normal around
+    ``median`` (``sigma`` of the log) clipped to [min_len, max_len], errors
+    at ``error_rate`` (60% substitutions, 40% deletions; with
+    ``insertions`` a third each of insertions, deletions and
+    substitutions, the profile of the reference's long-read tests),
+    either strand at random, starts uniform, until the bases reach
+    ``coverage`` x the genome.  With ``n_snps`` het SNVs (at least 100 bp
+    apart, 1 kb from the ends) each read comes from either haplotype with
+    equal chance.  Writes ``ref.fa`` and ``long_reads.fastq`` (quality
+    40)."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_len).astype(np.uint8)
+    sites = np.arange(1000, genome_len - 1000, 100)
+    snp_pos = np.sort(rng.choice(sites, n_snps, replace=False))
+    alt = (genome[snp_pos] + rng.integers(1, 4, n_snps)) % 4
+    hap = genome.copy()
+    hap[snp_pos] = alt
+    write_fasta(out / "ref.fa", {contig: decode_seq(genome)})
+    truth, names, seqs, total = [], [], [], 0
+    while total < coverage * genome_len:
+        L = int(np.clip(median * np.exp(sigma * rng.standard_normal()),
+                        min_len, min(max_len, genome_len - 1)))
+        p = int(rng.integers(0, genome_len - L))
+        r = (hap if n_snps and rng.random() < 0.5 else genome)[p:p + L]
+        u = rng.random(L)
+        if insertions:      # a random base before base i, base i kept
+            ins = u < error_rate / 3
+            dele = (u >= error_rate / 3) & (u < 2 * error_rate / 3)
+            sub = (u >= 2 * error_rate / 3) & (u < error_rate)
+            r = np.where(sub, (r + rng.integers(1, 4, L)) % 4, r)[~dele]
+            at = np.flatnonzero(ins[~dele])
+            r = np.insert(r, at, rng.integers(0, 4, len(at)))
+        else:
+            sub = rng.random(L) < 0.6
+            r = np.where((u < error_rate) & sub, (r + 1) % 4,
+                         r)[~((u < error_rate) & ~sub)]
+        rev = bool(rng.random() < 0.5)
+        if rev:
+            r = (3 - r[::-1]).astype(np.uint8)
+        names.append(f"lr{len(truth)}")
+        seqs.append(r.astype(np.uint8))
+        truth.append((p, rev))
+        total += len(r)
+    fq = out / "long_reads.fastq"
+    with open(fq, "wb") as f:
+        for name, r in zip(names, seqs):
+            f.write(b"@" + name.encode() + b"\n" + _ASCII[r].tobytes()
+                    + b"\n+\n" + b"I" * len(r) + b"\n")
+    return LongReads(str(out / "ref.fa"), str(fq), len(truth), total, truth,
+                     dict(zip(snp_pos.tolist(), alt.tolist())), [])
+
+
+def score_long_alignments(bam_path: str, reads: LongReads
+                          ) -> dict[str, float]:
+    """The share of reads mapped, and of mapped reads placed within 100 bp
+    of their true start on the right strand."""
+    from .io.bam import read_bam
+    _, recs = read_bam(bam_path)
+    mapped = placed = 0
+    for r in recs:
+        if r.is_unmapped:
+            continue
+        mapped += 1
+        pos, rev = reads.truth[int(r.qname[2:])]
+        placed += abs(r.pos - pos) < 100 and r.is_reverse == rev
+    return dict(n_records=len(recs), mapped=mapped / reads.n_reads,
+                placed=placed / max(1, mapped))
+
+
+def score_calls(vcf_path: str, sample: Sample | LongReads
+                ) -> dict[str, float]:
     """SNP/indel sensitivity and precision of a VCF against the truth.
 
     A SNP call is right when its position and alt allele match; an indel

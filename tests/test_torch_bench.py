@@ -165,13 +165,14 @@ def test_fma_plain_rounds_once():
 TINY = dict(B=8, R_REAL=20, H_REAL=40, BUCKET_R=24, BUCKET_H=40, SW_B=8,
             SW_R_REAL=20, SW_W_REAL=40, SW_BUCKET_R=24, SW_BUCKET_W=48,
             ALIGN_GENOME=20_000, ALIGN_READS=50, PAIR_GENOME=20_000,
-            PAIR_FRAGS=30, GERMLINE_GENOME=6000, N_INNER=1)
+            PAIR_FRAGS=30, LONG_GENOME=20_000, LONG_READS=4, LONG_LEN=1500,
+            GERMLINE_GENOME=6000, N_INNER=1)
 
 
 def test_bench_run_gives_the_reference_keys(tmp_path, monkeypatch):
     """Every metric of the reference's JSON line that the port carries
     (the reference's Pallas ceiling drops the word ``pallas``; its TPU
-    issue-slot counts and the long-read rate are not carried over)."""
+    issue-slot counts are not carried over)."""
     for name, value in TINY.items():
         monkeypatch.setattr(bench, name, value)
     res = bench.run(torch.device("cpu"), [torch.device("cpu")] * 2,
@@ -182,11 +183,12 @@ def test_bench_run_gives_the_reference_keys(tmp_path, monkeypatch):
     assert set(res["extras"]) == {
         "pairhmm_mesh_gcups", "mesh_chips", "sw_score_gcups",
         "align_reads_per_s", "align_mapped_frac", "align_pair_reads_per_s",
-        "align_pair_mapped_frac", "fma_ceiling_gflops", "pairhmm_mfu",
+        "align_pair_mapped_frac", "longread_mbp_per_s",
+        "fma_ceiling_gflops", "pairhmm_mfu",
         "germline_e2e_reads_per_s", "germline_e2e_sensitivity",
         "germline_e2e_extra_calls"}
     ex = res["extras"]
-    assert ex["mesh_chips"] == 2
+    assert ex["mesh_chips"] == 2 and ex["longread_mbp_per_s"] > 0
     assert ex["align_mapped_frac"] > 0.9 and ex["align_pair_mapped_frac"] > 0.9
     assert ex["germline_e2e_sensitivity"] == 1.0
     assert ex["germline_e2e_extra_calls"] == 0

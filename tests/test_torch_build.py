@@ -281,11 +281,18 @@ def test_entry_points_default_to_the_card(tmp_path):
                  "stages.calling.run_htc", "stages.calling.run_mutect2",
                  "stages.germline.run_germline",
                  "aligner.AlignerEngine.__init__",
-                 "models.haplotypecaller.read_hap_likelihood_matrix"):
+                 "models.haplotypecaller.read_hap_likelihood_matrix",
+                 "longread.LongReadAligner.__init__",
+                 "stages.indel.run_indel"):
         assert f"falcon_genome_tpu_torch.{name}" in defaults, name
     assert DEFAULT_DEVICE == torch.device("cuda")
     wrong = {k: v for k, v in defaults.items() if v != DEFAULT_DEVICE}
     assert not wrong, wrong
+    # the window-gather entry takes its device from its bucket
+    import inspect
+    bucket = inspect.signature(
+        smith_waterman.sw_extend_win_dispatch).parameters["bucket"]
+    assert bucket.default.device == DEFAULT_DEVICE
     if torch.cuda.is_available():
         return
     from falcon_genome_tpu_torch.config import Config, Machine
@@ -323,3 +330,13 @@ def test_entry_points_default_to_the_card(tmp_path):
     with pytest.raises((RuntimeError, AssertionError)):
         pairhmm.pairhmm_logp(reads, np.full((4, 64), 30, np.uint8), 45, 45,
                              10, lens, reads, lens)
+    from falcon_genome_tpu_torch.aligner import IndexParams, MinimizerIndex
+    from falcon_genome_tpu_torch.longread import LongReadAligner
+    from falcon_genome_tpu_torch.stages import run_indel
+    idx = MinimizerIndex([("chr1", ref)], IndexParams(k=19, w=10))
+    with pytest.raises((RuntimeError, AssertionError)):
+        LongReadAligner(idx).align_batch([ref[100:1100]])
+    with pytest.raises(DeviceUnavailable, match="no CUDA device"):
+        run_indel(conf, str(tmp_path / "ref.fa"), str(tmp_path / "in.bam"),
+                  str(tmp_path / "out.bam"))
+    assert {p.name for p in tmp_path.iterdir()} == before

@@ -187,8 +187,11 @@ def phred_planes(rl, R, ins, dele, gcp):
 
 # read and haplotype buckets of the card tests: the main shape, then one
 # bucket for each kind of instantiation (rows not a multiple of 32, one
-# row per thread, eight rows per thread) with short and long haplotypes
-PAIRHMM_SHAPES = [(160, 384), (8, 128), (96, 128), (256, 512), (150, 512)]
+# row per thread, eight rows per thread) with short and long haplotypes,
+# and the 64-bit mask window of long reads clipped to active regions
+# (10 rows a thread, ragged; 12, full)
+PAIRHMM_SHAPES = [(160, 384), (8, 128), (96, 128), (256, 512), (150, 512),
+                  (300, 384), (384, 512)]
 
 
 @pytest.fixture
@@ -380,3 +383,93 @@ def test_sw_ablate_kernel_all_flags_on_card(cuda_device, R, W, flags):
     torch.cuda.synchronize()
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+def gathered_lanes(seed, G, B, R=160, W=256):
+    """Long-read chunk lanes: a random genome of G bases and B reads of
+    100-144 bases cut from it with 5% substitutions, their windows of 240
+    bases starting 30 before them; the first lanes' windows start before
+    the genome, the last ones run past its end (code 5 there)."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, G).astype(np.uint8)
+    reads = np.full((B, R), 4, np.uint8)
+    rl = rng.integers(100, 145, B).astype(np.int32)
+    starts = rng.integers(-60, G - 120, B).astype(np.int32)
+    starts[:8] = -np.arange(1, 9) * 20
+    starts[-8:] = G - np.arange(2, 10) * 30
+    for b in range(B):
+        seg = genome[max(starts[b] + 30, 0):][:rl[b]]
+        rl[b] = len(seg)
+        reads[b, :len(seg)] = np.where(rng.random(len(seg)) < 0.05,
+                                       (seg + 1) % 4, seg)
+    return genome, reads, rl, starts, np.full(B, W - 16, np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_lanes", [8192, 1024])
+def test_sw_win_dispatch_matches_plain_on_card(cuda_device, max_lanes,
+                                               monkeypatch):
+    """K2 then K3 through ``sw_extend_win_dispatch`` at the long-read
+    bucket 160 x 256, windows gathered on the card from the resident
+    genome (past both of its ends too), against the plain versions on the
+    CPU: ops, lengths, counts, coordinates and scores bit-equal; 3000
+    lanes in one call and split at a smaller ``MAX_LANES_PER_CALL``."""
+    monkeypatch.setattr(S, "MAX_LANES_PER_CALL", max_lanes)
+    genome, reads, rl, starts, wl = gathered_lanes(max_lanes, 200_000, 3000)
+    p = S.SWParams()
+    want, got = (S.sw_extend_collect_arrays(S.sw_extend_win_dispatch(
+        reads, rl, S.device_genome(genome, dev), starts, wl, p,
+        S.SWBucket(160, 256, dev))) for dev in (torch.device("cpu"),
+                                               cuda_device))
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+    assert (got[4] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,W", [(160, 384), (160, 256)])
+def test_sw_kernels_stop_at_w_on_card(cuda_device, R, W):
+    """Lanes whose wlen exceeds W (a quarter of them, by R): K1-K3 stop at
+    column W as the plain versions do, bit for bit, at indel's 160 x 384
+    and the long-read bucket."""
+    read, rl, win, wl = sw_lanes(7 + R, R, W, 256)
+    wl[0, ::4] = W + R
+    p = S.SWParams()
+    lanes = [torch.from_numpy(np.ascontiguousarray(x)) for x in (
+        read.T.astype(np.int8), rl[0], win.T.astype(np.int8), wl[0])]
+    want_s, want_p = S.sw_score(*lanes, p)
+    want = S.sw_full(*lanes, p, R + W)
+    dev = [x.to(cuda_device) for x in lanes]
+    got_s, got_p = S.sw_score(*dev, p)
+    got = S.sw_full(*dev, p, R + W)
+    torch.cuda.synchronize()
+    assert torch.equal(got_s.cpu(), want_s)
+    assert torch.equal(got_p.cpu(), want_p)
+    for g, x in zip(got, want):
+        assert torch.equal(g.cpu(), x)
+
+
+@pytest.mark.cuda
+def test_long_read_aligner_on_card_equals_cpu(cuda_device):
+    """``LongReadAligner.align_batch`` on the card and on the CPU: 24
+    reads of 2-4 kb with 5% substitutions and deletions, both strands,
+    give equal alignments."""
+    from falcon_genome_tpu_torch.aligner import IndexParams, MinimizerIndex
+    from falcon_genome_tpu_torch.io.dna import revcomp_codes
+    from falcon_genome_tpu_torch.longread import LongReadAligner
+    rng = np.random.default_rng(17)
+    genome = rng.integers(0, 4, 300_000).astype(np.uint8)
+    idx = MinimizerIndex([("chr1", genome)], IndexParams(19, 10, 256))
+    reads = []
+    for t in range(24):
+        p = int(rng.integers(0, len(genome) - 5000))
+        r = genome[p:p + int(rng.integers(2000, 4000))].copy()
+        err = rng.random(len(r)) < 0.05
+        sub = rng.random(len(r)) < 0.6
+        r[err & sub] = (r[err & sub] + 1) % 4
+        r = r[~(err & ~sub)]
+        reads.append(revcomp_codes(r) if t % 2 else r)
+    want, got = (LongReadAligner(idx, device=dev).align_batch(reads)
+                 for dev in (torch.device("cpu"), cuda_device))
+    assert [vars(a) for a in want] == [vars(a) for a in got]
+    assert all(a.mapped for a in got)

@@ -339,8 +339,8 @@ def test_base_mask_reproduces_the_match_rule():
 @pytest.mark.parametrize("fault", ["dtype", "device", "rows"])
 def test_kernel_input_checks_refuse(wrapper, fault):
     """What the wrappers refuse before a launch: a wrong dtype, tensors
-    on two devices, a read bucket past 256 rows."""
-    R = 264 if fault == "rows" else 16
+    on two devices, a read bucket past 384 rows."""
+    R = 392 if fault == "rows" else 16
     u8 = torch.zeros((4, R), dtype=torch.uint8)
     i32 = torch.zeros(4, dtype=torch.int32)
     typed = [(u8, torch.uint8), (u8, torch.uint8), (i32, torch.int32),

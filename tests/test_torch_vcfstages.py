@@ -8,8 +8,10 @@ the CLI's flags), ``vcf_filter``, ``joint`` on two gVCFs from the port's
 joint merge's GenotypeGVCFs semantics (``tests/test_joint_fidelity.py``)
 hold on the port.  ``baserecal`` then ``printreads`` through the port's
 CLI give the table and BAM of ``bqsr``; ``conf`` prints the
-configuration; and for every one of the reference's 16 commands a bad
-argument vector exits with the reference's code.
+configuration; ``gatk`` translates GATK4- and GATK3-style walker
+invocations (and ``-ERC GVCF``) as the reference does, with the same
+outputs and exit codes; and for every one of the reference's 16 commands
+a bad argument vector exits with the reference's code.
 """
 from pathlib import Path
 
@@ -313,6 +315,47 @@ def test_conf_prints_the_configuration(capsys):
     assert jcli.main(["conf"]) == 0
 
 
+GATK_CASES = {
+    "gatk4_haplotypecaller": (["HaplotypeCaller", "-R", "{ref}", "-I",
+                               "{bam}", "-O", "{out}.vcf.gz", "-f"],
+                              ".vcf.gz"),
+    "gatk3_unifiedgenotyper": (["-T", "UnifiedGenotyper", "-R", "{ref}",
+                                "-I", "{bam}", "-o", "{out}.vcf", "-f"],
+                               ".vcf"),
+    "gatk4_gvcf": (["HaplotypeCaller", "-R", "{ref}", "-I", "{bam}",
+                    "-ERC", "GVCF", "-O", "{out}.g.vcf.gz", "-f"],
+                   ".g.vcf.gz"),
+    "unknown_walker": (["-T", "NopeWalker", "-R", "{ref}"], None),
+}
+
+
+@pytest.mark.parametrize("case", list(GATK_CASES))
+def test_gatk_passthrough_matches_reference(world, conf, tmp_path,
+                                            monkeypatch, case):
+    """``gatk`` with a walker in GATK4 style, in GATK3 ``-T`` style, with
+    ``-ERC GVCF`` (a gVCF instead of ``--produce-vcf``), and an unknown
+    walker: the port's exit code and output are the reference's."""
+    import falcon_genome_tpu.config as jconfig
+    import falcon_genome_tpu_torch.config as tconfig
+    monkeypatch.setattr(jconfig, "init", lambda: conf)
+    monkeypatch.setattr(tconfig, "init", lambda: convert.config(conf))
+    args, suffix = GATK_CASES[case]
+
+    def argv(name):
+        return ["gatk"] + [a.format(ref=world["ref"], bam=world["bam"],
+                                    out=tmp_path / name) for a in args]
+    want = _exit_code(jcli.main, argv("ref"))
+    got = _exit_code(tcli.main, ["--device", "cpu", *argv("port")])
+    assert got == want == (1 if suffix is None else 0)
+    if suffix is None:
+        return
+    recs = _same_vcf(str(tmp_path / f"ref{suffix}"),
+                     str(tmp_path / f"port{suffix}"))
+    variants = {(r.contig, r.pos) for r in recs if not r.is_gvcf_block}
+    assert ("chr1", 1001) in variants
+    assert any(r.is_gvcf_block for r in recs) == (case == "gatk4_gvcf")
+
+
 def _bad_argv(cmd: str, tmp: Path) -> list[str]:
     """A vector the command refuses: an input that does not exist, or a
     missing required option (argparse)."""
@@ -351,14 +394,10 @@ def _exit_code(main, argv) -> int:
 @pytest.mark.parametrize("cmd", list(jcli.COMMANDS))
 def test_cli_exit_codes_match_reference(cmd, tmp_path):
     """Every command of the reference on a bad argument vector: the
-    port's exit code is the reference's; indel and gatk are not ported
-    and exit 1 (invalid parameter)."""
+    port's exit code is the reference's."""
     argv = _bad_argv(cmd, tmp_path)
     got = _exit_code(tcli.main, ["--device", "cpu", *argv])
-    if cmd in tcli.NOT_PORTED:
-        assert got == 1
-        return
-    assert cmd in tcli.COMMANDS
+    assert list(tcli.COMMANDS) == list(jcli.COMMANDS)
     want = _exit_code(jcli.main, argv)
     assert got == want
     assert want != 0 or cmd == "conf"
