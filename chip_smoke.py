@@ -35,9 +35,12 @@ Phases (each prints its numbers; any failure exits non-zero):
    cuda``: BAMs record-equivalent, VCF with 0 non-concordant records;
 6. the multi-device path: (a) on a 4-shard mesh over the visible cards
    (``cuda:(i % count)``) the sharded steps (K5 on every shard plus the
-   summed BQSR histogram) and ``pairhmm_logp`` with planes equal the
-   single-device K5 call, and ``accumulate_table`` / ``coordinate_order``
-   equal their single-device results on the 50 kb sample's records;
+   summed BQSR histogram), ``pairhmm_logp`` with planes and
+   ``pairhmm_logp_pairs`` equal the single-device K5 call and calls, and
+   ``accumulate_table`` / ``coordinate_order`` equal their single-device
+   results on the 50 kb sample's records; the sharded step's time over
+   one K5 call's, and its ``torch.profiler`` trace per card (kernels,
+   copies, busy ms, idle share, longest gap; ``benchmarks/mesh_trace.py``);
    (b) ``bqsr`` and ``htc`` through the CLI in two ``gloo`` processes
    (``tpu.dist.*``) equal a single-process run: recal table and BAM,
    VCF records; (c) only where more than one card is visible (``chiprun
@@ -1277,6 +1280,7 @@ def phase_mesh(torch, P, validate, sample, run_dir: Path, k5_args, results,
                devs) -> None:
     """(a): a 4-shard mesh over ``devs`` against one device."""
     from falcon_genome_tpu_torch import parallel as TP
+    from falcon_genome_tpu_torch.benchmarks import mesh_trace
     from falcon_genome_tpu_torch.bqsr import (
         MAX_CYCLE, N_CONTEXT, accumulate_table)
 
@@ -1299,6 +1303,14 @@ def phase_mesh(torch, P, validate, sample, run_dir: Path, k5_args, results,
         return P.pairhmm_logp(host[0], host[1], host[2], host[3], host[4],
                               host[5], host[6], host[7], params)
 
+    # HaplotypeCaller's pair-indexed batch: 128 reads x 64 haplotypes
+    pr, ph = np.repeat(np.arange(128), 64), np.tile(np.arange(64), 128)
+
+    def logp_pairs():
+        return P.pairhmm_logp_pairs(host[0][:128], host[1][:128],
+                                    host[5][:128], host[6][:64],
+                                    host[7][:64], pr, ph, 45, 45, 10, params)
+
     cols, covs, rgs = validate.bam_covariates(str(run_dir / "dedup.bam"),
                                               sample.ref)
 
@@ -1306,6 +1318,7 @@ def phase_mesh(torch, P, validate, sample, run_dir: Path, k5_args, results,
     want = P.pairhmm_pb(read, bq, iq, dq, gq, rl, hp, hl)
     with TP.use_mesh(None):
         want_logp = logp_planes()
+        want_pairs = logp_pairs()
         want_order = TP.coordinate_order(cols)
         want_table = accumulate_table(covs, rgs)
     torch.cuda.synchronize()
@@ -1319,6 +1332,7 @@ def phase_mesh(torch, P, validate, sample, run_dir: Path, k5_args, results,
         read, bq, iq, dq, gq, rl, hl, hp, *cov)
     with TP.use_mesh(mesh):
         got_logp = logp_planes()
+        got_pairs = logp_pairs()
         got_order = TP.coordinate_order(cols)
         got_table = accumulate_table(covs, rgs)
     torch.cuda.synchronize()
@@ -1330,6 +1344,8 @@ def phase_mesh(torch, P, validate, sample, run_dir: Path, k5_args, results,
           "germline_train_step histogram sum differs from the count")
     check(np.array_equal(got_logp, want_logp),
           "pairhmm_logp with planes differs under the mesh")
+    check(np.array_equal(got_pairs, want_pairs),
+          "pairhmm_logp_pairs differs under the mesh")
     check(np.array_equal(got_order, want_order),
           "coordinate_order differs under the mesh")
     same_table = all(np.array_equal(getattr(got_table, f),
@@ -1346,10 +1362,14 @@ def phase_mesh(torch, P, validate, sample, run_dir: Path, k5_args, results,
         f" and germline_train_step R={R} H={H} B={B} bit-equal to one K5 "
         f"call ({int(torch.isfinite(want).sum())} finite); histogram "
         f"{n_cov} covariates summed exactly; pairhmm_logp with planes "
-        f"bit-equal; coordinate_order of {len(cols)} records and "
+        f"and pairhmm_logp_pairs (128 reads x 64 haplotypes) bit-equal; "
+        f"coordinate_order of {len(cols)} records and "
         f"accumulate_table of {len(covs['rg'])} bases equal; K5 launches "
         f"{launches}; {wall:.2f} s; sharded_pairhmm_step {t_mesh:.3f} ms "
-        f"vs one K5 call {t_one:.3f} ms")
+        f"vs one K5 call {t_one:.3f} ms: {t_mesh / t_one:.3f}x")
+    trace = mesh_trace.trace_summary(
+        lambda: step(read, bq, iq, dq, gq, rl, hl, hp))
+    say(json.dumps({"mesh_step_trace": trace}))
     results["fgt_pairhmm_pb"]["launches"] = launches
 
 

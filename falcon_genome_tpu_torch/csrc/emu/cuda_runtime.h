@@ -1,9 +1,17 @@
 // Stand-in for <cuda_runtime.h>: compiles a CUDA source of this package
 // with g++ and runs its kernels on the host, for tests on machines without
-// a card (tests/test_torch_sw_emulated.py).
+// a card (tests/test_torch_*_emulated.py).
 //
 //   g++ -std=c++17 -O1 -fPIC -shared -I csrc/emu -x c++ csrc/smith_waterman.cu
 //   g++ ... -x c++ csrc/bench_kernels.cu
+//   g++ ... -mfma -ffp-contract=off -DFGT_EMU_FTZ -x c++ csrc/pairhmm.cu
+//
+// The last line mirrors nvcc's -ftz=true --fmad=false for pairhmm.cu:
+// FGT_EMU_FTZ sets flush-to-zero and denormals-are-zero in MXCSR for the
+// length of each launch (and restores it after, so the caller's float
+// arithmetic is untouched), -ffp-contract=off keeps g++ from fusing what
+// the source does not, and -mfma makes __fmaf_rn one rounding in hardware
+// under that MXCSR.
 //
 // A launch runs the blocks one after another.  The threads of a block run
 // as coroutines (ucontext), each on a stack of its own; a thread runs until
@@ -26,6 +34,13 @@
 
 #include <functional>
 #include <vector>
+
+#ifdef FGT_EMU_FTZ
+#if !defined(__x86_64__)
+#error "FGT_EMU_FTZ sets flush-to-zero through MXCSR: x86-64 only"
+#endif
+#include <xmmintrin.h>
+#endif
 
 #define __global__
 #define __device__
@@ -163,8 +178,20 @@ inline T* dynamic_smem() {
   return reinterpret_cast<T*>(rt.smem.data());
 }
 
+// MXCSR's flush-to-zero (bit 15) and denormals-are-zero (bit 6) for the
+// life of the object, where the source is built with FGT_EMU_FTZ; the
+// lanes' contexts are made under it (a context carries MXCSR)
+struct FlushDenormals {
+#ifdef FGT_EMU_FTZ
+  unsigned saved = _mm_getcsr();
+  FlushDenormals() { _mm_setcsr(saved | 0x8040u); }
+  ~FlushDenormals() { _mm_setcsr(saved); }
+#endif
+};
+
 template <class F>
 inline void launch(int grid, int block, size_t smem, F kernel) {
+  const FlushDenormals ftz;
   rt.body = kernel;
   rt.lanes = std::vector<Lane>(block);
   for (Lane& l : rt.lanes) l.stack.resize(kStack);
@@ -228,6 +255,17 @@ inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
 inline unsigned __ballot_sync(unsigned, int pred) {
   return fgt_emu::ballot(pred);
 }
+
+inline int __any_sync(unsigned, int pred) {
+  return fgt_emu::ballot(pred) != 0u;
+}
+
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
+
+inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 

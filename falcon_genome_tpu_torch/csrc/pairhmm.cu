@@ -101,6 +101,16 @@
 
 #include <type_traits>
 
+#ifdef __CUDACC__
+#define FGT_DYNAMIC_SMEM(T, name) extern __shared__ T name[]
+#define FGT_LAUNCH(kernel, grid, block, smem, stream, ...) \
+  kernel<<<grid, block, smem, stream>>>(__VA_ARGS__)
+#else  // g++ against csrc/emu/cuda_runtime.h: a host loop over the blocks
+#define FGT_DYNAMIC_SMEM(T, name) T* name = fgt_emu::dynamic_smem<T>()
+#define FGT_LAUNCH(kernel, grid, block, smem, stream, ...) \
+  fgt_emu::launch(grid, block, smem, [=] { kernel(__VA_ARGS__); })
+#endif
+
 namespace {
 
 constexpr int kWarps = 8;  // pairs (warps) per block: 8 timed 4% below 4
@@ -251,7 +261,7 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
                const int* __restrict__ hlen, int B, int R, int H, Trans tr,
                float* __restrict__ acc_out,
                float* __restrict__ shift_out) {
-  extern __shared__ uint8_t hs_all[];
+  FGT_DYNAMIC_SMEM(uint8_t, hs_all);
   constexpr int kPad = 32 * NR;  // bytes in front of the haplotype
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
@@ -370,20 +380,19 @@ struct Call {
 template <int NR, bool kPerBase, bool kRagged>
 int launch_pairhmm(const Call& a) {
   const size_t smem = (size_t)kWarps * (32 * NR + a.H + a.R);
+  auto* kernel = pairhmm_kernel<NR, kPerBase, kRagged>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        pairhmm_kernel<NR, kPerBase, kRagged>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int grid = (a.B + kWarps - 1) / kWarps;
   if (grid > 0) {
-    pairhmm_kernel<NR, kPerBase, kRagged>
-        <<<grid, kWarps * 32, smem, (cudaStream_t)a.stream>>>(
-            (const uint8_t*)a.read, (const uint8_t*)a.base_q,
-            (const float*)a.prob, (const int*)a.rlen, (const uint8_t*)a.hap,
-            (const int*)a.hlen, a.B, a.R, a.H, a.tr, (float*)a.acc_out,
-            (float*)a.shift_out);
+    FGT_LAUNCH(kernel, grid, kWarps * 32, smem, (cudaStream_t)a.stream,
+               (const uint8_t*)a.read, (const uint8_t*)a.base_q,
+               (const float*)a.prob, (const int*)a.rlen,
+               (const uint8_t*)a.hap, (const int*)a.hlen, a.B, a.R, a.H,
+               a.tr, (float*)a.acc_out, (float*)a.shift_out);
   }
   return (int)cudaGetLastError();
 }

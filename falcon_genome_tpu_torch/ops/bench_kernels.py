@@ -102,14 +102,23 @@ def fma_ceiling(x: torch.Tensor, trips: int) -> torch.Tensor:
         raise ValueError(f"fma_ceiling: rows 1-1024 and trips a multiple of"
                          f" {FMA_UNROLL} (got {R}, {trips})")
     with torch.cuda.device(x.device):
-        x = x.contiguous()
-        out = torch.empty(B, dtype=torch.float32, device=x.device)
-        err = _build.load().fgt_fma_ceiling(
-            x.data_ptr(), R, B, trips, FMA_A, FMA_B, 0.0, out.data_ptr(),
+        out = _fma_ceiling_launch(
+            _build.load(), x.contiguous(), trips,
             torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(err, "fgt_fma_ceiling")
         _count("fgt_fma_ceiling")
         return out
+
+
+def _fma_ceiling_launch(lib, x: torch.Tensor, trips: int, stream
+                        ) -> torch.Tensor:
+    """Launch K6 from ``lib`` on a contiguous (R, B) float32 ``x``;
+    returns (B,) on its device."""
+    R, B = x.shape
+    out = torch.empty(B, dtype=torch.float32, device=x.device)
+    err = lib.fgt_fma_ceiling(x.data_ptr(), R, B, trips, FMA_A, FMA_B, 0.0,
+                              out.data_ptr(), stream)
+    _build.check(err, "fgt_fma_ceiling")
+    return out
 
 
 def _sw_ablate_plain(read, rlen, win, wlen, params: SWParams, *,

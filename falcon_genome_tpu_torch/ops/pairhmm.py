@@ -22,7 +22,10 @@ transition planes).  CPU tensors run the plain version
 (:func:`_pairhmm_plain`, the twin of the reference's ``_pairhmm_jax``),
 CUDA tensors launch the kernel or raise; the kernels take the phreds as
 the uint8 they are and turn them into probabilities through a 256-entry
-table that :func:`_phred_to_prob` fills once per device.
+table that :func:`_phred_to_prob` fills once per device.  The launches
+are helpers that take the kernel library (``_pairhmm_*_launch``), so a
+host build of the CUDA source runs them on CPU tensors (see
+``tests/test_torch_pairhmm_emulated.py``).
 :func:`pairhmm_logp` routes as the reference does: all three transitions
 scalar → K4, any of them a plane → K5 with the scalars broadcast to
 planes; under an active device mesh (``parallel.mesh``) it splits the
@@ -237,6 +240,41 @@ def _check_kernel_inputs(name: str, R: int, typed) -> None:
             raise TypeError(f"{name}: expected {dt} on {dev}")
 
 
+def _pairhmm_sc_launch(lib, read, base_q, rlen, hap, hlen, trans, stream
+                       ) -> torch.Tensor:
+    """Launch K4 from ``lib`` on contiguous inputs with the float32
+    transitions ``trans`` (:func:`_transitions`); returns (B,) log10 on
+    the inputs' device."""
+    B, R = read.shape
+    H = hap.shape[1]
+    table = _prob_table(read.device)
+    acc = torch.empty(B, dtype=torch.float32, device=read.device)
+    sh = torch.empty(B, dtype=torch.float32, device=read.device)
+    err = lib.fgt_pairhmm(
+        read.data_ptr(), base_q.data_ptr(), table.data_ptr(),
+        rlen.data_ptr(), hap.data_ptr(), hlen.data_ptr(), B, R, H, *trans,
+        acc.data_ptr(), sh.data_ptr(), stream)
+    _build.check(err, "fgt_pairhmm")
+    return _finish(acc, sh)
+
+
+def _pairhmm_pb_launch(lib, read, planes, rlen, hap, hlen, stream
+                       ) -> torch.Tensor:
+    """Launch K5 from ``lib`` on contiguous inputs, ``planes`` = (base_q,
+    ins_q, del_q, gcp); returns (B,) log10 on the inputs' device."""
+    B, R = read.shape
+    H = hap.shape[1]
+    table = _prob_table(read.device)
+    acc = torch.empty(B, dtype=torch.float32, device=read.device)
+    sh = torch.empty(B, dtype=torch.float32, device=read.device)
+    err = lib.fgt_pairhmm_pb(
+        read.data_ptr(), *(q.data_ptr() for q in planes), table.data_ptr(),
+        rlen.data_ptr(), hap.data_ptr(), hlen.data_ptr(), B, R, H,
+        acc.data_ptr(), sh.data_ptr(), stream)
+    _build.check(err, "fgt_pairhmm_pb")
+    return _finish(acc, sh)
+
+
 def pairhmm_sc(read, base_q, rlen, hap, hlen, ins_q: int, del_q: int,
                gcp: int) -> torch.Tensor:
     """PairHMM with scalar transition phreds (kernel K4).
@@ -259,21 +297,14 @@ def pairhmm_sc(read, base_q, rlen, hap, hlen, ins_q: int, del_q: int,
         (rlen, torch.int32), (hlen, torch.int32)])
     dev = read.device
     with torch.cuda.device(dev):
-        read, base_q, hap, rlen, hlen = (
-            t.contiguous() for t in (read, base_q, hap, rlen, hlen))
-        table = _prob_table(dev)
-        acc = torch.empty(B, dtype=torch.float32, device=dev)
-        sh = torch.empty(B, dtype=torch.float32, device=dev)
-        err = _build.load().fgt_pairhmm(
-            read.data_ptr(), base_q.data_ptr(), table.data_ptr(),
-            rlen.data_ptr(), hap.data_ptr(), hlen.data_ptr(), B, R, H,
-            *_transitions(int(ins_q), int(del_q), int(gcp)),
-            acc.data_ptr(), sh.data_ptr(),
+        out = _pairhmm_sc_launch(
+            _build.load(), *(t.contiguous() for t in (read, base_q, rlen,
+                                                      hap, hlen)),
+            _transitions(int(ins_q), int(del_q), int(gcp)),
             torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "fgt_pairhmm")
         with _launch_lock:
             LAUNCHES["fgt_pairhmm"] += 1
-        return _finish(acc, sh)
+        return out
 
 
 def pairhmm_pb(read, base_q, ins_q, del_q, gcp, rlen, hap, hlen
@@ -300,42 +331,54 @@ def pairhmm_pb(read, base_q, ins_q, del_q, gcp, rlen, hap, hlen
         (hlen, torch.int32), *((q, torch.uint8) for q in planes)])
     dev = read.device
     with torch.cuda.device(dev):
-        read, hap, rlen, hlen = (t.contiguous()
-                                 for t in (read, hap, rlen, hlen))
-        planes = [q.contiguous() for q in planes]
-        table = _prob_table(dev)
-        acc = torch.empty(B, dtype=torch.float32, device=dev)
-        sh = torch.empty(B, dtype=torch.float32, device=dev)
-        err = _build.load().fgt_pairhmm_pb(
-            read.data_ptr(), *(q.data_ptr() for q in planes),
-            table.data_ptr(), rlen.data_ptr(), hap.data_ptr(),
-            hlen.data_ptr(), B, R, H, acc.data_ptr(), sh.data_ptr(),
+        out = _pairhmm_pb_launch(
+            _build.load(), read.contiguous(),
+            [q.contiguous() for q in planes],
+            *(t.contiguous() for t in (rlen, hap, hlen)),
             torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "fgt_pairhmm_pb")
         with _launch_lock:
             LAUNCHES["fgt_pairhmm_pb"] += 1
-        return _finish(acc, sh)
-
-
-def _padded(x, rows: int, cols: int, fill: int, device) -> torch.Tensor:
-    x = np.asarray(x)
-    out = np.full((rows, cols), fill, np.uint8)
-    out[:x.shape[0], :x.shape[1]] = x
-    return torch.from_numpy(out).to(device)
+        return out
 
 
 def _is_plane(q) -> bool:
     return np.ndim(q) != 0
 
 
-def _plane(q, rows: int, cols: int, device) -> torch.Tensor:
-    """A quality phred as a (rows, cols) uint8 plane on ``device``: a
-    scalar fills every row (the reference broadcasts it to the bucket),
-    an array is padded with phred 0 (the reference's blob padding)."""
-    if not _is_plane(q):
-        return torch.full((rows, cols), int(q), dtype=torch.uint8,
-                          device=device)
-    return _padded(q, rows, cols, 0, device)
+def _host_plane(x, rows: int, cols: int, fill: int, pin: bool
+                ) -> torch.Tensor:
+    """(rows, cols) uint8 host tensor, in pinned memory where ``pin``: a
+    scalar phred fills it (the reference broadcasts one to the bucket),
+    an array is padded with ``fill`` (N codes for bases, phred 0 for
+    qualities: the reference's blob padding)."""
+    out = torch.empty((rows, cols), dtype=torch.uint8, pin_memory=pin)
+    a = out.numpy()
+    if not _is_plane(x):
+        a.fill(int(x))
+        return out
+    x = np.asarray(x)
+    a.fill(fill)
+    a[:x.shape[0], :x.shape[1]] = x
+    return out
+
+
+def _host_vector(x, dtype, pin: bool) -> torch.Tensor:
+    out = torch.empty(len(x), dtype=dtype, pin_memory=pin)
+    out.numpy()[:] = x
+    return out
+
+
+def _gather(pieces, n: int) -> np.ndarray:
+    """(n,) float32 on the host from (offset, ranges, log10) pieces, read
+    back once every piece's launch is enqueued."""
+    out = np.empty(n, np.float32)
+    for s0, ranges, logp in pieces:
+        got = logp.cpu().numpy()
+        at = 0
+        for s, e in ranges:
+            out[s0 + s:s0 + e] = got[at:at + e - s]
+            at += e - s
+    return out
 
 
 def pairhmm_logp(read_codes, base_q, ins_q, del_q, gcp, read_lens,
@@ -356,42 +399,40 @@ def pairhmm_logp(read_codes, base_q, ins_q, del_q, gcp, read_lens,
         raise ValueError(f"read bucket {Rin} exceeds {R}")
     if Hin > H:
         raise ValueError(f"hap bucket {Hin} exceeds {H}")
-    from ..parallel.mesh import get_active_mesh, lane_splits
+    from ..parallel.mesh import device_lanes, get_active_mesh, lanes_on
     trans = (ins_q, del_q, gcp)
     per_base = any(_is_plane(q) for q in trans)
     mesh = get_active_mesh()
     devices = mesh.flat if mesh is not None else [params.device]
-    parts = []
+    pin = any(torch.device(d).type == "cuda" for d in devices)
+    pieces = []
     for s0 in range(0, B, MAX_PAIRS_PER_CALL):
-        chunk = lane_splits(min(B, s0 + MAX_PAIRS_PER_CALL) - s0,
-                            len(devices))
-        for dev, (s, e) in zip(devices, chunk):
-            s, e = s0 + s, s0 + e
-            if e == s:
-                continue
+        e0 = min(B, s0 + MAX_PAIRS_PER_CALL)
+        n = e0 - s0
 
-            def cut(q):     # scalar phreds pass through unsliced
-                return q[s:e] if _is_plane(q) else q
+        def cut(q):     # scalar phreds pass through unsliced
+            return q[s0:e0] if _is_plane(q) else q
 
-            n = e - s
-            read = _padded(read_codes[s:e], n, R, 4, dev)
-            bq = _plane(cut(base_q), n, R, dev)
-            rl = torch.from_numpy(np.asarray(read_lens[s:e], np.int32)).to(
-                dev)
-            hap = _padded(hap_codes[s:e], n, H, 4, dev)
-            hl = torch.from_numpy(np.asarray(hap_lens[s:e], np.int32)).to(
-                dev)
+        # the chunk padded once on the host (megabytes: pinned for the
+        # card, whose copies then take half the device time and do not
+        # wait for the host); each device takes its lanes
+        host = [_host_plane(read_codes[s0:e0], n, R, 4, pin),
+                _host_plane(cut(base_q), n, R, 0, pin),
+                _host_vector(read_lens[s0:e0], torch.int32, pin),
+                _host_plane(hap_codes[s0:e0], n, H, 4, pin),
+                _host_vector(hap_lens[s0:e0], torch.int32, pin)]
+        if per_base:
+            host += [_host_plane(cut(q), n, R, 0, pin) for q in trans]
+        for dev, ranges in device_lanes(devices, n):
+            read, bq, rl, hap, hl, *planes = (lanes_on(t, ranges, dev)
+                                              for t in host)
             if per_base:
-                logp = pairhmm_pb(read, bq, *(_plane(cut(q), n, R, dev)
-                                              for q in trans), rl, hap, hl)
+                logp = pairhmm_pb(read, bq, *planes, rl, hap, hl)
             else:
                 logp = pairhmm_sc(read, bq, rl, hap, hl,
                                   *(int(q) for q in trans))
-            parts.append((s, e, logp))
-    out = np.zeros(B, np.float32)
-    for s, e, logp in parts:     # launches on every device, then gather
-        out[s:e] = logp.cpu().numpy()
-    return out
+            pieces.append((s0, ranges, logp))
+    return _gather(pieces, B)
 
 
 def pairhmm_logp_pairs(reads, quals, read_lens, haps, hap_lens,
@@ -406,20 +447,12 @@ def pairhmm_logp_pairs(reads, quals, read_lens, haps, hap_lens,
     the (B, R) / (B, H) pair tiles are gathered on the device.
     reads (NR, R') codes, quals (NR, R') phreds, haps (NH, H'),
     read_lens (NR,), hap_lens (NH,), pair_read/pair_hap (B,) with
-    B <= 8192 (callers chunk).  Under an active mesh the pairs are
-    expanded and go through :func:`pairhmm_logp`."""
+    B <= 8192 (callers chunk).  Under an active mesh the pair lanes
+    split over the mesh's devices and each device gets the unique reads
+    and haplotypes once."""
     B = len(pair_read)
     if B == 0:
         return np.zeros(0, np.float32)
-    from ..parallel.mesh import get_active_mesh
-    if get_active_mesh() is not None:
-        # the index tables cannot split over lanes: expand the pairs on the
-        # host and split them over the mesh (the reference does the same)
-        pr = np.asarray(pair_read)
-        ph = np.asarray(pair_hap)
-        return pairhmm_logp(reads[pr], quals[pr], ins_q, del_q, gcp,
-                            np.asarray(read_lens)[pr], haps[ph],
-                            np.asarray(hap_lens)[ph], params)
     if B > MAX_PAIRS_PER_CALL:
         raise ValueError("pairhmm_logp_pairs: chunk pairs to <= 8192")
     NR, Rin = reads.shape
@@ -427,13 +460,23 @@ def pairhmm_logp_pairs(reads, quals, read_lens, haps, hap_lens,
     R, H = params.max_read_len, params.max_hap_len
     if ((max(Rin, 8) + 7) // 8) * 8 > R or Hin > H:
         raise ValueError("input exceeds PairHMM bucket shape")
-    dev = params.device
-    pr = torch.from_numpy(np.asarray(pair_read, np.int64)).to(dev)
-    ph = torch.from_numpy(np.asarray(pair_hap, np.int64)).to(dev)
-    rl = torch.from_numpy(np.asarray(read_lens, np.int32)).to(dev)
-    hl = torch.from_numpy(np.asarray(hap_lens, np.int32)).to(dev)
-    logp = pairhmm_sc(
-        _padded(reads, NR, R, 4, dev)[pr], _padded(quals, NR, R, 0, dev)[pr],
-        rl[pr], _padded(haps, NH, H, 4, dev)[ph], hl[ph],
-        int(ins_q), int(del_q), int(gcp))
-    return logp.cpu().numpy()
+    from ..parallel.mesh import device_lanes, get_active_mesh, lanes_on
+    mesh = get_active_mesh()
+    devices = mesh.flat if mesh is not None else [params.device]
+    # tens of kilobytes: pinning them costs more host time than the
+    # copies save (traced on the card)
+    tables = (_host_plane(reads, NR, R, 4, False),
+              _host_plane(quals, NR, R, 0, False),
+              _host_vector(read_lens, torch.int32, False),
+              _host_plane(haps, NH, H, 4, False),
+              _host_vector(hap_lens, torch.int32, False))
+    index = (_host_vector(pair_read, torch.int64, False),
+             _host_vector(pair_hap, torch.int64, False))
+    pieces = []
+    for dev, ranges in device_lanes(devices, B):
+        rd, q, rl, hp, hl = (t.to(dev, non_blocking=True) for t in tables)
+        pr, ph = (lanes_on(t, ranges, dev) for t in index)
+        pieces.append((0, ranges, pairhmm_sc(
+            rd[pr], q[pr], rl[pr], hp[ph], hl[ph],
+            int(ins_q), int(del_q), int(gcp))))
+    return _gather(pieces, B)

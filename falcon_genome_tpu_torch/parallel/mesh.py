@@ -27,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import functools
 import logging
 import os
 import threading
@@ -95,6 +96,42 @@ def lane_splits(n: int, parts: int) -> list[tuple[int, int]]:
     how sharded work splits over ``Mesh.flat``."""
     b = np.linspace(0, n, parts + 1).astype(int)
     return list(zip(b[:-1].tolist(), b[1:].tolist()))
+
+
+def device_lanes(devices: list[torch.device], n: int
+                 ) -> tuple[tuple[torch.device, tuple[tuple[int, int], ...]],
+                            ...]:
+    """:func:`lane_splits` of ``n`` lanes over ``devices``, grouped by
+    device (in order of first appearance), each device's ranges in lane
+    order with adjacent ones merged and empty ones dropped.  Lanes are
+    independent, so a mesh that repeats a device runs that device's
+    shards as one piece: one launch, not one per shard."""
+    return _device_lanes(tuple(torch.device(d) for d in devices), n)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_lanes(devices: tuple[torch.device, ...], n: int):
+    # kept per (devices, n): the split costs the step more host time
+    # than the rest of its dispatch
+    groups: dict[torch.device, list[tuple[int, int]]] = {}
+    for dev, (s, e) in zip(devices, lane_splits(n, len(devices))):
+        if e == s:
+            continue
+        ranges = groups.setdefault(dev, [])
+        if ranges and ranges[-1][1] == s:
+            ranges[-1] = (ranges[-1][0], e)
+        else:
+            ranges.append((s, e))
+    return tuple((dev, tuple(r)) for dev, r in groups.items())
+
+
+def lanes_on(t: torch.Tensor, ranges: list[tuple[int, int]],
+             dev: torch.device) -> torch.Tensor:
+    """The rows of ``t`` in ``ranges`` (one piece of
+    :func:`device_lanes`) on ``dev``: a view where they are one range
+    already there, else copies that do not wait for the host."""
+    parts = [t[s:e].to(dev, non_blocking=True) for s, e in ranges]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def make_mesh(spec: MeshSpec, devices: list[torch.device]) -> Mesh:

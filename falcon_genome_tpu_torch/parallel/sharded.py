@@ -5,7 +5,9 @@ its steps under ``shard_map``; here each step is a plain function that
 runs one piece per mesh device and combines the pieces explicitly:
 
 * pair lanes split evenly over the mesh's devices in ``Mesh.flat`` order
-  (the reference's fused ``(data, region)`` lane sharding); every piece
+  (the reference's fused ``(data, region)`` lane sharding); the shards
+  of one device run as one piece (pairs are independent, so a mesh that
+  repeats a device gives the same outputs from one launch), every piece
   runs kernel K5 (:func:`..ops.pairhmm.pairhmm_pb`), or K4
   (:func:`..ops.pairhmm.pairhmm_sc`) for scalar transitions, on its
   device, and the per-pair results are gathered back to the inputs'
@@ -25,29 +27,36 @@ import torch
 
 from ..bqsr import MAX_CYCLE, MAX_QUAL, N_CONTEXT
 from ..ops.pairhmm import pairhmm_pb, pairhmm_sc
-from .mesh import Mesh, lane_splits
+from .mesh import Mesh, device_lanes, lane_splits, lanes_on
 
 
 def _pairhmm_shards(mesh: Mesh, read, base_q, ins_q, del_q, gcp, rlen,
                     hlen, hap, scalar_trans=None) -> torch.Tensor:
-    """K5 (K4 with ``scalar_trans``) on every mesh device's slice of the
-    lanes; (B,) on the inputs' device."""
+    """K5 (K4 with ``scalar_trans``) on each mesh device's lanes, the
+    shards of a device as one launch; every launch is enqueued before
+    the results are gathered, once, into (B,) on the inputs' device."""
     B = read.shape[0]
-    outs = []
-    for dev, (s, e) in zip(mesh.flat, lane_splits(B, mesh.size)):
-        if e == s:
-            continue
-        r, bq, rl, hl, hp = (t[s:e].to(dev, non_blocking=True)
-                             for t in (read, base_q, rlen, hlen, hap))
+    lanes = device_lanes(mesh.flat, B)
+
+    def launch(r, bq, rl, hl, hp, *planes):
         if scalar_trans is not None:
-            outs.append(pairhmm_sc(r, bq, rl, hp, hl, *scalar_trans))
-            continue
-        iq, dq, gq = (t[s:e].to(dev, non_blocking=True)
-                      for t in (ins_q, del_q, gcp))
-        outs.append(pairhmm_pb(r, bq, iq, dq, gq, rl, hp, hl))
-    if not outs:
-        return torch.zeros(0, dtype=torch.float32, device=read.device)
-    return torch.cat([o.to(read.device) for o in outs])
+            return pairhmm_sc(r, bq, rl, hp, hl, *scalar_trans)
+        return pairhmm_pb(r, bq, *planes, rl, hp, hl)
+
+    tensors = [read, base_q, rlen, hlen, hap]
+    if scalar_trans is None:
+        tensors += [ins_q, del_q, gcp]
+    if len(lanes) == 1 and lanes[0][0] == read.device:
+        return launch(*tensors)         # every shard on the inputs' device
+    pieces = [(ranges, launch(*(lanes_on(t, ranges, dev) for t in tensors)))
+              for dev, ranges in lanes]
+    out = torch.empty(B, dtype=torch.float32, device=read.device)
+    for ranges, logp in pieces:
+        at = 0
+        for s, e in ranges:
+            out[s:e] = logp[at:at + e - s]
+            at += e - s
+    return out
 
 
 def sharded_pairhmm_step(mesh: Mesh, R: int, H: int,

@@ -44,7 +44,7 @@ from ..utils.extraopts import ExtraOpts
 from ..aligner import (
     AlignerEngine, AlignerParams, IndexParams, alignments_to_columns)
 from ..longread import LongReadAligner, LongReadParams
-from ..parallel import coordinate_order
+from ..parallel import coordinate_order, is_primary, sync_processes
 from ..pipeline.runner import PipelineRunner, stage
 from .common import header_from_fasta, load_fasta, load_index, \
     load_long_index
@@ -314,6 +314,11 @@ def run_align(conf: Config, ref: str, output: str,
     for sid, details in sheet.items():
         out_path = str(Path(output) / f"{sid}.bam") if multi else output
         out_path = check_output(out_path, force)
+        # multi-process: every process aligns the sample (its read-group
+        # tasks have no per-task outputs, so the runner does not split
+        # them) and only the primary writes it; no process may clear the
+        # output once the primary can write it
+        sync_processes(f"align[{sid}]:output")
         rgs = [{"ID": d.read_group, "SM": sid, "PL": d.platform_id,
                 "LB": d.library_id} for d in details]
         header = header_from_fasta(fa, read_groups=rgs)
@@ -339,7 +344,12 @@ def run_align(conf: Config, ref: str, output: str,
              for d in details],
             nprocs=1)  # engine batches internally; one RG at a time
         runner.run([align_stage])
-        _finalize_sample(sink, header, out_path, num_buckets or 0, merge)
+        if is_primary():
+            _finalize_sample(sink, header, out_path, num_buckets or 0,
+                             merge)
+        else:
+            sink.cleanup()
+        sync_processes(f"align[{sid}]:finalize")
         if merge or (num_buckets or 0) <= 1:
             outputs.append(out_path)
         log.info("align[%s]: %d records → %s", sid, sink.n_records,

@@ -4,6 +4,7 @@ Port of ``falcon_genome_tpu/stages/common.py``."""
 from __future__ import annotations
 
 import logging
+import os
 from pathlib import Path
 
 import numpy as np
@@ -52,9 +53,14 @@ def load_index(ref_path: str, params: IndexParams = IndexParams()
         idx.strands = z["strands"]
     else:
         idx = MinimizerIndex.from_fasta(fa, params)
-        np.savez(cache, offsets=idx.offsets, genome=idx.genome,
+        # written aside and renamed into place: a process that starts
+        # while another writes the cache (one per process under
+        # tpu.dist.*) reads a whole file or none
+        tmp = cache.with_name(f"{cache.stem}.{os.getpid()}.tmp.npz")
+        np.savez(tmp, offsets=idx.offsets, genome=idx.genome,
                  hashes=idx.hashes, positions=idx.positions,
                  strands=idx.strands)
+        os.replace(tmp, cache)
         log.info("built aligner index → %s", cache)
     _INDEX_CACHE[key] = idx
     return idx

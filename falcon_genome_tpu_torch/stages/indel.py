@@ -42,7 +42,7 @@ from ..models.activeregion import (
 from ..ops.smith_waterman import (
     SWBucket, device_genome, device_reads, sw_extend_batch, sw_extend_gather)
 from ..ops.sw_ref import SWParams
-from ..parallel import coordinate_order
+from ..parallel import coordinate_order, is_primary, sync_processes
 from ..pipeline.runner import PipelineRunner, stage
 from ..utils.common import check_output, get_contig_fname
 from ..utils.extraopts import ExtraOpts
@@ -368,15 +368,20 @@ def run_indel(conf: Config, ref: str, input_path: str, output: str,
         "IndelRealigner", tasks, outputs=part_paths,
         nprocs=conf.get("gatk.nprocs"))]).values()
     n_realigned = sum(r[1] for r in results if isinstance(r, tuple))
-    # shard-by-shard streamed merge: one part resident at a time; the
-    # slack window absorbs realignment moves across shard boundaries
-    # (bounded by the active-region pad)
-    next_keys = [
-        (header.tid(shards[i + 1][0].contig),
-         shards[i + 1][0].start - 1) if i + 1 < len(shards) else None
-        for i in range(len(shards))]
-    stream_merge_sorted_parts(output, header, part_paths, next_keys)
-    shutil.rmtree(parts_root, ignore_errors=True)
+    # multi-process: every process realigned its task slice (runner
+    # round-robin); only the primary merges the shared-FS parts and
+    # removes them, and the others wait for it
+    if is_primary():
+        # shard-by-shard streamed merge: one part resident at a time; the
+        # slack window absorbs realignment moves across shard boundaries
+        # (bounded by the active-region pad)
+        next_keys = [
+            (header.tid(shards[i + 1][0].contig),
+             shards[i + 1][0].start - 1) if i + 1 < len(shards) else None
+            for i in range(len(shards))]
+        stream_merge_sorted_parts(output, header, part_paths, next_keys)
+        shutil.rmtree(parts_root, ignore_errors=True)
+    sync_processes("indel:merge")
     log.info("indel: %d reads realigned → %s", n_realigned, output)
     return output
 

@@ -1,4 +1,4 @@
-"""The ablation kernel's CUDA source on the CPU: ``csrc/bench_kernels.cu``
+"""The benchmark kernels' CUDA source on the CPU: ``csrc/bench_kernels.cu``
 built with g++ against the stand-in ``csrc/emu/cuda_runtime.h`` (as
 ``test_torch_sw_emulated.py`` builds ``csrc/smith_waterman.cu``).
 
@@ -14,7 +14,9 @@ cells before diagonal 1 must be held at the initial state), N bases
 against N padding without the mask (the best cell lies outside the
 matrix), and the last diagonal's maximum (``no_best``) with and without
 the mask, with windows longer than W.  Each case checks that its inputs
-do what it says.  Skips only where g++ is missing.
+do what it says.  K6 (``fgt_fma_ceiling``) from the same library is held
+bit for bit to ``_fma_ceiling_plain`` at two small (R, B, trips).  Skips
+only where g++ is missing.
 """
 import ctypes
 import shutil
@@ -212,6 +214,19 @@ def test_emulated_ablation_widest_bucket(emu_lib, flags):
         BK._sw_ablate_launch(emu_lib, *_tensors(read.T, rl[0], wider,
                                                 wl[0]), S.SWParams(), flags,
                              None)
+
+
+@pytest.mark.parametrize("R,B,trips", [(37, 5, 12), (160, 3, 16)])
+def test_emulated_fma_ceiling_matches_plain(emu_lib, R, B, trips):
+    """K6 (``fgt_fma_ceiling``) from the same library: bit-equal to its
+    plain version, which rounds each chain update once (the kernel's
+    FFMA) and sums the chains, then the block's rows, in order."""
+    x = torch.from_numpy(np.random.default_rng(R).uniform(
+        0.5, 2.0, (R, B)).astype(np.float32))
+    got = BK._fma_ceiling_launch(emu_lib, x, trips, None)
+    want = BK._fma_ceiling_plain(x, trips)
+    assert torch.equal(got, want), (got, want)
+    assert not torch.equal(want, BK._fma_ceiling_plain(x, trips - 4))
 
 
 @pytest.mark.parametrize("R,W", [(160, 416), (27, 35), (416, 424),

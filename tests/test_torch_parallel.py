@@ -1,15 +1,19 @@
 """The port's multi-device layer against the JAX package, class by class
 as ``tests/test_parallel.py``: mesh shapes, the sharded steps (kernel K5
 on every shard), the active mesh under the stage code, the distributed
-sort, and stages split over two ``gloo`` processes.
+sort, and stages split over two ``gloo`` processes (``htc``,
+``baserecal``, ``mutect2``, ``ug``, ``indel`` and ``align --long-reads``,
+each against one process; ``indel`` also against the reference).
 
-Port meshes are 8 shards over the CPU (a mesh may repeat a device); the
-reference's are its 8 virtual CPU devices.  Tolerances: the sharded
-PairHMM within 1e-5 of the reference's (as ``tests/test_parallel.py``);
-tables, orders and VCF records exactly equal.
+Port meshes are 8 shards over the CPU (a mesh may repeat a device, and
+its shards then run as one piece); the reference's are its 8 virtual CPU
+devices.  Tolerances: the sharded PairHMM within 1e-5 of the reference's
+(as ``tests/test_parallel.py``), and bit-equal to the port's own
+single-device calls; tables, orders, VCF and BAM records exactly equal.
 
 Run as a script, this file is the worker of the two-process tests:
-``python tests/test_torch_parallel.py {htc,baserecal,mutect2} <pid>
+``python tests/test_torch_parallel.py
+{htc,baserecal,mutect2,ug,indel,align} <pid>
 <coordinator> <work dir>``, the coordinator ``host:port`` or
 ``file://<path>`` (the tests' own: process 0 binds a free port and
 writes it there).
@@ -181,6 +185,75 @@ class TestActiveMeshPipeline:
             sharded = pairhmm_logp(reads, q, q, q, gcp, rl, haps, hl, params)
         np.testing.assert_allclose(sharded, single, rtol=0, atol=1e-5)
 
+    @pytest.mark.parametrize("devices,n,want", [
+        (["cpu"] * 4, 10, [("cpu", [(0, 10)])]),
+        (["cuda:0", "cuda:1"] * 2, 10,
+         [("cuda:0", [(0, 2), (5, 7)]), ("cuda:1", [(2, 5), (7, 10)])]),
+        (["cuda:0", "cuda:0", "cuda:1", "cuda:1"], 10,
+         [("cuda:0", [(0, 5)]), ("cuda:1", [(5, 10)])]),
+        (["cuda:0", "cuda:1"] * 2, 2, [("cuda:1", [(0, 2)])]),
+    ], ids=["one-device", "alternating", "pairs", "fewer-lanes"])
+    def test_device_lanes_groups_shards_by_device(self, devices, n, want):
+        """The mesh's lane split grouped by device: adjacent ranges of a
+        device merge, empty ones drop, devices keep their first order."""
+        got = TM.device_lanes([torch.device(d) for d in devices], n)
+        assert got == tuple((torch.device(d), tuple(r)) for d, r in want)
+
+    @staticmethod
+    def _interleaved(devs, n):
+        """Two pieces of alternating lane ranges on the CPU: the split
+        of a mesh that alternates two devices."""
+        r = TM.lane_splits(n, 4)
+        return [(CPU, [r[0], r[2]]), (CPU, [r[1], r[3]])]
+
+    @pytest.mark.parametrize("split", ["mesh", "interleaved"])
+    def test_pairhmm_logp_pairs_mesh_equivalence(self, split, monkeypatch):
+        """Pair-indexed PairHMM under a mesh: the index lanes split over
+        the devices, each gets the unique reads and haplotypes; results
+        bit-equal to one device's, also where a device's lanes are two
+        ranges (concatenated, then put back in place)."""
+        from falcon_genome_tpu_torch.ops.pairhmm import (
+            PairHMMParams, pairhmm_logp, pairhmm_logp_pairs)
+        mesh = TM.make_mesh(TM.MeshSpec(data=4, region=2), CPU8)
+        rng = np.random.default_rng(1)
+        NR, NH, R, H = 11, 5, 24, 48
+        reads = rng.integers(0, 4, (NR, R - 3)).astype(np.uint8)
+        quals = rng.integers(10, 41, (NR, R - 3)).astype(np.uint8)
+        haps = rng.integers(0, 4, (NH, H - 5)).astype(np.uint8)
+        rl = rng.integers(8, R - 2, NR).astype(np.int32)
+        hl = rng.integers(8, H - 4, NH).astype(np.int32)
+        pr = np.repeat(np.arange(NR), NH)
+        ph = np.tile(np.arange(NH), NR)
+        params = PairHMMParams(max_read_len=R, max_hap_len=H, device=CPU)
+        with TM.use_mesh(None):
+            single = pairhmm_logp_pairs(reads, quals, rl, haps, hl, pr, ph,
+                                        45, 45, 10, params)
+            expanded = pairhmm_logp(reads[pr], quals[pr], 45, 45, 10, rl[pr],
+                                    haps[ph], hl[ph], params)
+        if split == "interleaved":
+            monkeypatch.setattr(TM, "device_lanes", self._interleaved)
+        with TM.use_mesh(mesh):
+            sharded = pairhmm_logp_pairs(reads, quals, rl, haps, hl, pr, ph,
+                                         45, 45, 10, params)
+            sharded_exp = pairhmm_logp(reads[pr], quals[pr], 45, 45, 10,
+                                       rl[pr], haps[ph], hl[ph], params)
+        np.testing.assert_array_equal(single, expanded)
+        np.testing.assert_array_equal(sharded, single)
+        np.testing.assert_array_equal(sharded_exp, single)
+        assert np.isfinite(single).all()
+
+    def test_sharded_step_interleaved_pieces(self, monkeypatch):
+        """``sharded_pairhmm_step`` where a device's lanes are two ranges:
+        the pieces go back in lane order, bit-equal to one call."""
+        from falcon_genome_tpu_torch.ops.pairhmm import pairhmm_pb
+        batch = TS.make_example_batch(24, 16, 24, 4, seed=2)
+        read, bq, iq, dq, gq, rl, hl, hp = batch[:8]
+        want = pairhmm_pb(read, bq, iq, dq, gq, rl, hp, hl)
+        monkeypatch.setattr(TS, "device_lanes", self._interleaved)
+        mesh = TM.make_mesh(TM.MeshSpec(data=4, region=1), CPU8[:4])
+        got = TS.sharded_pairhmm_step(mesh, 16, 24)(*batch[:8])
+        assert torch.equal(got, want)
+
     def test_htc_call_interval_mesh_equivalence(self):
         import __graft_entry__ as ge
         from falcon_genome_tpu_torch.models.haplotypecaller import (
@@ -202,22 +275,26 @@ class TestActiveMeshPipeline:
 
     def test_htc_stage_under_process_mesh(self, tmp_path, monkeypatch):
         """``run_htc`` with the mesh installed process-wide (as the CLI
-        does): the runner's worker threads split PairHMM batches over it
-        (more, smaller kernel calls), and the VCF equals the
-        single-device run's."""
+        does): the runner's worker threads split PairHMM batches over it,
+        the four shards on the one CPU as one kernel call each (the
+        single-device run's calls), and the VCF equals the single-device
+        run's."""
         import falcon_genome_tpu_torch.ops.pairhmm as TPH
         from falcon_genome_tpu_torch.io.vcf import read_vcf
         _htc_world(tmp_path)
         conf = _conf(tmp_path, 4, "mesh")
         conf.set("gatk.htc.nprocs", 2)
         mesh = TM.make_mesh(TM.MeshSpec(data=4, region=1), CPU8[:4])
-        calls = {}
+        calls, splits = {}, {}
         orig = TPH.pairhmm_sc
+        orig_lanes = TM.device_lanes
 
         def run(tag, m):
-            calls[tag] = []
+            calls[tag], splits[tag] = [], []
             monkeypatch.setattr(TPH, "pairhmm_sc", lambda *a: (
                 calls[tag].append(a[0].shape[0]), orig(*a))[1])
+            monkeypatch.setattr(TM, "device_lanes", lambda devs, n: (
+                splits[tag].append(len(devs)), orig_lanes(devs, n))[1])
             out = tmp_path / f"{tag}.vcf"
             TM.set_active_mesh(m)
             try:
@@ -230,7 +307,8 @@ class TestActiveMeshPipeline:
         single = run("single", None)
         meshed = run("mesh", mesh)
         assert single == meshed and len(single) > 0
-        assert len(calls["mesh"]) > len(calls["single"])
+        assert set(splits["single"]) == {1} and set(splits["mesh"]) == {4}
+        assert sorted(calls["mesh"]) == sorted(calls["single"])
         assert sum(calls["mesh"]) == sum(calls["single"])
 
     def test_mesh_from_conf(self):
@@ -533,6 +611,69 @@ def _m2_world(work: Path) -> None:
     write_fasta(work / "ref.fa", {"chr1": decode_seq(ref)})
 
 
+def _indel_world(work: Path) -> None:
+    """12 kb; at eight loci, one in each of the 8 shards, reads every 5 bp
+    over the 50 bp before the locus hold a 3-5 base deletion but are
+    aligned as 80M (realignment moves them), over clean 80M reads every
+    10 bp (``tests/test_torch_indel.py``'s sims)."""
+    from falcon_genome_tpu_torch.io.bam import write_bam
+    from falcon_genome_tpu_torch.io.dna import decode_seq
+    from falcon_genome_tpu_torch.io.fasta import write_fasta
+    from falcon_genome_tpu_torch.io.sam import (
+        SamHeader, SamRecord, cigar_from_str)
+    chrom = np.random.default_rng(5).integers(0, 4, 12_000).astype(np.uint8)
+    recs, k = [], 0
+    for locus, gap in ((750 + 1500 * i, 3 + i % 3) for i in range(8)):
+        for start in range(locus - 50, locus, 5):
+            seq = np.concatenate([chrom[start:start + 40],
+                                  chrom[start + 40 + gap:start + 80 + gap]])
+            recs.append(SamRecord(f"r{k}", 0, 0, start, 60,
+                                  cigar_from_str("80M"),
+                                  seq=decode_seq(seq), qual="I" * 80))
+            k += 1
+        for start in range(locus - 100, locus + 100, 10):
+            recs.append(SamRecord(f"c{k}", 0, 0, start, 60,
+                                  cigar_from_str("80M"),
+                                  seq=decode_seq(chrom[start:start + 80]),
+                                  qual="I" * 80))
+            k += 1
+    recs.sort(key=lambda r: r.pos)
+    write_fasta(work / "ref.fa", {"chr1": decode_seq(chrom)})
+    write_bam(work / "in.bam", SamHeader(contigs=[("chr1", len(chrom))]),
+              recs)
+
+
+def _long_read_world(work: Path) -> None:
+    """40 kb; 16 reads of 1-3 kb at 5% errors (a third each insertions,
+    deletions, substitutions), both strands (``tests/test_torch_longread.py``'s
+    simulator)."""
+    from falcon_genome_tpu_torch.io.dna import decode_seq, revcomp_codes
+    from falcon_genome_tpu_torch.io.fasta import write_fasta
+    from falcon_genome_tpu_torch.io.fastq import write_fastq
+    rng = np.random.default_rng(13)
+    genome = rng.integers(0, 4, 40_000).astype(np.uint8)
+    reads = []
+    for t in range(16):
+        pos = int(rng.integers(0, len(genome) - 4000))
+        src = genome[pos:pos + int(rng.integers(1000, 3000))]
+        out = []
+        for b in src:
+            u = rng.random()
+            if u < 0.05 / 3:
+                out += [int(rng.integers(0, 4)), b]
+            elif u < 0.1 / 3:
+                continue
+            elif u < 0.05:
+                out.append((b + 1 + int(rng.integers(0, 3))) % 4)
+            else:
+                out.append(b)
+        r = np.array(out, np.uint8)
+        reads.append(revcomp_codes(r) if t % 2 else r)
+    write_fasta(work / "ref.fa", {"chr1": decode_seq(genome)})
+    write_fastq(work / "lr.fastq", [f"lr{i}" for i in range(len(reads))],
+                [decode_seq(r) for r in reads], ["I" * len(r) for r in reads])
+
+
 def _run_stage(kind: str, conf: Config, work: Path, out: Path) -> None:
     if kind == "mutect2":
         from falcon_genome_tpu_torch.stages.calling import run_mutect2
@@ -543,6 +684,19 @@ def _run_stage(kind: str, conf: Config, work: Path, out: Path) -> None:
         from falcon_genome_tpu_torch.stages.calling import run_htc
         run_htc(conf, str(work / "ref.fa"), str(work / "in.bam"), str(out),
                 produce_vcf=True, force=True, device=CPU)
+    elif kind == "ug":
+        from falcon_genome_tpu_torch.stages.calling import run_ug
+        run_ug(conf, str(work / "ref.fa"), str(work / "in.bam"), str(out),
+               force=True)
+    elif kind == "indel":
+        from falcon_genome_tpu_torch.stages.indel import run_indel
+        run_indel(conf, str(work / "ref.fa"), str(work / "in.bam"),
+                  str(out), force=True, device=CPU)
+    elif kind == "align":
+        from falcon_genome_tpu_torch.stages.align import run_align
+        run_align(conf, str(work / "ref.fa"), str(out),
+                  fastq1=str(work / "lr.fastq"), long_reads=True,
+                  force=True, device=CPU)
     else:
         from falcon_genome_tpu_torch.stages.bqsr import run_baserecal
         run_baserecal(conf, str(work / "ref.fa"), str(work / "in.bam"),
@@ -634,6 +788,72 @@ class TestMultiProcessStage:
         assert [vars(r) for r in got] == [vars(r) for r in expect]
         assert {r.pos for r in got if r.filter == "PASS"} >= {3001, 9001}
 
+    def test_two_process_ug_stage(self, tmp_path):
+        """``ug`` on the htc world over two gloo processes (8 shards):
+        process 0's gathered VCF is record-equal to one process's."""
+        from falcon_genome_tpu_torch.io.vcf import read_vcf
+        _htc_world(tmp_path)
+        single = tmp_path / "single.vcf"
+        _run_stage("ug", _conf(tmp_path, 8, "1p"), tmp_path, single)
+        _, expect = read_vcf(str(single))
+        outs = _run_workers("ug", tmp_path)
+        for out in outs:
+            assert "(4 local to process" in out
+        _, got = read_vcf(str(tmp_path / "dist.vcf"))
+        assert [vars(r) for r in got] == [vars(r) for r in expect]
+        assert len(got) > 0
+
+    def test_two_process_indel_stage(self, tmp_path):
+        """``indel`` over two gloo processes (8 shards, a locus whose reads
+        realignment moves in each): the merged BAM is record-equal, tags
+        included, to one process's and to the reference's single-process
+        ``run_indel``; the parts are gone."""
+        from falcon_genome_tpu.config import Config as JConfig
+        from falcon_genome_tpu.config import Machine as JMachine
+        from falcon_genome_tpu.stages.indel import run_indel as j_run_indel
+        from falcon_genome_tpu_torch.io.bam import read_bam
+        from falcon_genome_tpu_torch.utils.compare import compare_bam
+        _indel_world(tmp_path)
+        single = tmp_path / "single.bam"
+        _run_stage("indel", _conf(tmp_path, 8, "1p"), tmp_path, single)
+        jconf = JConfig(machine=JMachine(2, 4), environ={}, load_files=False)
+        jconf.set("gatk.ncontigs", 8)
+        jconf.set("gatk.nprocs", 1)
+        jconf.set("log_dir", str(tmp_path / "logj"))
+        ref = tmp_path / "ref.bam"
+        j_run_indel(jconf, str(tmp_path / "ref.fa"), str(tmp_path / "in.bam"),
+                    str(ref), force=True)
+        outs = _run_workers("indel", tmp_path)
+        for out in outs:
+            assert "(4 local to process" in out
+        dist = tmp_path / "dist.bam"
+        _, recs = read_bam(str(dist))
+        moved = [r for r in recs if r.qname.startswith("r") and
+                 any(op == 2 for op, _ in r.cigar)]
+        assert len(moved) >= 8 * 5
+        for other in (single, ref):
+            d = compare_bam(str(other), str(dist), compare_tags=True)
+            assert d.equivalent and d.matching == len(recs), (other, d)
+        assert not Path(str(dist) + ".parts").exists()
+
+    def test_two_process_align_long_reads(self, tmp_path):
+        """``align --long-reads`` in two gloo processes (first, so that
+        both build the reference's minimizer index at once): the BAM that
+        process 0 writes is record-equal, tags included, to one process's
+        run, and every read is placed."""
+        from falcon_genome_tpu_torch.io.bam import read_bam
+        from falcon_genome_tpu_torch.utils.compare import compare_bam
+        _long_read_world(tmp_path)
+        outs = _run_workers("align", tmp_path)
+        assert all("records →" in out for out in outs)
+        single = tmp_path / "single.bam"
+        _run_stage("align", _conf(tmp_path, 8, "1p"), tmp_path, single)
+        dist = tmp_path / "dist.bam"
+        _, recs = read_bam(str(dist))
+        assert len(recs) == 16 and all(r.flag & 0x4 == 0 for r in recs)
+        d = compare_bam(str(single), str(dist), compare_tags=True)
+        assert d.equivalent and d.matching == 16, d
+
     @pytest.mark.parametrize("first", [
         "ValueError: a fault of the stage itself",
         "(3 local to process 1/2)\nConnection reset by peer"])
@@ -696,6 +916,10 @@ def test_parallel_imports_without_jax():
     assert res.returncode == 0, res.stderr[-3000:]
 
 
+_DIST_OUT = {"baserecal": "dist.recal.npz", "indel": "dist.bam",
+             "align": "dist.bam"}
+
+
 def _worker(kind: str, pid: int, coordinator: str, work: Path) -> int:
     """One of the two processes: the SAME stage call in each; the runner
     splits the tasks and process 0 gathers."""
@@ -706,7 +930,7 @@ def _worker(kind: str, pid: int, coordinator: str, work: Path) -> int:
     conf.set("tpu.dist.coordinator", coordinator)
     assert TM.initialize_from_conf(conf, CPU) is None
     assert TM.process_info() == (pid, 2)
-    out = work / ("dist.recal.npz" if kind == "baserecal" else "dist.vcf")
+    out = work / _DIST_OUT.get(kind, "dist.vcf")
     try:
         _run_stage(kind, conf, work, out)
         if pid == 0:
