@@ -41,6 +41,9 @@ Phases (each prints its numbers; any failure exits non-zero):
    results on the 50 kb sample's records; the sharded step's time over
    one K5 call's, and its ``torch.profiler`` trace per card (kernels,
    copies, busy ms, idle share, longest gap; ``benchmarks/mesh_trace.py``);
+   the step, ``pairhmm_logp`` and ``pairhmm_logp_pairs`` under the mesh
+   against one card at 8192 pairs and at the callers' median call
+   (``mesh_trace.SIZES``), bit-equal, their time ratios printed;
    (b) ``bqsr`` and ``htc`` through the CLI in two ``gloo`` processes
    (``tpu.dist.*``) equal a single-process run: recal table and BAM,
    VCF records; (c) only where more than one card is visible (``chiprun
@@ -89,8 +92,10 @@ Phases (each prints its numbers; any failure exits non-zero):
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on its path, error against the plain version, kernel, plain and
-bound times; K2/K3 also their launches per path); the last line is
-``{"ok": true, "device": {...}}``.
+bound times; K2/K3 also their launches per path); the line before that
+gives the pairs of every PairHMM call of phase 4's ``germline`` and phase
+8's ``mutect2`` (``{"pairhmm_call_sizes": ...}``: calls, quantiles,
+power-of-two bins); the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
@@ -151,6 +156,10 @@ PAIRHMM_FLOPS_PER_CELL = 11
 # kDepth 2), at the card's 1.98 GHz
 K3_TRIP_CYCLES = 30 + 25 + 4.5 * 32
 SM_CLOCK = 1.98e9
+
+
+# pairs a PairHMM call (``benchmarks.call_sizes.summary``), by command
+CALL_SIZES: dict[str, dict] = {}
 
 
 class SmokeFailure(Exception):
@@ -776,6 +785,8 @@ def run_germline(cli, sample, out: Path, device: str,
 
 
 def phase_germline(torch, cli, S, P, validate, work: Path, results) -> None:
+    from falcon_genome_tpu_torch.benchmarks.call_sizes import (
+        PairHMMCalls, summary as call_summary)
     t0 = time.time()
     sample = validate.simulate_sample(work / "1mb", 1_000_000, 30, seed=1)
     n_reads = 2 * sample.n_pairs
@@ -788,8 +799,10 @@ def phase_germline(torch, cli, S, P, validate, work: Path, results) -> None:
         for k in d:
             d[k] = 0
     torch.cuda.synchronize()
-    r = run_germline(cli, sample, work / "1mb" / "calls.vcf.gz", "cuda")
+    with PairHMMCalls() as calls:
+        r = run_germline(cli, sample, work / "1mb" / "calls.vcf.gz", "cuda")
     torch.cuda.synchronize()
+    CALL_SIZES["germline"] = call_summary(calls.sizes)
     # germline runs K1-K4; K5 (per-base planes) is phase 6's
     launches = {k: n for k, n in {**S.LAUNCHES, **P.LAUNCHES}.items()
                 if k != "fgt_pairhmm_pb"}
@@ -990,6 +1003,8 @@ def mutect2_argv(tn, bams: dict, out: Path, device: str) -> list[str]:
 
 
 def phase_somatic(torch, cli, S, P, validate, work: Path) -> list[dict]:
+    from falcon_genome_tpu_torch.benchmarks.call_sizes import (
+        PairHMMCalls, summary as call_summary)
     t0 = time.time()
     tn = validate.simulate_tumor_normal(work / "tn1mb", 1_000_000, seed=5)
     say(f"somatic sample: one 1 Mb contig (genome length cut from a 3.1 Gb "
@@ -1005,9 +1020,10 @@ def phase_somatic(torch, cli, S, P, validate, work: Path) -> list[dict]:
         for k in d:
             d[k] = 0
     torch.cuda.synchronize()
-    with ShapeRecorder(S, P, mutect2_bucket) as rec:
+    with ShapeRecorder(S, P, mutect2_bucket) as rec, PairHMMCalls() as calls:
         walls["mutect2"] = run_cli(cli, mutect2_argv(tn, bams, vcf, "cuda"))
         torch.cuda.synchronize()
+    CALL_SIZES["mutect2"] = call_summary(calls.sizes)
     launches = {k: n for k, n in {**S.LAUNCHES, **P.LAUNCHES}.items() if n}
     say(f"mutect2 steps on the card (s): "
         f"{json.dumps({k: round(v, 2) for k, v in walls.items()})}; "
@@ -1371,6 +1387,19 @@ def phase_mesh(torch, P, validate, sample, run_dir: Path, k5_args, results,
         lambda: step(read, bq, iq, dq, gq, rl, hl, hp))
     say(json.dumps({"mesh_step_trace": trace}))
     results["fgt_pairhmm_pb"]["launches"] = launches
+    # the mesh cases against one card at 8192 pairs and at the callers'
+    # median call (printed, not gated: a timing ratio is no check)
+    cards = len(set(devs))
+    for n, nh in mesh_trace.SIZES.items():
+        m = mesh_trace.measure(P, TP, mesh, devs[0], n, nh, trace=False)
+        check(all(m[k]["bit_equal"] for k in ("step", "logp_mesh",
+                                              "pairs_mesh")),
+              f"a mesh case at {n} pairs differs from one device")
+        say(f"mesh of 4 shards over {cards} card(s), {n} pairs: bit-equal "
+            f"to one device; " + "; ".join(
+                f"{k} {r:.3f}x ({m[k.split('/')[0]]['ms']:.3f} / "
+                f"{m[k.split('/')[1]]['ms']:.3f} ms)"
+                for k, r in m["ratios"].items()))
 
 
 def run_processes(argvs, log_dir: Path, timeout: float) -> list[str]:
@@ -1721,6 +1750,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     say(f"chip_smoke total {time.time() - t_start:.1f} s")
+    # pairs a PairHMM call, of phase 4's germline and phase 8's mutect2
+    say(json.dumps({"pairhmm_call_sizes": CALL_SIZES}))
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by")
     # no single PyTorch call computes any of these functions

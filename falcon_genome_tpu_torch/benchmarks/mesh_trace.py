@@ -6,20 +6,22 @@ checkouts of the port.
 Each ROOT is a checkout of the repository (an unpacked ``git archive`` of
 another commit, say).  In the order given, each runs in a process of its
 own with ROOT first on ``sys.path``, builds that checkout's kernels, and
-runs six cases at HaplotypeCaller's bucket (R=160, H=384, 8192 pairs;
-reads cut from their haplotypes with 4% substitutions, base qualities
-10-40, BI/BD-like insertion and deletion planes) on a mesh of 4 shards
-over the visible cards (``cuda:(i % count)``, ``chip_smoke.py``'s phase
-6a):
+runs six cases at HaplotypeCaller's bucket (R=160, H=384; reads cut from
+their haplotypes with 4% substitutions, base qualities 10-40, BI/BD-like
+insertion and deletion planes) on a mesh of 4 shards over the visible
+cards (``cuda:(i % count)``, ``chip_smoke.py``'s phase 6a), at each size
+of :data:`SIZES`: 8192 pairs, and the median pairs of a PairHMM call of
+1 Mb ``mutect2`` and of 1 Mb ``germline`` (``benchmarks/call_sizes.py``):
 
 * ``one_k5``: one K5 call (``pairhmm_pb``) on device tensors, no mesh;
 * ``step``: ``sharded_pairhmm_step`` on the same tensors;
 * ``logp_one`` / ``logp_mesh``: ``pairhmm_logp`` with planes from host
   arrays, without and under the mesh;
 * ``pairs_one`` / ``pairs_mesh``: ``pairhmm_logp_pairs`` on a cross
-  product of 128 reads and 64 haplotypes, without and under the mesh.
+  product of reads and haplotypes (128 x 64 at 8192 pairs), without and
+  under the mesh.
 
-Per case: ``ms``, the median of 10 calls after a warm-up, each timed with
+Per case: ``ms``, the median of 50 calls after a warm-up, each timed with
 CUDA events on ``cuda:0`` and waited for on every card; ``host_ms``, the
 median host time until the call returns (what the host spends enqueueing
 the step; the host-array cases read their results back, so theirs
@@ -28,9 +30,14 @@ the kernels, the copies by kind (host to device, device to host, device
 to device) with their counts and device ms, the card's busy ms (the
 union of its events), its idle share of the traced span and its longest
 idle gap (``trace``; null where the profiler recorded no device event).
-Every case is checked bit-equal to its no-mesh twin.  Give the roots as
-parent, change, change, parent.  Prints one JSON line per run, with the
-card's name and power limit; without a CUDA device it exits non-zero.
+Every case is checked bit-equal to its no-mesh twin, and each size gets
+the ratios of the mesh cases to their twins (``ratios``).  Each root also
+times one K4 call on one card at 512, 1024, ..., 8192 pairs
+(``one_k4_ms_by_pairs``): the steps of that curve are the kernel's waves,
+which the mesh's split rule (``parallel.mesh``) follows.  Give the
+roots as parent, change, change, parent.  Prints one JSON line per run,
+with the number of visible cards, after one with the cards' names and
+power limits; without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
 
@@ -45,8 +52,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-B, R, H = 8192, 160, 384
-N_TIMED = 10
+R, H = 160, 384
+# pairs of a call: haplotypes of its cross product.  7604 and 4656 are the
+# median pairs of a PairHMM call of 1 Mb mutect2 (491 calls) and 1 Mb
+# germline (32 calls) on an H100 (benchmarks/call_sizes.py); their
+# chunks hold several regions of a few haplotypes each, so 4 a read here
+SIZES = {8192: 64, 7604: 4, 4656: 4}
+N_TIMED = 50
 N_TRACED = 3
 SHARDS = 4
 
@@ -157,7 +169,7 @@ def timed(fn) -> tuple[float, float]:
     return statistics.median(ms), statistics.median(host)
 
 
-def inputs(rng):
+def inputs(rng, B: int):
     """Batch-major host arrays (reads, q, ins, del, gcp, rlen, haps, hlen)
     of B pairs at R x H."""
     haps = rng.integers(0, 4, (B, H)).astype(np.uint8)
@@ -180,28 +192,16 @@ def inputs(rng):
     return reads, q, ins, dele, gcp, rl, haps, hl
 
 
-def run_root(root: Path) -> dict:
-    """Build ``root``'s kernels and run the six cases (this process
-    imports only ``root``'s package)."""
-    sys.path.insert(0, str(root))
-    from falcon_genome_tpu_torch import parallel as TP
-    from falcon_genome_tpu_torch.ops import _build
-    from falcon_genome_tpu_torch.ops import pairhmm as P
-    if not Path(P.__file__).resolve().is_relative_to(root):
-        raise RuntimeError(f"imported {P.__file__}, not {root}'s package")
-    _build.load()
-    count = torch.cuda.device_count()
-    devs = [torch.device("cuda", i % count) for i in range(SHARDS)]
-    mesh = TP.make_mesh(TP.MeshSpec(data=SHARDS, region=1), devs)
-    rng = np.random.default_rng(11)
-    host = inputs(rng)
+def cases(P, TP, mesh, dev, B: int, nh: int, rng):
+    """The six cases at B pairs (a cross product of B // nh reads and nh
+    haplotypes for the pairs), and each mesh case's no-mesh twin."""
+    host = inputs(rng, B)
     reads, q, ins, dele, gcp, rl, haps, hl = host
-    dev = devs[0]
     read_t, q_t, ins_t, del_t, gcp_t, rl_t, hap_t, hl_t = (
         torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in host)
     params = P.PairHMMParams(max_read_len=R, max_hap_len=H, device=dev)
     step = TP.sharded_pairhmm_step(mesh, R, H)
-    nr, nh = 128, 64
+    nr = B // nh
     pr = np.repeat(np.arange(nr), nh)
     ph = np.tile(np.arange(nh), nr)
 
@@ -226,15 +226,19 @@ def run_root(root: Path) -> dict:
                 return fn()
         return call
 
-    cases = {"one_k5": one_k5, "step": sharded,
+    return ({"one_k5": one_k5, "step": sharded,
              "logp_one": logp, "logp_mesh": meshed(logp),
-             "pairs_one": pairs, "pairs_mesh": meshed(pairs)}
-    twins = {"step": "one_k5", "logp_mesh": "logp_one",
-             "pairs_mesh": "pairs_one"}
-    res = {"root": str(root), "devices": [str(d) for d in devs],
-           "card": torch.cuda.get_device_name(0), "B": B, "R": R, "H": H}
-    outs = {}
-    for name, fn in cases.items():
+             "pairs_one": pairs, "pairs_mesh": meshed(pairs)},
+            {"step": "one_k5", "logp_mesh": "logp_one",
+             "pairs_mesh": "pairs_one"})
+
+
+def measure(P, TP, mesh, dev, B: int, nh: int, trace: bool = True) -> dict:
+    """Every case at B pairs timed (and traced where ``trace``), checked
+    bit-equal to its twin, with the mesh cases' ratios to their twins."""
+    run, twins = cases(P, TP, mesh, dev, B, nh, np.random.default_rng(11))
+    res, outs = {"B": B, "haps": nh}, {}
+    for name, fn in run.items():
         with TP.use_mesh(None):
             out = fn()
             _sync_all()
@@ -242,12 +246,45 @@ def run_root(root: Path) -> dict:
                           else out)
             ms, host_ms = timed(fn)
             res[name] = {"ms": ms, "host_ms": host_ms,
-                         "trace": trace_summary(fn)}
+                         "trace": trace_summary(fn) if trace else None}
+    res["ratios"] = {}
     for name, twin in twins.items():
         res[name]["bit_equal"] = bool(np.array_equal(outs[name],
                                                      outs[twin]))
-    res["step_over_one_k5"] = res["step"]["ms"] / res["one_k5"]["ms"]
+        res["ratios"][f"{name}/{twin}"] = res[name]["ms"] / res[twin]["ms"]
     return res
+
+
+def k4_by_pairs(P, dev) -> dict[int, float]:
+    """ms of one K4 call (``pairhmm_sc``, 45/45/10) on device tensors at
+    512, 1024, ..., 8192 pairs."""
+    host = inputs(np.random.default_rng(12), 8192)
+    reads, q, rl, haps, hl = (torch.from_numpy(np.ascontiguousarray(x)).to(
+        dev) for x in (host[0], host[1], host[5], host[6], host[7]))
+    return {n: timed(lambda: P.pairhmm_sc(reads[:n], q[:n], rl[:n],
+                                          haps[:n], hl[:n], 45, 45, 10))[0]
+            for n in range(512, 8193, 512)}
+
+
+def run_root(root: Path) -> dict:
+    """Build ``root``'s kernels and run the six cases at every size of
+    :data:`SIZES` (this process imports only ``root``'s package)."""
+    sys.path.insert(0, str(root))
+    from falcon_genome_tpu_torch import parallel as TP
+    from falcon_genome_tpu_torch.ops import _build
+    from falcon_genome_tpu_torch.ops import pairhmm as P
+    if not Path(P.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {P.__file__}, not {root}'s package")
+    _build.load()
+    count = torch.cuda.device_count()
+    devs = [torch.device("cuda", i % count) for i in range(SHARDS)]
+    mesh = TP.make_mesh(TP.MeshSpec(data=SHARDS, region=1), devs)
+    return {"root": str(root), "visible_cards": count,
+            "devices": [str(d) for d in devs],
+            "card": torch.cuda.get_device_name(0), "R": R, "H": H,
+            "one_k4_ms_by_pairs": k4_by_pairs(P, devs[0]),
+            "sizes": {str(B): measure(P, TP, mesh, devs[0], B, nh)
+                      for B, nh in SIZES.items()}}
 
 
 def main(argv: list[str]) -> int:

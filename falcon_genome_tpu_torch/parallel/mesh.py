@@ -28,6 +28,7 @@ import contextlib
 import dataclasses
 import datetime
 import functools
+import itertools
 import logging
 import os
 import threading
@@ -123,6 +124,42 @@ def _device_lanes(devices: tuple[torch.device, ...], n: int):
         else:
             ranges.append((s, e))
     return tuple((dev, tuple(r)) for dev, r in groups.items())
+
+
+# The lanes a card takes before a call takes one more card: a call of n
+# independent lanes runs on ceil(n / MESH_LANES_PER_DEVICE) cards of the
+# mesh (at most all of them), the others taking the next calls.  A piece
+# on another card than the call's first costs 0.15-0.27 ms of host
+# dispatch (ordering, copies, launch, copies back), while a card's wave
+# of PairHMM's kernels at HaplotypeCaller's bucket, 160 x 384, takes ~0.1
+# ms (2112 pairs of K5, 3168 of K4): on four H100s the split step took
+# 0.85-0.97 ms at 8192 pairs against 0.36 for one K5 call, and the split
+# was slower than one card at 4656 and 7604 pairs too (NVIDIA H100 80GB
+# HBM3 x 4, 700 W; benchmarks/mesh_trace.py).  So no call of up to 8192
+# pairs, the most a caller makes, leaves its card.
+MESH_LANES_PER_DEVICE = 8192
+
+_turn = itertools.count()   # where the next call's devices start
+
+
+def split_devices(devices: list[torch.device], n: int,
+                  home: torch.device | None = None) -> list[torch.device]:
+    """The devices a call of ``n`` independent lanes runs on under the
+    mesh ``devices`` (``Mesh.flat``): ceil(n / MESH_LANES_PER_DEVICE) of
+    its distinct devices, the mesh as it is where that is all of them.
+    The devices taken start at ``home`` where it is one of them (the
+    inputs lie there), else where the previous call's ended, so calls
+    made from several threads run on several devices at once.  Outputs
+    do not depend on the choice: lanes are independent."""
+    distinct = list(dict.fromkeys(torch.device(d) for d in devices))
+    k = max(1, -(-n // MESH_LANES_PER_DEVICE))
+    if k >= len(distinct):
+        return list(devices)
+    if home is not None and torch.device(home) in distinct:
+        start = distinct.index(torch.device(home))
+    else:
+        start = next(_turn) * k
+    return [distinct[(start + i) % len(distinct)] for i in range(k)]
 
 
 def lanes_on(t: torch.Tensor, ranges: list[tuple[int, int]],

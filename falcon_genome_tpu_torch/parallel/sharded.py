@@ -5,13 +5,14 @@ its steps under ``shard_map``; here each step is a plain function that
 runs one piece per mesh device and combines the pieces explicitly:
 
 * pair lanes split evenly over the mesh's devices in ``Mesh.flat`` order
-  (the reference's fused ``(data, region)`` lane sharding); the shards
-  of one device run as one piece (pairs are independent, so a mesh that
-  repeats a device gives the same outputs from one launch), every piece
-  runs kernel K5 (:func:`..ops.pairhmm.pairhmm_pb`), or K4
-  (:func:`..ops.pairhmm.pairhmm_sc`) for scalar transitions, on its
-  device, and the per-pair results are gathered back to the inputs'
-  device;
+  (the reference's fused ``(data, region)`` lane sharding) where every
+  card gets at least a wave of the kernel (``mesh.split_devices``; a
+  smaller batch runs whole on the inputs' device); the shards of one
+  device run as one piece (pairs are independent, so a mesh that repeats
+  a device gives the same outputs from one launch), every piece runs
+  kernel K5, or K4 for scalar transitions, on its device, copying its
+  lanes there itself, and the pieces' sums come back to the inputs'
+  device for one log10 (:func:`..ops.pairhmm.pairhmm_pieces`);
 * a ``psum`` of histograms is the sum of the per-device tables;
 * the sample-sort's ``all_gather`` of samples is a gather, and its
   ``all_to_all`` is one copy per (source, destination) bucket.
@@ -26,37 +27,26 @@ import numpy as np
 import torch
 
 from ..bqsr import MAX_CYCLE, MAX_QUAL, N_CONTEXT
-from ..ops.pairhmm import pairhmm_pb, pairhmm_sc
-from .mesh import Mesh, device_lanes, lane_splits, lanes_on
+from ..ops.pairhmm import pairhmm_pb, pairhmm_pieces, pairhmm_sc
+from .mesh import Mesh, device_lanes, lane_splits, split_devices
 
 
 def _pairhmm_shards(mesh: Mesh, read, base_q, ins_q, del_q, gcp, rlen,
                     hlen, hap, scalar_trans=None) -> torch.Tensor:
     """K5 (K4 with ``scalar_trans``) on each mesh device's lanes, the
-    shards of a device as one launch; every launch is enqueued before
-    the results are gathered, once, into (B,) on the inputs' device."""
+    shards of a device as one launch, or one call on the inputs' device
+    where the split rule keeps the batch there; (B,) on that device."""
     B = read.shape[0]
-    lanes = device_lanes(mesh.flat, B)
-
-    def launch(r, bq, rl, hl, hp, *planes):
-        if scalar_trans is not None:
-            return pairhmm_sc(r, bq, rl, hp, hl, *scalar_trans)
-        return pairhmm_pb(r, bq, *planes, rl, hp, hl)
-
-    tensors = [read, base_q, rlen, hlen, hap]
-    if scalar_trans is None:
-        tensors += [ins_q, del_q, gcp]
+    lanes = device_lanes(split_devices(mesh.flat, B, home=read.device), B)
     if len(lanes) == 1 and lanes[0][0] == read.device:
-        return launch(*tensors)         # every shard on the inputs' device
-    pieces = [(ranges, launch(*(lanes_on(t, ranges, dev) for t in tensors)))
-              for dev, ranges in lanes]
-    out = torch.empty(B, dtype=torch.float32, device=read.device)
-    for ranges, logp in pieces:
-        at = 0
-        for s, e in ranges:
-            out[s:e] = logp[at:at + e - s]
-            at += e - s
-    return out
+        # every shard on the inputs' device
+        if scalar_trans is not None:
+            return pairhmm_sc(read, base_q, rlen, hap, hlen, *scalar_trans)
+        return pairhmm_pb(read, base_q, ins_q, del_q, gcp, rlen, hap, hlen)
+    fields = ((read, base_q, rlen, hap, hlen) if scalar_trans is not None
+              else (read, base_q, ins_q, del_q, gcp, rlen, hap, hlen))
+    return pairhmm_pieces(lanes, B, fields, scalar_trans, read.shape[1],
+                          hap.shape[1], home=read.device)
 
 
 def sharded_pairhmm_step(mesh: Mesh, R: int, H: int,

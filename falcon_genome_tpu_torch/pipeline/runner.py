@@ -205,6 +205,10 @@ class PipelineRunner:
                         errors.append((t.label, f"peer artifact missing: "
                                                 f"{t.output}"))
                     results[i] = t.output
+            # and again: a stage's caller may merge and remove the
+            # artifacts on the primary (indel) only once every process
+            # has found them
+            sync_processes(f"{self.name}:{s.name}:adopted")
         if errors:
             # operative diagnosis: scrape the per-task logs, de-duplicated
             # across shards (Executor.cpp:74-99 + LogUtils::findError)

@@ -254,6 +254,186 @@ class TestActiveMeshPipeline:
         got = TS.sharded_pairhmm_step(mesh, 16, 24)(*batch[:8])
         assert torch.equal(got, want)
 
+    @staticmethod
+    def _cards(k):
+        """``k`` distinct card devices (only their identities are used)."""
+        return [torch.device("cuda", i) for i in range(k)]
+
+    # the rule's steps at 2048 lanes a card (the shipped 8192 keeps every
+    # call a caller makes on one card), so that calls of up to 8192 lanes
+    # take several cards
+    PER = 2048
+
+    @staticmethod
+    def _size(at, cards):
+        """The lanes of a call at ``at`` around the split threshold (the
+        smallest call that takes two cards), and the cards it takes."""
+        per = TM.MESH_LANES_PER_DEVICE
+        n = {"1": 1, "threshold-1": per, "threshold": per + 1,
+             "all": (cards - 1) * per + 1, "8192": 8192}[at]
+        return n, min(cards, -(-n // per))
+
+    @pytest.mark.parametrize("cards", [2, 4])
+    @pytest.mark.parametrize("at", ["1", "threshold-1", "threshold", "all",
+                                    "8192"])
+    def test_split_devices_rule(self, cards, at, monkeypatch):
+        """A call takes one card per MESH_LANES_PER_DEVICE lanes, at most
+        every card of the mesh (then the mesh as it is); a call below the
+        threshold runs on one card: the inputs' own where they lie on
+        one, else the cards in turn, one call after another."""
+        monkeypatch.setattr(TM, "MESH_LANES_PER_DEVICE", self.PER)
+        n, k = self._size(at, cards)
+        devs = self._cards(cards) * 2         # a mesh may repeat its cards
+        got = TM.split_devices(devs, n)
+        if k == cards:
+            assert got == devs
+            assert TM.split_devices(devs, n, home=devs[1]) == devs
+        else:
+            assert len(got) == len(set(got)) == k
+            assert set(got) <= set(devs)
+            if k == 1:
+                turns = [TM.split_devices(devs, n)[0] for _ in range(cards)]
+                assert sorted(turns, key=str) == self._cards(cards)
+            assert TM.split_devices(devs, n, home=devs[1])[0] == devs[1]
+            assert len(TM.split_devices(devs, n, home=CPU)) == k
+        # one distinct device: the mesh as it is (its shards merge)
+        assert TM.split_devices(CPU8, n) == CPU8
+
+    def _on_cpu(self, monkeypatch):
+        """Run the pieces of a mesh of distinct cards on the CPU: each
+        piece keeps its lanes, and the card it was given and its launch
+        are recorded."""
+        import falcon_genome_tpu_torch.ops.pairhmm as TPH
+        seen = {"devices": [], "launches": []}
+        lanes_of = TM.device_lanes
+
+        def device_lanes(devs, n):
+            pieces = lanes_of(devs, n)
+            seen["devices"] += [d for d, _ in pieces]
+            return [(CPU, r) for _, r in pieces]
+        piece = TPH._piece_cpu
+
+        def launch(fields, lanes, *a):
+            seen["launches"].append(sum(e - s for s, e in lanes))
+            return piece(fields, lanes, *a)
+        wrappers = {n: getattr(TPH, n) for n in ("pairhmm_sc", "pairhmm_pb")}
+
+        def whole(name):
+            def call(read, *a):
+                seen["launches"].append(read.shape[0])
+                return wrappers[name](read, *a)
+            return call
+        monkeypatch.setattr(TM, "device_lanes", device_lanes)
+        monkeypatch.setattr(TS, "device_lanes", device_lanes)
+        monkeypatch.setattr(TPH, "_piece_cpu", launch)
+        for name in wrappers:       # the step's and the pair path's calls
+            monkeypatch.setattr(TS, name, whole(name))
+            monkeypatch.setattr(TPH, name, whole(name))
+        return seen
+
+    @pytest.mark.parametrize("cards", [2, 4])
+    @pytest.mark.parametrize("at", ["1", "threshold-1", "threshold", "all",
+                                    "8192"])
+    def test_split_rule_bit_equal_to_no_mesh(self, cards, at, monkeypatch):
+        """Under a mesh of distinct cards, ``pairhmm_logp`` (scalar
+        transitions and planes), ``pairhmm_logp_pairs`` and the sharded
+        step give outputs bit-equal to no mesh, in lane order, at every
+        size around the split threshold; a call below it reaches one
+        card with one launch, a larger one the cards of the rule with one
+        launch each, every card where the rule takes all (counted at the
+        launcher)."""
+        from falcon_genome_tpu_torch.ops.pairhmm import (
+            PairHMMParams, pairhmm_logp, pairhmm_logp_pairs, pairhmm_pb)
+        monkeypatch.setattr(TM, "MESH_LANES_PER_DEVICE", self.PER)
+        n, k = self._size(at, cards)
+        R, H = 16, 24
+        batch = TS.make_example_batch(n, R, H, 4, seed=cards)
+        read, bq, iq, dq, gq, rl, hl, hp = batch[:8]
+        rng = np.random.default_rng(n)
+        rl = torch.from_numpy(rng.integers(4, R + 1, n).astype(np.int32))
+        host = [t.numpy() for t in (read, bq, iq, dq, gq, rl, hp, hl)]
+        params = PairHMMParams(max_read_len=R, max_hap_len=H, device=CPU)
+        nr = max(1, n // 8)
+        pr = np.arange(n) % nr
+        ph = np.arange(n) // nr % 8
+        calls = {
+            "logp": lambda: pairhmm_logp(*host[:2], 45, 45, 10, host[5],
+                                         *host[6:], params),
+            "planes": lambda: pairhmm_logp(*host, params),
+            "pairs": lambda: pairhmm_logp_pairs(
+                host[0][:nr], host[1][:nr], host[5][:nr], host[6][:8],
+                host[7][:8], pr, ph, 45, 45, 10, params),
+            "step": lambda: TS.sharded_pairhmm_step(mesh, R, H)(
+                read, bq, iq, dq, gq, rl, hl, hp).numpy()}
+        mesh = TM.make_mesh(TM.MeshSpec(data=cards, region=1),
+                            self._cards(cards))
+        with TM.use_mesh(None):
+            want = {k: f() for k, f in calls.items() if k != "step"}
+        want["step"] = pairhmm_pb(read, bq, iq, dq, gq, rl, hp, hl).numpy()
+        seen = self._on_cpu(monkeypatch)
+        for name, f in calls.items():
+            seen["devices"].clear()
+            seen["launches"].clear()
+            with TM.use_mesh(mesh):
+                got = f()
+            np.testing.assert_array_equal(got, want[name], err_msg=name)
+            if k == cards:
+                assert seen["devices"] == mesh.flat, name
+            assert len(set(seen["devices"])) == k, name
+            assert len(seen["launches"]) == k, name
+            assert sum(seen["launches"]) == n, name
+        assert np.isfinite(want["logp"]).any()
+
+    def test_no_call_of_a_caller_leaves_its_card(self):
+        """With the shipped rule every call of up to MAX_PAIRS_PER_CALL
+        pairs (the most a caller makes) runs whole on one card of a
+        four-card mesh: the split's dispatch costs more than it saves
+        there (measured on four H100s)."""
+        from falcon_genome_tpu_torch.ops.pairhmm import MAX_PAIRS_PER_CALL
+        devs = self._cards(4)
+        for n in (1, 2048, 4656, 7604, MAX_PAIRS_PER_CALL):
+            assert len(TM.split_devices(devs, n)) == 1
+            assert TM.split_devices(devs, n, home=devs[2]) == [devs[2]]
+        assert len(TM.split_devices(devs, MAX_PAIRS_PER_CALL + 1)) == 2
+
+    def test_concurrent_calls_under_a_mesh(self, monkeypatch):
+        """Calls made from several threads at once under a mesh of
+        distinct cards, each below the split threshold and so sent to the
+        cards in turn, give each thread its own call's outputs."""
+        import threading
+        from falcon_genome_tpu_torch.ops.pairhmm import (
+            PairHMMParams, pairhmm_logp)
+        R, H = 16, 24
+        params = PairHMMParams(max_read_len=R, max_hap_len=H, device=CPU)
+        batches = []
+        for seed in range(6):
+            b = TS.make_example_batch(40 + seed, R, H, 4, seed=seed)
+            batches.append([t.numpy() for t in (b[0], b[1], b[5], b[7],
+                                                b[6])])
+
+        def call(b):
+            return pairhmm_logp(b[0], b[1], 45, 45, 10, b[2], b[3], b[4],
+                                params)
+        with TM.use_mesh(None):
+            want = [call(b) for b in batches]
+        seen = self._on_cpu(monkeypatch)
+        mesh = TM.make_mesh(TM.MeshSpec(data=4, region=1), self._cards(4))
+        got = [None] * len(batches)
+
+        def worker(i):
+            with TM.use_mesh(mesh):
+                for _ in range(3):
+                    got[i] = call(batches[i])
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(batches))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert len(set(seen["devices"])) == 4
+
     def test_htc_call_interval_mesh_equivalence(self):
         import __graft_entry__ as ge
         from falcon_genome_tpu_torch.models.haplotypecaller import (
@@ -729,6 +909,38 @@ class TestRunnerOwnership:
         outs[1].write_text("x")             # the peer's artifact appears
         got = R.PipelineRunner("p", force=True).run_stage(st)
         assert got == [str(o) for o in outs]
+
+    def test_peers_adopt_artifacts_before_any_process_goes_on(
+            self, tmp_path, monkeypatch):
+        """Process 1 of 2 looks for process 0's artifacts after the
+        stage's barrier, and a second barrier follows its look: process
+        0, which merges and removes the parts after the stage (indel),
+        cannot remove them before process 1 has found them."""
+        from falcon_genome_tpu_torch.pipeline import runner as R
+        monkeypatch.setattr(R, "process_info", lambda: (1, 2))
+        outs = [tmp_path / f"part-{i}" for i in range(2)]
+        events = []
+
+        def task(i):
+            outs[i].write_text("x")
+            return str(outs[i])
+
+        def barrier(tag):
+            events.append(("barrier", tag))
+            outs[0].write_text("x")         # process 0's task, done by now
+
+        real_exists = Path.exists
+        monkeypatch.setattr(R, "sync_processes", barrier)
+        monkeypatch.setattr(Path, "exists", lambda self: (
+            events.append(("look", self.name)), real_exists(self))[1])
+        st = R.stage("s", [lambda i=i: task(i) for i in range(2)],
+                     outputs=[str(o) for o in outs])
+        got = R.PipelineRunner("p", force=True).run_stage(st)
+        assert got == [str(o) for o in outs]
+        looks = [i for i, e in enumerate(events) if e == ("look", "part-0")]
+        barriers = [i for i, e in enumerate(events) if e[0] == "barrier"]
+        assert looks and barriers
+        assert barriers[0] < looks[-1] < barriers[-1]
 
 
 class TestMultiProcessStage:
