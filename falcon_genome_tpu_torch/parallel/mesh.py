@@ -128,7 +128,7 @@ def _device_lanes(devices: tuple[torch.device, ...], n: int):
 
 # The lanes a card takes before a call takes one more card: a call of n
 # independent lanes runs on ceil(n / MESH_LANES_PER_DEVICE) cards of the
-# mesh (at most all of them), the others taking the next calls.  A piece
+# mesh (at most all of them).  A piece
 # on another card than the call's first costs 0.15-0.27 ms of host
 # dispatch (ordering, copies, launch, copies back), while a card's wave
 # of PairHMM's kernels at HaplotypeCaller's bucket, 160 x 384, takes ~0.1
@@ -139,7 +139,19 @@ def _device_lanes(devices: tuple[torch.device, ...], n: int):
 # pairs, the most a caller makes, leaves its card.
 MESH_LANES_PER_DEVICE = 8192
 
-_turn = itertools.count()   # where the next call's devices start
+_turn = itertools.count()   # the order in which threads first take a card
+
+
+def _thread_turn() -> int:
+    """This thread's place in the order of threads that have run a call:
+    where its calls' devices start.  One thread's calls keep to one card
+    (sent to the cards in turn, one caller thread's calls of 8192 pairs
+    read 1.09-1.14x one card's on four H100s); calls from several
+    threads spread over the cards."""
+    turn = getattr(_state, "turn", None)
+    if turn is None:
+        turn = _state.turn = next(_turn)
+    return turn
 
 
 def split_devices(devices: list[torch.device], n: int,
@@ -148,9 +160,10 @@ def split_devices(devices: list[torch.device], n: int,
     mesh ``devices`` (``Mesh.flat``): ceil(n / MESH_LANES_PER_DEVICE) of
     its distinct devices, the mesh as it is where that is all of them.
     The devices taken start at ``home`` where it is one of them (the
-    inputs lie there), else where the previous call's ended, so calls
-    made from several threads run on several devices at once.  Outputs
-    do not depend on the choice: lanes are independent."""
+    inputs lie there), else at the calling thread's own place
+    (:func:`_thread_turn`), so calls made from several threads run on
+    several devices at once.  Outputs do not depend on the choice: lanes
+    are independent."""
     distinct = list(dict.fromkeys(torch.device(d) for d in devices))
     k = max(1, -(-n // MESH_LANES_PER_DEVICE))
     if k >= len(distinct):
@@ -158,7 +171,7 @@ def split_devices(devices: list[torch.device], n: int,
     if home is not None and torch.device(home) in distinct:
         start = distinct.index(torch.device(home))
     else:
-        start = next(_turn) * k
+        start = _thread_turn() * k
     return [distinct[(start + i) % len(distinct)] for i in range(k)]
 
 

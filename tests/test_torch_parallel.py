@@ -22,6 +22,7 @@ import logging
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -280,7 +281,8 @@ class TestActiveMeshPipeline:
         """A call takes one card per MESH_LANES_PER_DEVICE lanes, at most
         every card of the mesh (then the mesh as it is); a call below the
         threshold runs on one card: the inputs' own where they lie on
-        one, else the cards in turn, one call after another."""
+        one, else the calling thread's card, the threads' cards in
+        turn."""
         monkeypatch.setattr(TM, "MESH_LANES_PER_DEVICE", self.PER)
         n, k = self._size(at, cards)
         devs = self._cards(cards) * 2         # a mesh may repeat its cards
@@ -292,7 +294,14 @@ class TestActiveMeshPipeline:
             assert len(got) == len(set(got)) == k
             assert set(got) <= set(devs)
             if k == 1:
-                turns = [TM.split_devices(devs, n)[0] for _ in range(cards)]
+                # one thread's calls keep to one card; threads take turns
+                assert TM.split_devices(devs, n) == got
+                turns = []
+                for _ in range(cards):
+                    t = threading.Thread(target=lambda: turns.append(
+                        TM.split_devices(devs, n)[0]))
+                    t.start()
+                    t.join()
                 assert sorted(turns, key=str) == self._cards(cards)
             assert TM.split_devices(devs, n, home=devs[1])[0] == devs[1]
             assert len(TM.split_devices(devs, n, home=CPU)) == k
@@ -398,9 +407,8 @@ class TestActiveMeshPipeline:
 
     def test_concurrent_calls_under_a_mesh(self, monkeypatch):
         """Calls made from several threads at once under a mesh of
-        distinct cards, each below the split threshold and so sent to the
-        cards in turn, give each thread its own call's outputs."""
-        import threading
+        distinct cards, each below the split threshold and so sent to its
+        thread's card, give each thread its own call's outputs."""
         from falcon_genome_tpu_torch.ops.pairhmm import (
             PairHMMParams, pairhmm_logp)
         R, H = 16, 24
