@@ -38,9 +38,11 @@ Phases (each prints its numbers; any failure exits non-zero):
    summed BQSR histogram), ``pairhmm_logp`` with planes and
    ``pairhmm_logp_pairs`` equal the single-device K5 call and calls, and
    ``accumulate_table`` / ``coordinate_order`` equal their single-device
-   results on the 50 kb sample's records; the sharded step's time over
-   one K5 call's, and its ``torch.profiler`` trace per card (kernels,
-   copies, busy ms, idle share, longest gap; ``benchmarks/mesh_trace.py``);
+   results on the 50 kb sample's records (each PairHMM call runs whole
+   on one card of the mesh, ``parallel.mesh.call_device``); the sharded
+   step's time over one K5 call's, and its ``torch.profiler`` trace per
+   card (kernels, copies, busy ms, idle share, longest gap;
+   ``benchmarks/mesh_trace.py``);
    the step, ``pairhmm_logp`` and ``pairhmm_logp_pairs`` under the mesh
    against one card at 8192 pairs and at the callers' median call
    (``mesh_trace.SIZES``), bit-equal, their time ratios printed;

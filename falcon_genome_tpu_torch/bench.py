@@ -10,7 +10,10 @@ metric names:
                             160) against 384-base haplotypes, transitions
                             45/45/10, base qualities 30;
   pairhmm_mesh_gcups        the same through ``sharded_pairhmm_step`` over
-                            a mesh of every visible card (``mesh_chips``);
+                            a mesh of every visible card, which runs each
+                            batch whole on one card
+                            (``parallel.mesh.call_device``);
+                            ``mesh_chips`` counts the cards it ran on;
   sw_score_gcups            kernel K1, 2048 lanes of 150-base reads in 400-
                             base windows (bucket 160 x 416);
   align_reads_per_s         ``AlignerEngine.align_batch``: 5000 x 150 bp
@@ -134,7 +137,8 @@ def bench_pairhmm(args, device: torch.device):
 
 def bench_pairhmm_mesh(args, devices: list[torch.device]):
     """The same pairs through the sharded step over a (data=n, region=1)
-    mesh of ``devices``.  Returns (GCUPS, device count)."""
+    mesh of ``devices``.  Returns (GCUPS, the number of devices the step
+    ran on)."""
     from .parallel import MeshSpec, make_mesh, sharded_pairhmm_step
     mesh = make_mesh(MeshSpec(data=len(devices), region=1), devices)
     step = sharded_pairhmm_step(mesh, BUCKET_R, BUCKET_H, scalar_trans=TRANS)
@@ -147,7 +151,8 @@ def bench_pairhmm_mesh(args, devices: list[torch.device]):
         return out
 
     per_call = timed(call, devices[0], N_INNER)
-    return B * R_REAL * H_REAL / per_call / 1e9, len(devices)
+    # the step runs a batch whole on one device of the mesh
+    return B * R_REAL * H_REAL / per_call / 1e9, 1
 
 
 def sw_inputs(rng, device: torch.device):

@@ -34,7 +34,8 @@ Every case is checked bit-equal to its no-mesh twin, and each size gets
 the ratios of the mesh cases to their twins (``ratios``).  Each root also
 times one K4 call on one card at 512, 1024, ..., 8192 pairs
 (``one_k4_ms_by_pairs``): the steps of that curve are the kernel's waves,
-which the mesh's split rule (``parallel.mesh``) follows.  Give the
+and a split over cards pays only where a card's share of a call runs
+longer than its dispatch (``parallel.mesh``).  Give the
 roots as parent, change, change, parent.  Prints one JSON line per run,
 with the number of visible cards, after one with the cards' names and
 power limits; without a CUDA device it exits non-zero.

@@ -26,8 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
     "torch_kernels"
-SOURCES = ("smith_waterman.cu", "pairhmm.cu", "pairhmm_mesh.cu",
-           "bench_kernels.cu")
+SOURCES = ("smith_waterman.cu", "pairhmm.cu", "bench_kernels.cu")
 TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -60,13 +59,6 @@ SIGNATURES = {
     # acc_out, shift_out, stream
     "fgt_pairhmm_pb": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                        _P, _P),
-    # per_base, lead, lead_stream, dev, stream, n_seg, src, bytes, field,
-    # copy, table, n, R, H, p_ins, p_del, p_cont, a_mm, a_im, n_out, outs,
-    # acc_out, shift_out
-    "fgt_pairhmm_piece": (_I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I,
-                          _I, _F, _F, _F, _F, _F, _I, _P, _P, _P),
-    # dev, peer
-    "fgt_enable_peer": (_I, _I),
     # x, R, B, trips, a, b, zero, out, stream
     "fgt_fma_ceiling": (_P, _I, _I, _I, _F, _F, _F, _P, _P),
     # read, win, rlen, wlen, B, R, W, match, mismatch, go, ge, flags,

@@ -28,14 +28,11 @@ host build of the CUDA source runs them on CPU tensors (see
 ``tests/test_torch_pairhmm_emulated.py``).
 :func:`pairhmm_logp` routes as the reference does: all three transitions
 scalar → K4, any of them a plane → K5 with the scalars broadcast to
-planes; under an active device mesh (``parallel.mesh``) a call runs on
-the devices ``split_devices`` gives it, each a piece
-(:func:`pairhmm_pieces`: one C call a piece, ``csrc/pairhmm_mesh.cu``,
-and one :func:`_finish` a call).
+planes; under an active device mesh (``parallel.mesh``) a call runs
+whole on the device ``parallel.mesh.call_device`` gives it.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 import math
@@ -158,16 +155,6 @@ def _pairhmm_plain(read_codes, base_q, ins_q, del_q, gcp, rlen, hlen,
     Time-major inputs: read_codes (R, B), base_q (R, B) phreds, rlen and
     hlen (1, B), hap_codes (H, B); ins_q/del_q/gcp phred scalars or
     (R, B) arrays.  Returns (B,) float32 log10 likelihoods."""
-    return _finish(*_pairhmm_plain_raw(read_codes, base_q, ins_q, del_q,
-                                       gcp, rlen, hlen, hap_codes, R=R,
-                                       H=H))
-
-
-def _pairhmm_plain_raw(read_codes, base_q, ins_q, del_q, gcp, rlen, hlen,
-                       hap_codes, *, R: int, H: int
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`_pairhmm_plain` before :func:`_finish`: the (B,) float32
-    scaled sums and their log10 shifts, as the kernels write them."""
     f32 = torch.float32
     dev = read_codes.device
     read_codes = read_codes.to(torch.int32)
@@ -237,7 +224,7 @@ def _pairhmm_plain_raw(read_codes, base_q, ins_q, del_q, gcp, rlen, hlen,
             acc = acc * scale
             bound = bound * scale
             sh = sh + torch.where(need, step, 0.0)
-    return acc[0], sh[0]
+    return _finish(acc, sh)[0]
 
 
 def _check_kernel_inputs(name: str, R: int, typed) -> None:
@@ -358,14 +345,6 @@ def _is_plane(q) -> bool:
     return np.ndim(q) != 0
 
 
-def _fill(dst: np.ndarray, x, fill: int) -> None:
-    """``x`` into the top left of ``dst``, the rest ``fill``."""
-    x = np.asarray(x)
-    if x.shape != dst.shape:
-        dst.fill(fill)
-    dst[:x.shape[0], :x.shape[1]] = x
-
-
 def _host_plane(x, rows: int, cols: int, fill: int, pin: bool
                 ) -> torch.Tensor:
     """(rows, cols) uint8 host tensor, in pinned memory where ``pin``: a
@@ -373,10 +352,13 @@ def _host_plane(x, rows: int, cols: int, fill: int, pin: bool
     an array is padded with ``fill`` (N codes for bases, phred 0 for
     qualities: the reference's blob padding)."""
     out = torch.empty((rows, cols), dtype=torch.uint8, pin_memory=pin)
-    if _is_plane(x):
-        _fill(out.numpy(), x, fill)
-    else:
-        out.numpy().fill(int(x))
+    a = out.numpy()
+    if not _is_plane(x):
+        a.fill(int(x))
+        return out
+    x = np.asarray(x)
+    a.fill(fill)
+    a[:x.shape[0], :x.shape[1]] = x
     return out
 
 
@@ -384,124 +366,6 @@ def _host_vector(x, dtype, pin: bool) -> torch.Tensor:
     out = torch.empty(len(x), dtype=dtype, pin_memory=pin)
     out.numpy()[:] = x
     return out
-
-
-def _cuda(dev) -> torch.device:
-    """``dev`` with its index (the current device's where it has none)."""
-    dev = torch.device(dev)
-    if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
-_peers: set[tuple[int, int]] = set()
-
-
-def _enable_peer(lib, a: int, b: int) -> None:
-    """Let cards ``a`` and ``b`` copy to each other directly, once."""
-    with _launch_lock:
-        if (a, b) in _peers:
-            return
-        _build.check(lib.fgt_enable_peer(a, b), "fgt_enable_peer")
-        _peers.update({(a, b), (b, a)})
-
-
-def _row_bytes(t: torch.Tensor) -> int:
-    return t.stride(0) * t.element_size() if t.dim() else 0
-
-
-def _piece_cuda(lib, fields, ranges, dev, lead, raw, trans, R, H) -> None:
-    """One piece of a call through ``fgt_pairhmm_piece``: the lanes
-    ``ranges`` of the contiguous ``fields`` (K4's five or K5's eight, in
-    the kernel's order; on the host, on ``dev`` or on another card) run
-    on ``dev`` (K4 with the phred triple ``trans``, else K5), and their
-    sums and shifts land at the same lanes of ``raw`` (2, B) on ``lead``,
-    all enqueued without waiting for the card."""
-    per_base = trans is None
-    copy = not (len(ranges) == 1 and all(t.device == dev for t in fields))
-    src, nbytes, field = [], [], []
-    for f, t in enumerate(fields):
-        base, rb = t.data_ptr(), _row_bytes(t)
-        for s, e in ranges:
-            src.append(base + s * rb)
-            nbytes.append((e - s) * rb)
-            field.append(f)
-    outs, at = [], 0
-    for s, e in ranges:
-        outs += [at, s, e - s]
-        at += e - s
-    src_a = np.array(src, np.uint64)
-    bytes_a = np.array(nbytes, np.uint64)
-    field_a = np.array(field, np.int32)
-    outs_a = np.array(outs, np.int64)
-    tr = (0.0,) * 5 if per_base else _transitions(*(int(q) for q in trans))
-    _enable_peer(lib, dev.index, lead.index)
-    err = lib.fgt_pairhmm_piece(
-        int(per_base), lead.index, torch.cuda.current_stream(lead).cuda_stream,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream, len(src),
-        src_a.ctypes.data, bytes_a.ctypes.data, field_a.ctypes.data,
-        int(copy), _prob_table(dev).data_ptr(), at, R, H, *tr, len(ranges),
-        outs_a.ctypes.data, raw[0].data_ptr(), raw[1].data_ptr())
-    _build.check(err, "fgt_pairhmm_piece")
-    with _launch_lock:
-        LAUNCHES["fgt_pairhmm_pb" if per_base else "fgt_pairhmm"] += 1
-
-
-def _piece_cpu(fields, ranges, raw, trans, R, H) -> None:
-    """:func:`_piece_cuda` on the CPU: the plain version on the lanes
-    ``ranges`` of ``fields``."""
-    from ..parallel.mesh import lanes_on
-    cpu = torch.device("cpu")
-    read, bq, *rest = (lanes_on(t, ranges, cpu) for t in fields)
-    if trans is None:
-        iq, dq, gq, rl, hap, hl = rest
-        iq, dq, gq = iq.T, dq.T, gq.T
-    else:
-        (rl, hap, hl), (iq, dq, gq) = rest, trans
-    acc, sh = _pairhmm_plain_raw(read.T, bq.T, iq, dq, gq, rl[None],
-                                 hl[None], hap.T, R=R, H=H)
-    at = 0
-    for s, e in ranges:
-        raw[0, s:e] = acc[at:at + e - s]
-        raw[1, s:e] = sh[at:at + e - s]
-        at += e - s
-
-
-def pairhmm_pieces(pieces, B: int, fields, trans, R: int, H: int,
-                   home: torch.device | None = None) -> torch.Tensor:
-    """(B,) float32 log10 of a call of B lanes run as ``pieces``
-    (``parallel.mesh.device_lanes``: (device, lane ranges), one launch a
-    piece) on the lane-major ``fields`` (K4's read, base_q, rlen, hap,
-    hlen with the phred triple ``trans``; K5's read, base_q, ins_q, del_q,
-    gcp, rlen, hap, hlen with ``trans`` None), on the host or on one
-    device ``home``; a piece on another card copies its lanes there
-    itself.  Every piece's sums and shifts land in one buffer on the lead
-    device (``home`` where a piece runs there, else the first piece's)
-    and one :func:`_finish` there makes the log10, so the bits do not
-    depend on the split.  Returned on ``home`` (the lead where None),
-    every piece enqueued, none waited for."""
-    devs = [_cuda(d) for d, _ in pieces]
-    home = None if home is None else _cuda(home)
-    if not pieces:
-        return torch.empty(0, dtype=torch.float32, device=home)
-    lead = home if home in devs else devs[0]
-    fields = [t.contiguous() for t in fields]
-    raw = torch.empty((2, B), dtype=torch.float32, device=lead)
-    lib = None
-    for dev, (_, ranges) in zip(devs, pieces):
-        if dev.type == "cpu":
-            _piece_cpu(fields, ranges, raw, trans, R, H)
-        elif dev.type == "cuda":
-            lib = lib or _build.load()
-            with torch.cuda.device(dev):
-                _piece_cuda(lib, fields, ranges, dev, lead, raw, trans, R,
-                            H)
-        else:
-            raise ValueError(f"no PairHMM kernel for device {dev}")
-    with (torch.cuda.device(lead) if lead.type == "cuda"
-          else contextlib.nullcontext()):
-        out = _finish(raw[0], raw[1])
-    return out if home is None or home == lead else out.to(home)
 
 
 def pairhmm_logp(read_codes, base_q, ins_q, del_q, gcp, read_lens,
@@ -514,8 +378,7 @@ def pairhmm_logp(read_codes, base_q, ins_q, del_q, gcp, read_lens,
     phred array.  Reads and haps are padded to the bucket (N codes), quality
     planes with phred 0, as the reference does; calls hold at most 8192
     pairs.  All transitions scalar → kernel K4, else K5.  Under an active
-    mesh a call's pairs split evenly over the mesh's devices where
-    ``parallel.mesh.split_devices`` says so, else run on one of them."""
+    mesh the call runs on one of its devices (``call_device``)."""
     B, Rin = read_codes.shape
     Hin = hap_codes.shape[1]
     R, H = params.max_read_len, params.max_hap_len
@@ -523,11 +386,12 @@ def pairhmm_logp(read_codes, base_q, ins_q, del_q, gcp, read_lens,
         raise ValueError(f"read bucket {Rin} exceeds {R}")
     if Hin > H:
         raise ValueError(f"hap bucket {Hin} exceeds {H}")
-    from ..parallel.mesh import device_lanes, get_active_mesh, split_devices
+    from ..parallel.mesh import call_device, get_active_mesh
     trans = (ins_q, del_q, gcp)
     per_base = any(_is_plane(q) for q in trans)
     mesh = get_active_mesh()
-    devices = mesh.flat if mesh is not None else [params.device]
+    dev = call_device(mesh.flat if mesh is not None else [params.device])
+    pin = dev.type == "cuda"
     chunks = []
     for s0 in range(0, B, MAX_PAIRS_PER_CALL):
         e0 = min(B, s0 + MAX_PAIRS_PER_CALL)
@@ -538,24 +402,24 @@ def pairhmm_logp(read_codes, base_q, ins_q, del_q, gcp, read_lens,
 
         # the chunk padded once on the host (megabytes: pinned for the
         # card, whose copies then take half the device time and do not
-        # wait for the host); each piece copies its lanes
-        pieces = device_lanes(split_devices(devices, n), n)
-        pin = any(torch.device(d).type == "cuda" for d, _ in pieces)
-        planes = [_host_plane(cut(q), n, R, 0, pin) for q in trans
-                  ] if per_base else []
-        fields = [_host_plane(read_codes[s0:e0], n, R, 4, pin),
-                  _host_plane(cut(base_q), n, R, 0, pin), *planes,
-                  _host_vector(read_lens[s0:e0], torch.int32, pin),
-                  _host_plane(hap_codes[s0:e0], n, H, 4, pin),
-                  _host_vector(hap_lens[s0:e0], torch.int32, pin)]
-        chunks.append((fields, pairhmm_pieces(
-            pieces, n, fields, None if per_base else trans, R, H)))
-    out = np.empty(B, np.float32)
-    at = 0
-    for _, logp in chunks:     # the host inputs live until this read
-        out[at:at + len(logp)] = logp.cpu().numpy()
-        at += len(logp)
-    return out
+        # wait for the host)
+        host = [_host_plane(read_codes[s0:e0], n, R, 4, pin),
+                _host_plane(cut(base_q), n, R, 0, pin),
+                _host_vector(read_lens[s0:e0], torch.int32, pin),
+                _host_plane(hap_codes[s0:e0], n, H, 4, pin),
+                _host_vector(hap_lens[s0:e0], torch.int32, pin)]
+        if per_base:
+            host += [_host_plane(cut(q), n, R, 0, pin) for q in trans]
+        read, bq, rl, hap, hl, *planes = (t.to(dev, non_blocking=True)
+                                          for t in host)
+        if per_base:
+            chunks.append(pairhmm_pb(read, bq, *planes, rl, hap, hl))
+        else:
+            chunks.append(pairhmm_sc(read, bq, rl, hap, hl,
+                                     *(int(q) for q in trans)))
+    # read back once every chunk's launch is enqueued
+    out = [logp.cpu().numpy() for logp in chunks]
+    return np.concatenate(out) if out else np.zeros(0, np.float32)
 
 
 def pairhmm_logp_pairs(reads, quals, read_lens, haps, hap_lens,
@@ -570,10 +434,8 @@ def pairhmm_logp_pairs(reads, quals, read_lens, haps, hap_lens,
     the (B, R) / (B, H) pair tiles are gathered on the device.
     reads (NR, R') codes, quals (NR, R') phreds, haps (NH, H'),
     read_lens (NR,), hap_lens (NH,), pair_read/pair_hap (B,) with
-    B <= 8192 (callers chunk).  Under an active mesh the call runs on the
-    devices ``parallel.mesh.split_devices`` gives it (one, for every
-    call of up to 8192 pairs), each taking its pair lanes and the unique
-    reads and haplotypes once."""
+    B <= 8192 (callers chunk).  Under an active mesh the call runs on one
+    of its devices (``parallel.mesh.call_device``)."""
     B = len(pair_read)
     if B == 0:
         return np.zeros(0, np.float32)
@@ -584,10 +446,9 @@ def pairhmm_logp_pairs(reads, quals, read_lens, haps, hap_lens,
     R, H = params.max_read_len, params.max_hap_len
     if ((max(Rin, 8) + 7) // 8) * 8 > R or Hin > H:
         raise ValueError("input exceeds PairHMM bucket shape")
-    from ..parallel.mesh import (
-        device_lanes, get_active_mesh, lanes_on, split_devices)
+    from ..parallel.mesh import call_device, get_active_mesh
     mesh = get_active_mesh()
-    devices = mesh.flat if mesh is not None else [params.device]
+    dev = call_device(mesh.flat if mesh is not None else [params.device])
     # tens of kilobytes: pinning them costs more host time than the
     # copies save (traced on the card)
     tables = (_host_plane(reads, NR, R, 4, False),
@@ -597,18 +458,7 @@ def pairhmm_logp_pairs(reads, quals, read_lens, haps, hap_lens,
               _host_vector(hap_lens, torch.int32, False))
     index = (_host_vector(pair_read, torch.int64, False),
              _host_vector(pair_hap, torch.int64, False))
-    pieces = []
-    for dev, ranges in device_lanes(split_devices(devices, B), B):
-        rd, q, rl, hp, hl = (t.to(dev, non_blocking=True) for t in tables)
-        pr, ph = (lanes_on(t, ranges, dev) for t in index)
-        pieces.append((ranges, pairhmm_sc(
-            rd[pr], q[pr], rl[pr], hp[ph], hl[ph],
-            int(ins_q), int(del_q), int(gcp))))
-    out = np.empty(B, np.float32)
-    for ranges, logp in pieces:     # read back once all are enqueued
-        got = logp.cpu().numpy()
-        at = 0
-        for s, e in ranges:
-            out[s:e] = got[at:at + e - s]
-            at += e - s
-    return out
+    rd, q, rl, hp, hl = (t.to(dev, non_blocking=True) for t in tables)
+    pr, ph = (t.to(dev, non_blocking=True) for t in index)
+    return pairhmm_sc(rd[pr], q[pr], rl[pr], hp[ph], hl[ph], int(ins_q),
+                      int(del_q), int(gcp)).cpu().numpy()

@@ -2,8 +2,9 @@
 
 Port of ``falcon_genome_tpu/parallel``.  ``mesh`` builds the (data,
 region) device grid and joins several processes into one ``gloo`` group
-(``tpu.dist.*``); ``sharded`` runs the PairHMM (kernel K5), the BQSR
-histogram and the coordinate sort split over a mesh.  The stage code
+(``tpu.dist.*``); ``sharded`` runs the PairHMM (kernel K5, a batch
+whole on one device of the mesh), the BQSR histogram and the coordinate
+sort split over a mesh.  The stage code
 calls ``is_primary``/``sync_processes`` around its gathers, and the
 runner splits a stage's tasks over the processes.
 """

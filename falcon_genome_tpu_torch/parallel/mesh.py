@@ -9,9 +9,11 @@ topology maps to a 2-axis logical mesh:
 Here a :class:`Mesh` is a (data, region) grid of ``torch.device``s in one
 process.  A mesh built explicitly may repeat a device (8 shards over the
 CPU in the tests, 4 shards over one card in the smoke run); the compute
-that shards over it (``ops.pairhmm``, ``bqsr.accumulate_table``,
+that shards over it (``bqsr.accumulate_table``,
 ``parallel.coordinate_order``, ``parallel.sharded``) runs one piece per
-grid cell and combines the pieces as the reference's collectives do.
+grid cell and combines the pieces as the reference's collectives do,
+while a PairHMM call (``ops.pairhmm``, the sharded PairHMM step) runs
+whole on one of the mesh's devices (:func:`call_device`).
 
 Several processes (``tpu.dist.*``) join one ``gloo`` process group, at a
 coordinator given as ``host:port`` or, for processes of one host, as
@@ -27,7 +29,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
-import functools
 import itertools
 import logging
 import os
@@ -99,89 +100,39 @@ def lane_splits(n: int, parts: int) -> list[tuple[int, int]]:
     return list(zip(b[:-1].tolist(), b[1:].tolist()))
 
 
-def device_lanes(devices: list[torch.device], n: int
-                 ) -> tuple[tuple[torch.device, tuple[tuple[int, int], ...]],
-                            ...]:
-    """:func:`lane_splits` of ``n`` lanes over ``devices``, grouped by
-    device (in order of first appearance), each device's ranges in lane
-    order with adjacent ones merged and empty ones dropped.  Lanes are
-    independent, so a mesh that repeats a device runs that device's
-    shards as one piece: one launch, not one per shard."""
-    return _device_lanes(tuple(torch.device(d) for d in devices), n)
-
-
-@functools.lru_cache(maxsize=256)
-def _device_lanes(devices: tuple[torch.device, ...], n: int):
-    # kept per (devices, n): the split costs the step more host time
-    # than the rest of its dispatch
-    groups: dict[torch.device, list[tuple[int, int]]] = {}
-    for dev, (s, e) in zip(devices, lane_splits(n, len(devices))):
-        if e == s:
-            continue
-        ranges = groups.setdefault(dev, [])
-        if ranges and ranges[-1][1] == s:
-            ranges[-1] = (ranges[-1][0], e)
-        else:
-            ranges.append((s, e))
-    return tuple((dev, tuple(r)) for dev, r in groups.items())
-
-
-# The lanes a card takes before a call takes one more card: a call of n
-# independent lanes runs on ceil(n / MESH_LANES_PER_DEVICE) cards of the
-# mesh (at most all of them).  A piece
-# on another card than the call's first costs 0.15-0.27 ms of host
-# dispatch (ordering, copies, launch, copies back), while a card's wave
-# of PairHMM's kernels at HaplotypeCaller's bucket, 160 x 384, takes ~0.1
-# ms (2112 pairs of K5, 3168 of K4): on four H100s the split step took
-# 0.85-0.97 ms at 8192 pairs against 0.36 for one K5 call, and the split
-# was slower than one card at 4656 and 7604 pairs too (NVIDIA H100 80GB
-# HBM3 x 4, 700 W; benchmarks/mesh_trace.py).  So no call of up to 8192
-# pairs, the most a caller makes, leaves its card.
-MESH_LANES_PER_DEVICE = 8192
-
+# A PairHMM call runs whole on one card of the mesh.  Split over four
+# cards, a call lost to one card at every size a caller makes: a piece on
+# another card than the inputs' cost 0.17-0.27 ms of host dispatch
+# (ordering, copies in, launch, copies back) against ~0.1 ms of kernel a
+# wave at HaplotypeCaller's bucket, 160 x 384 (2112 pairs of K5, 3168 of
+# K4), so the split step took 2.15-2.70x one K5 call at 8192, 7604 and 4656
+# pairs (NVIDIA H100 80GB HBM3 x 4, 700 W; benchmarks/mesh_trace.py).  The
+# cards earn their keep through calls made from several threads at once.
 _turn = itertools.count()   # the order in which threads first take a card
 
 
 def _thread_turn() -> int:
-    """This thread's place in the order of threads that have run a call:
-    where its calls' devices start.  One thread's calls keep to one card
-    (sent to the cards in turn, one caller thread's calls of 8192 pairs
-    read 1.09-1.14x one card's on four H100s); calls from several
-    threads spread over the cards."""
+    """This thread's place in the order of threads that have run a call.
+    One thread's calls keep to one card (sent to the cards in turn, one
+    caller thread's calls of 8192 pairs read 1.09-1.14x one card's on
+    four H100s); calls from several threads spread over the cards."""
     turn = getattr(_state, "turn", None)
     if turn is None:
         turn = _state.turn = next(_turn)
     return turn
 
 
-def split_devices(devices: list[torch.device], n: int,
-                  home: torch.device | None = None) -> list[torch.device]:
-    """The devices a call of ``n`` independent lanes runs on under the
-    mesh ``devices`` (``Mesh.flat``): ceil(n / MESH_LANES_PER_DEVICE) of
-    its distinct devices, the mesh as it is where that is all of them.
-    The devices taken start at ``home`` where it is one of them (the
-    inputs lie there), else at the calling thread's own place
+def call_device(devices: list[torch.device],
+                home: torch.device | None = None) -> torch.device:
+    """The device of the mesh ``devices`` (``Mesh.flat``) that a call of
+    independent lanes runs on, whole: ``home`` where it is one of them
+    (the inputs lie there), else the calling thread's own
     (:func:`_thread_turn`), so calls made from several threads run on
-    several devices at once.  Outputs do not depend on the choice: lanes
-    are independent."""
+    several devices at once.  Outputs do not depend on the choice."""
     distinct = list(dict.fromkeys(torch.device(d) for d in devices))
-    k = max(1, -(-n // MESH_LANES_PER_DEVICE))
-    if k >= len(distinct):
-        return list(devices)
     if home is not None and torch.device(home) in distinct:
-        start = distinct.index(torch.device(home))
-    else:
-        start = _thread_turn() * k
-    return [distinct[(start + i) % len(distinct)] for i in range(k)]
-
-
-def lanes_on(t: torch.Tensor, ranges: list[tuple[int, int]],
-             dev: torch.device) -> torch.Tensor:
-    """The rows of ``t`` in ``ranges`` (one piece of
-    :func:`device_lanes`) on ``dev``: a view where they are one range
-    already there, else copies that do not wait for the host."""
-    parts = [t[s:e].to(dev, non_blocking=True) for s, e in ranges]
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+        return torch.device(home)
+    return distinct[_thread_turn() % len(distinct)]
 
 
 def make_mesh(spec: MeshSpec, devices: list[torch.device]) -> Mesh:

@@ -4,15 +4,12 @@ Port of ``falcon_genome_tpu/parallel/sharded.py``.  The reference jits
 its steps under ``shard_map``; here each step is a plain function that
 runs one piece per mesh device and combines the pieces explicitly:
 
-* pair lanes split evenly over the mesh's devices in ``Mesh.flat`` order
-  (the reference's fused ``(data, region)`` lane sharding) where every
-  card gets at least a wave of the kernel (``mesh.split_devices``; a
-  smaller batch runs whole on the inputs' device); the shards of one
-  device run as one piece (pairs are independent, so a mesh that repeats
-  a device gives the same outputs from one launch), every piece runs
-  kernel K5, or K4 for scalar transitions, on its device, copying its
-  lanes there itself, and the pieces' sums come back to the inputs'
-  device for one log10 (:func:`..ops.pairhmm.pairhmm_pieces`);
+* a PairHMM batch runs whole on one of the mesh's devices, the inputs'
+  own where the mesh holds it (``mesh.call_device``: split over four
+  cards, a batch of up to 8192 pairs lost to one card), with kernel K5
+  (:func:`..ops.pairhmm.pairhmm_pb`), or K4
+  (:func:`..ops.pairhmm.pairhmm_sc`) for scalar transitions, and its
+  per-pair results come back to the inputs' device;
 * a ``psum`` of histograms is the sum of the per-device tables;
 * the sample-sort's ``all_gather`` of samples is a gather, and its
   ``all_to_all`` is one copy per (source, destination) bucket.
@@ -27,34 +24,35 @@ import numpy as np
 import torch
 
 from ..bqsr import MAX_CYCLE, MAX_QUAL, N_CONTEXT
-from ..ops.pairhmm import pairhmm_pb, pairhmm_pieces, pairhmm_sc
-from .mesh import Mesh, device_lanes, lane_splits, split_devices
+from ..ops.pairhmm import pairhmm_pb, pairhmm_sc
+from .mesh import Mesh, call_device, lane_splits
 
 
 def _pairhmm_shards(mesh: Mesh, read, base_q, ins_q, del_q, gcp, rlen,
                     hlen, hap, scalar_trans=None) -> torch.Tensor:
-    """K5 (K4 with ``scalar_trans``) on each mesh device's lanes, the
-    shards of a device as one launch, or one call on the inputs' device
-    where the split rule keeps the batch there; (B,) on that device."""
-    B = read.shape[0]
-    lanes = device_lanes(split_devices(mesh.flat, B, home=read.device), B)
-    if len(lanes) == 1 and lanes[0][0] == read.device:
-        # every shard on the inputs' device
-        if scalar_trans is not None:
-            return pairhmm_sc(read, base_q, rlen, hap, hlen, *scalar_trans)
-        return pairhmm_pb(read, base_q, ins_q, del_q, gcp, rlen, hap, hlen)
-    fields = ((read, base_q, rlen, hap, hlen) if scalar_trans is not None
-              else (read, base_q, ins_q, del_q, gcp, rlen, hap, hlen))
-    return pairhmm_pieces(lanes, B, fields, scalar_trans, read.shape[1],
-                          hap.shape[1], home=read.device)
+    """K5 (K4 with ``scalar_trans``) on every lane in one launch, on the
+    mesh device :func:`~.mesh.call_device` gives the batch; (B,) on the
+    inputs' device."""
+    dev = call_device(mesh.flat, home=read.device)
+    if scalar_trans is not None:
+        args = [read, base_q, rlen, hap, hlen]
+    else:
+        args = [read, base_q, ins_q, del_q, gcp, rlen, hap, hlen]
+    args = [t.to(dev, non_blocking=True) for t in args]
+    if scalar_trans is not None:
+        out = pairhmm_sc(*args, *scalar_trans)
+    else:
+        out = pairhmm_pb(*args)
+    return out.to(read.device)
 
 
 def sharded_pairhmm_step(mesh: Mesh, R: int, H: int,
                          scalar_trans: tuple[int, int, int] | None = None):
-    """The production kernel K5 on every shard; lanes split over the
-    fused (data, region) mesh.  With ``scalar_trans`` = (ins, del, gcp)
-    phreds, the scalar-transition kernel K4 instead, and the step's
-    ins_q/del_q/gcp planes are not read (the reference's
+    """The production kernel K5 on the batch, on one device of the fused
+    (data, region) mesh (the reference splits the lanes over it).  With
+    ``scalar_trans`` = (ins, del, gcp) phreds, the scalar-transition
+    kernel K4 instead, and the step's ins_q/del_q/gcp planes are not
+    read (the reference's
     ``_pairhmm_sharded(..., scalar_trans=...)``).
 
     The step takes (read, base_q, ins_q, del_q, gcp, rlen, hlen, hap):

@@ -188,7 +188,7 @@ def test_bench_run_gives_the_reference_keys(tmp_path, monkeypatch):
         "germline_e2e_reads_per_s", "germline_e2e_sensitivity",
         "germline_e2e_extra_calls"}
     ex = res["extras"]
-    assert ex["mesh_chips"] == 2 and ex["longread_mbp_per_s"] > 0
+    assert ex["mesh_chips"] == 1 and ex["longread_mbp_per_s"] > 0
     assert ex["align_mapped_frac"] > 0.9 and ex["align_pair_mapped_frac"] > 0.9
     assert ex["germline_e2e_sensitivity"] == 1.0
     assert ex["germline_e2e_extra_calls"] == 0

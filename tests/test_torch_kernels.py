@@ -277,51 +277,17 @@ def test_pairhmm_pb_kernel_matches_plain_on_card(cuda_device, R, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("per_base", [False, True])
-def test_pairhmm_pieces_on_card_bit_equal(cuda_device, per_base):
-    """A call run as pieces through ``fgt_pairhmm_piece``, from pinned
-    host inputs and from device inputs, as one piece and as pieces of
-    interleaved lane ranges (over every visible card in turn), is
-    bit-equal to one K4 / K5 call on the card."""
-    R, H = 160, 384
-    reads, q, rl, haps, hl = make_pairs(21, 600, R, H)
-    ins, dele, gcp = indel_planes(22, rl, R)
-    if per_base:
-        lanes, trans = [reads, q, ins, dele, gcp, rl, haps, hl], None
-    else:
-        lanes, trans = [reads, q, rl, haps, hl], (INS, DEL, GCP)
-    dev = torch.device("cuda", 0)
-    host = [torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
-            for x in lanes]
-    on_dev = [t.to(dev) for t in host]
-    want = (P.pairhmm_pb(*on_dev) if per_base
-            else P.pairhmm_sc(*on_dev, *trans)).cpu()
-    n = len(rl)
-    cards = [torch.device("cuda", i)
-             for i in range(torch.cuda.device_count())]
-    cuts = [(0, 100), (100, 250), (250, 251), (251, 400), (400, n)]
-    split = [(cards[i % len(cards)], [cuts[i], cuts[i + 2]])
-             for i in range(2)] + [(cards[-1], [cuts[4]])]
-    for fields in (host, on_dev):
-        for pieces in ([(dev, [(0, n)])], split):
-            got = P.pairhmm_pieces(pieces, n, fields, trans, R, H,
-                                   home=fields[0].device
-                                   if fields[0].is_cuda else None)
-            torch.cuda.synchronize()
-            assert torch.equal(got.cpu(), want)
-
-
-@pytest.mark.cuda
-def test_pairhmm_entry_points_split_on_cards(cuda_device, monkeypatch):
-    """``pairhmm_logp`` (scalars, planes) and ``pairhmm_logp_pairs`` on the
-    card within 1e-4 of the plain versions on the CPU with the same -inf
-    lanes, and, under a mesh that repeats every visible card, bit-equal
-    to no mesh at sizes on both sides of the split rule's steps (at 2048
-    lanes a card, so that calls of up to 8192 split)."""
+def test_pairhmm_entry_points_under_a_mesh_of_cards(cuda_device):
+    """``pairhmm_logp`` (scalars, planes), ``pairhmm_logp_pairs`` and the
+    sharded step on the card within 1e-4 of the plain versions on the CPU
+    with the same -inf lanes, and, under a mesh that repeats every
+    visible card, bit-equal to no mesh at 1, 4656 and 8192 pairs, also
+    from as many threads at once as there are cards (each thread's
+    calls on its own card)."""
+    import threading
     from falcon_genome_tpu_torch.parallel import mesh as TM
+    from falcon_genome_tpu_torch.parallel import sharded as TS
     R, H = 160, 384
-    per = 2048
-    monkeypatch.setattr(TM, "MESH_LANES_PER_DEVICE", per)
     reads, q, rl, haps, hl = make_pairs(23, 8192, R, H)
     ins, dele, gcp = indel_planes(24, rl, R)
     cards = [torch.device("cuda", i)
@@ -337,6 +303,8 @@ def test_pairhmm_entry_points_split_on_cards(cuda_device, monkeypatch):
     def calls(n, params):
         nr = -(-n // nh)
         pr, ph = np.arange(n) // nh, np.arange(n) % nh
+        lanes = [torch.from_numpy(np.ascontiguousarray(x[:n])).to(
+            params.device) for x in (reads, q, ins, dele, gcp, rl, hl, haps)]
         return {
             "logp": P.pairhmm_logp(reads[:n], q[:n], INS, DEL, GCP, rl[:n],
                                    haps[:n], hl[:n], params),
@@ -345,7 +313,9 @@ def test_pairhmm_entry_points_split_on_cards(cuda_device, monkeypatch):
                                      params),
             "pairs": P.pairhmm_logp_pairs(reads[:nr], q[:nr], rl[:nr],
                                           haps[:nh], hl[:nh], pr, ph, INS,
-                                          DEL, GCP, params)}
+                                          DEL, GCP, params),
+            "step": TS.sharded_pairhmm_step(mesh, R, H)(*lanes).cpu(
+                ).numpy()}
     with TM.use_mesh(None):
         got, want = calls(300, one), calls(300, cpu)
     for k in got:
@@ -353,13 +323,28 @@ def test_pairhmm_entry_points_split_on_cards(cuda_device, monkeypatch):
         np.testing.assert_array_equal(np.isfinite(got[k]), fin, err_msg=k)
         np.testing.assert_allclose(got[k][fin], want[k][fin], rtol=0,
                                    atol=1e-4, err_msg=k)
-    for n in (1, per, per + 1, 8192):
+    wants = {}
+    for n in (1, 4656, 8192):
         with TM.use_mesh(None):
-            want = calls(n, one)
+            wants[n] = want = calls(n, one)
         with TM.use_mesh(mesh):
             got = calls(n, one)
         for k in got:
             np.testing.assert_array_equal(got[k], want[k], err_msg=(k, n))
+    outs = [None] * len(cards)
+
+    def worker(i):
+        with TM.use_mesh(mesh):
+            outs[i] = calls(4656, one)
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(cards))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for got in outs:
+        for k in got:
+            np.testing.assert_array_equal(got[k], wants[4656][k], err_msg=k)
 
 
 @pytest.mark.cuda

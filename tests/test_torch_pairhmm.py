@@ -203,10 +203,10 @@ def test_pairhmm_logp_mixed_transitions_route_to_k5(planes, monkeypatch):
              dele if "del" in planes else DEL,
              gcp if "gcp" in planes else GCP]
     calls = []
-    run = T.pairhmm_pieces  # one call a chunk; trans None selects K5
-    monkeypatch.setattr(T, "pairhmm_pieces", lambda p, B, f, trans, *a: (
-        calls.append("pairhmm_pb" if trans is None else "pairhmm_sc"),
-        run(p, B, f, trans, *a))[1])
+    for name in ("pairhmm_sc", "pairhmm_pb"):
+        fn = getattr(T, name)
+        monkeypatch.setattr(T, name, lambda *a, _f=fn, _n=name: (
+            calls.append(_n), _f(*a))[1])
     jparams = J.PairHMMParams(max_read_len=R, max_hap_len=H, backend="jax")
     want = np.asarray(J.pairhmm_logp(reads, q, *trans, rl, haps, hl,
                                      params=jparams))

@@ -186,33 +186,38 @@ class TestActiveMeshPipeline:
             sharded = pairhmm_logp(reads, q, q, q, gcp, rl, haps, hl, params)
         np.testing.assert_allclose(sharded, single, rtol=0, atol=1e-5)
 
-    @pytest.mark.parametrize("devices,n,want", [
-        (["cpu"] * 4, 10, [("cpu", [(0, 10)])]),
-        (["cuda:0", "cuda:1"] * 2, 10,
-         [("cuda:0", [(0, 2), (5, 7)]), ("cuda:1", [(2, 5), (7, 10)])]),
-        (["cuda:0", "cuda:0", "cuda:1", "cuda:1"], 10,
-         [("cuda:0", [(0, 5)]), ("cuda:1", [(5, 10)])]),
-        (["cuda:0", "cuda:1"] * 2, 2, [("cuda:1", [(0, 2)])]),
-    ], ids=["one-device", "alternating", "pairs", "fewer-lanes"])
-    def test_device_lanes_groups_shards_by_device(self, devices, n, want):
-        """The mesh's lane split grouped by device: adjacent ranges of a
-        device merge, empty ones drop, devices keep their first order."""
-        got = TM.device_lanes([torch.device(d) for d in devices], n)
-        assert got == tuple((torch.device(d), tuple(r)) for d, r in want)
+    @staticmethod
+    def _cards(k):
+        """``k`` distinct card devices (only their identities are used)."""
+        return [torch.device("cuda", i) for i in range(k)]
 
     @staticmethod
-    def _interleaved(devs, n):
-        """Two pieces of alternating lane ranges on the CPU: the split
-        of a mesh that alternates two devices."""
-        r = TM.lane_splits(n, 4)
-        return [(CPU, [r[0], r[2]]), (CPU, [r[1], r[3]])]
+    def _on_cpu(monkeypatch):
+        """Run a call given a card of a mesh on the CPU: the device the
+        rule gives each call and the lanes of each launch are recorded."""
+        import falcon_genome_tpu_torch.ops.pairhmm as TPH
+        seen = {"devices": [], "launches": []}
+        rule = TM.call_device
+
+        def call_device(devs, home=None):
+            seen["devices"].append(rule(devs, home))
+            return CPU
+        monkeypatch.setattr(TM, "call_device", call_device)
+        monkeypatch.setattr(TS, "call_device", call_device)
+        for name in ("pairhmm_sc", "pairhmm_pb"):
+            def launch(read, *a, _f=getattr(TPH, name)):
+                seen["launches"].append(read.shape[0])
+                return _f(read, *a)
+            monkeypatch.setattr(TS, name, launch)
+            monkeypatch.setattr(TPH, name, launch)
+        return seen
 
     @pytest.mark.parametrize("split", ["mesh", "interleaved"])
     def test_pairhmm_logp_pairs_mesh_equivalence(self, split, monkeypatch):
-        """Pair-indexed PairHMM under a mesh: the index lanes split over
-        the devices, each gets the unique reads and haplotypes; results
-        bit-equal to one device's, also where a device's lanes are two
-        ranges (concatenated, then put back in place)."""
+        """Pair-indexed PairHMM under a mesh (8 shards over the CPU, or
+        one that interleaves two cards, whose calls run whole on one of
+        them: here on the CPU): results bit-equal to one device's, one
+        launch of every pair a call."""
         from falcon_genome_tpu_torch.ops.pairhmm import (
             PairHMMParams, pairhmm_logp, pairhmm_logp_pairs)
         mesh = TM.make_mesh(TM.MeshSpec(data=4, region=2), CPU8)
@@ -231,8 +236,11 @@ class TestActiveMeshPipeline:
                                         45, 45, 10, params)
             expanded = pairhmm_logp(reads[pr], quals[pr], 45, 45, 10, rl[pr],
                                     haps[ph], hl[ph], params)
+        seen = {"launches": []}
         if split == "interleaved":
-            monkeypatch.setattr(TM, "device_lanes", self._interleaved)
+            seen = self._on_cpu(monkeypatch)
+            mesh = TM.make_mesh(TM.MeshSpec(data=4, region=1),
+                                self._cards(2) * 2)
         with TM.use_mesh(mesh):
             sharded = pairhmm_logp_pairs(reads, quals, rl, haps, hl, pr, ph,
                                          45, 45, 10, params)
@@ -242,119 +250,59 @@ class TestActiveMeshPipeline:
         np.testing.assert_array_equal(sharded, single)
         np.testing.assert_array_equal(sharded_exp, single)
         assert np.isfinite(single).all()
+        if split == "interleaved":
+            assert seen["launches"] == [len(pr)] * 2
 
     def test_sharded_step_interleaved_pieces(self, monkeypatch):
-        """``sharded_pairhmm_step`` where a device's lanes are two ranges:
-        the pieces go back in lane order, bit-equal to one call."""
+        """``sharded_pairhmm_step`` under a mesh that interleaves two
+        cards, its inputs off the mesh: the batch runs whole on one card
+        in one launch (here on the CPU), bit-equal to one call."""
         from falcon_genome_tpu_torch.ops.pairhmm import pairhmm_pb
         batch = TS.make_example_batch(24, 16, 24, 4, seed=2)
         read, bq, iq, dq, gq, rl, hl, hp = batch[:8]
         want = pairhmm_pb(read, bq, iq, dq, gq, rl, hp, hl)
-        monkeypatch.setattr(TS, "device_lanes", self._interleaved)
-        mesh = TM.make_mesh(TM.MeshSpec(data=4, region=1), CPU8[:4])
+        seen = self._on_cpu(monkeypatch)
+        mesh = TM.make_mesh(TM.MeshSpec(data=4, region=1),
+                            self._cards(2) * 2)
         got = TS.sharded_pairhmm_step(mesh, 16, 24)(*batch[:8])
         assert torch.equal(got, want)
-
-    @staticmethod
-    def _cards(k):
-        """``k`` distinct card devices (only their identities are used)."""
-        return [torch.device("cuda", i) for i in range(k)]
-
-    # the rule's steps at 2048 lanes a card (the shipped 8192 keeps every
-    # call a caller makes on one card), so that calls of up to 8192 lanes
-    # take several cards
-    PER = 2048
-
-    @staticmethod
-    def _size(at, cards):
-        """The lanes of a call at ``at`` around the split threshold (the
-        smallest call that takes two cards), and the cards it takes."""
-        per = TM.MESH_LANES_PER_DEVICE
-        n = {"1": 1, "threshold-1": per, "threshold": per + 1,
-             "all": (cards - 1) * per + 1, "8192": 8192}[at]
-        return n, min(cards, -(-n // per))
+        assert seen["launches"] == [24]
+        assert seen["devices"][0] in self._cards(2)
 
     @pytest.mark.parametrize("cards", [2, 4])
-    @pytest.mark.parametrize("at", ["1", "threshold-1", "threshold", "all",
-                                    "8192"])
-    def test_split_devices_rule(self, cards, at, monkeypatch):
-        """A call takes one card per MESH_LANES_PER_DEVICE lanes, at most
-        every card of the mesh (then the mesh as it is); a call below the
-        threshold runs on one card: the inputs' own where they lie on
-        one, else the calling thread's card, the threads' cards in
-        turn."""
-        monkeypatch.setattr(TM, "MESH_LANES_PER_DEVICE", self.PER)
-        n, k = self._size(at, cards)
+    def test_call_device_rule(self, cards):
+        """A call runs whole on one device of the mesh: the inputs' own
+        where the mesh holds it, else the calling thread's card; one
+        thread's calls keep to its card and threads take the cards in
+        turn; a mesh of one distinct device gives that device."""
         devs = self._cards(cards) * 2         # a mesh may repeat its cards
-        got = TM.split_devices(devs, n)
-        if k == cards:
-            assert got == devs
-            assert TM.split_devices(devs, n, home=devs[1]) == devs
-        else:
-            assert len(got) == len(set(got)) == k
-            assert set(got) <= set(devs)
-            if k == 1:
-                # one thread's calls keep to one card; threads take turns
-                assert TM.split_devices(devs, n) == got
-                turns = []
-                for _ in range(cards):
-                    t = threading.Thread(target=lambda: turns.append(
-                        TM.split_devices(devs, n)[0]))
-                    t.start()
-                    t.join()
-                assert sorted(turns, key=str) == self._cards(cards)
-            assert TM.split_devices(devs, n, home=devs[1])[0] == devs[1]
-            assert len(TM.split_devices(devs, n, home=CPU)) == k
-        # one distinct device: the mesh as it is (its shards merge)
-        assert TM.split_devices(CPU8, n) == CPU8
-
-    def _on_cpu(self, monkeypatch):
-        """Run the pieces of a mesh of distinct cards on the CPU: each
-        piece keeps its lanes, and the card it was given and its launch
-        are recorded."""
-        import falcon_genome_tpu_torch.ops.pairhmm as TPH
-        seen = {"devices": [], "launches": []}
-        lanes_of = TM.device_lanes
-
-        def device_lanes(devs, n):
-            pieces = lanes_of(devs, n)
-            seen["devices"] += [d for d, _ in pieces]
-            return [(CPU, r) for _, r in pieces]
-        piece = TPH._piece_cpu
-
-        def launch(fields, lanes, *a):
-            seen["launches"].append(sum(e - s for s, e in lanes))
-            return piece(fields, lanes, *a)
-        wrappers = {n: getattr(TPH, n) for n in ("pairhmm_sc", "pairhmm_pb")}
-
-        def whole(name):
-            def call(read, *a):
-                seen["launches"].append(read.shape[0])
-                return wrappers[name](read, *a)
-            return call
-        monkeypatch.setattr(TM, "device_lanes", device_lanes)
-        monkeypatch.setattr(TS, "device_lanes", device_lanes)
-        monkeypatch.setattr(TPH, "_piece_cpu", launch)
-        for name in wrappers:       # the step's and the pair path's calls
-            monkeypatch.setattr(TS, name, whole(name))
-            monkeypatch.setattr(TPH, name, whole(name))
-        return seen
+        mine = TM.call_device(devs)
+        assert mine in devs and TM.call_device(devs) == mine
+        for home in devs[:cards]:
+            assert TM.call_device(devs, home=home) == home
+        assert TM.call_device(devs, home=CPU) == mine
+        turns = []
+        for _ in range(cards):
+            t = threading.Thread(target=lambda: turns.append(
+                TM.call_device(devs)))
+            t.start()
+            t.join()
+        assert sorted(turns, key=str) == self._cards(cards)
+        assert TM.call_device(CPU8) == CPU
+        assert TM.call_device(CPU8, home=CPU) == CPU
 
     @pytest.mark.parametrize("cards", [2, 4])
-    @pytest.mark.parametrize("at", ["1", "threshold-1", "threshold", "all",
-                                    "8192"])
-    def test_split_rule_bit_equal_to_no_mesh(self, cards, at, monkeypatch):
+    @pytest.mark.parametrize("n", [1, 4656, 7604, 8192])
+    def test_mesh_calls_bit_equal_to_no_mesh(self, cards, n, monkeypatch):
         """Under a mesh of distinct cards, ``pairhmm_logp`` (scalar
         transitions and planes), ``pairhmm_logp_pairs`` and the sharded
-        step give outputs bit-equal to no mesh, in lane order, at every
-        size around the split threshold; a call below it reaches one
-        card with one launch, a larger one the cards of the rule with one
-        launch each, every card where the rule takes all (counted at the
-        launcher)."""
+        step give outputs bit-equal to no mesh, in lane order, at one
+        pair, at the callers' median calls (4656 pairs of ``germline``,
+        7604 of ``mutect2``) and at the most a caller makes; each call
+        reaches one card, the calling thread's, with one launch of all its
+        lanes (counted at the launcher)."""
         from falcon_genome_tpu_torch.ops.pairhmm import (
             PairHMMParams, pairhmm_logp, pairhmm_logp_pairs, pairhmm_pb)
-        monkeypatch.setattr(TM, "MESH_LANES_PER_DEVICE", self.PER)
-        n, k = self._size(at, cards)
         R, H = 16, 24
         batch = TS.make_example_batch(n, R, H, 4, seed=cards)
         read, bq, iq, dq, gq, rl, hl, hp = batch[:8]
@@ -379,36 +327,22 @@ class TestActiveMeshPipeline:
         with TM.use_mesh(None):
             want = {k: f() for k, f in calls.items() if k != "step"}
         want["step"] = pairhmm_pb(read, bq, iq, dq, gq, rl, hp, hl).numpy()
+        mine = TM.call_device(mesh.flat)     # this thread's card
         seen = self._on_cpu(monkeypatch)
         for name, f in calls.items():
-            seen["devices"].clear()
-            seen["launches"].clear()
             with TM.use_mesh(mesh):
                 got = f()
             np.testing.assert_array_equal(got, want[name], err_msg=name)
-            if k == cards:
-                assert seen["devices"] == mesh.flat, name
-            assert len(set(seen["devices"])) == k, name
-            assert len(seen["launches"]) == k, name
-            assert sum(seen["launches"]) == n, name
+            assert seen["launches"] == [n], name
+            seen["launches"].clear()
+        assert len(seen["devices"]) == len(calls)
+        assert set(seen["devices"]) == {mine}
         assert np.isfinite(want["logp"]).any()
-
-    def test_no_call_of_a_caller_leaves_its_card(self):
-        """With the shipped rule every call of up to MAX_PAIRS_PER_CALL
-        pairs (the most a caller makes) runs whole on one card of a
-        four-card mesh: the split's dispatch costs more than it saves
-        there (measured on four H100s)."""
-        from falcon_genome_tpu_torch.ops.pairhmm import MAX_PAIRS_PER_CALL
-        devs = self._cards(4)
-        for n in (1, 2048, 4656, 7604, MAX_PAIRS_PER_CALL):
-            assert len(TM.split_devices(devs, n)) == 1
-            assert TM.split_devices(devs, n, home=devs[2]) == [devs[2]]
-        assert len(TM.split_devices(devs, MAX_PAIRS_PER_CALL + 1)) == 2
 
     def test_concurrent_calls_under_a_mesh(self, monkeypatch):
         """Calls made from several threads at once under a mesh of
-        distinct cards, each below the split threshold and so sent to its
-        thread's card, give each thread its own call's outputs."""
+        distinct cards, each sent whole to its thread's card, give each
+        thread its own call's outputs, and the threads reach every card."""
         from falcon_genome_tpu_torch.ops.pairhmm import (
             PairHMMParams, pairhmm_logp)
         R, H = 16, 24
@@ -463,8 +397,8 @@ class TestActiveMeshPipeline:
 
     def test_htc_stage_under_process_mesh(self, tmp_path, monkeypatch):
         """``run_htc`` with the mesh installed process-wide (as the CLI
-        does): the runner's worker threads split PairHMM batches over it,
-        the four shards on the one CPU as one kernel call each (the
+        does): the runner's worker threads run each PairHMM call under it
+        whole on one of its devices, the four shards on the one CPU (the
         single-device run's calls), and the VCF equals the single-device
         run's."""
         import falcon_genome_tpu_torch.ops.pairhmm as TPH
@@ -475,14 +409,14 @@ class TestActiveMeshPipeline:
         mesh = TM.make_mesh(TM.MeshSpec(data=4, region=1), CPU8[:4])
         calls, splits = {}, {}
         orig = TPH.pairhmm_sc
-        orig_lanes = TM.device_lanes
+        rule = TM.call_device
 
         def run(tag, m):
             calls[tag], splits[tag] = [], []
             monkeypatch.setattr(TPH, "pairhmm_sc", lambda *a: (
                 calls[tag].append(a[0].shape[0]), orig(*a))[1])
-            monkeypatch.setattr(TM, "device_lanes", lambda devs, n: (
-                splits[tag].append(len(devs)), orig_lanes(devs, n))[1])
+            monkeypatch.setattr(TM, "call_device", lambda devs, home=None: (
+                splits[tag].append(len(devs)), rule(devs, home))[1])
             out = tmp_path / f"{tag}.vcf"
             TM.set_active_mesh(m)
             try:
