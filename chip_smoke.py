@@ -90,7 +90,18 @@ Phases (each prints its numbers; any failure exits non-zero):
    wlen > W; (d) ``--device cpu`` against ``--device cuda``, record-equal
    BAMs: ``indel`` on phase 5's 50 kb BAM, ``align --long-reads`` of 20
    reads of 5 kb on a 100 kb contig; (e) ``gatk HaplotypeCaller -R -I -O``
-   on phase 5's 50 kb BAM record-equal to ``htc --produce-vcf``.
+   on phase 5's 50 kb BAM record-equal to ``htc --produce-vcf``;
+10. (run after phase 5) the aligner's record API and the golden models:
+   ``AlignerEngine.align_pair_batch`` (K1 → K2 → K3) on the card over
+   phase 5's 50 kb read pairs in batches of 4096, with its pairs/s and
+   K1-K3 launches (each > 0; the K1-K3 rows' ``launches_by_path``), its
+   ``make_sam_records`` records equal to the columns path's
+   (``alignments_to_columns``) and its alignments equal to the same call
+   on the CPU; then ``ops/sw_ref.py::sw_align_ref`` on 64 lanes of phase
+   3's K2/K3 aligner batch (160/256: equal scores, CIGARs of the read's
+   length) and ``ops/pairhmm_ref.py`` on 64 pairs of its K4 batch
+   (160/384: within 2e-3 log10 where K4 is finite, -inf only on the
+   batch's unrelated pairs), each maximum error printed.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on its path, error against the plain version, kernel, plain and
@@ -162,6 +173,10 @@ SM_CLOCK = 1.98e9
 
 # pairs a PairHMM call (``benchmarks.call_sizes.summary``), by command
 CALL_SIZES: dict[str, dict] = {}
+# lanes of phase 3's K2/K3 and K4 batches held against the golden models
+GOLDEN_LANES = 64
+# the golden models' tolerance against K4 (tests/test_pairhmm.py:73)
+GOLDEN_PAIRHMM_TOL = 2e-3
 
 
 class SmokeFailure(Exception):
@@ -536,6 +551,7 @@ def phase_kernels(torch, S, P, results) -> None:
          hap_lanes(rng, 1024, 384, 384)),
     ]
     k2, k3 = [], []
+    golden = {}
     for label, p, B, R, W, lanes in shapes:
         read, rl, win, wl = to(*lanes)
         steps = (R + W if label.startswith("htc") else
@@ -590,6 +606,14 @@ def phase_kernels(torch, S, P, results) -> None:
             f"{int(walk.max())}, round trips mean "
             f"{trips[mapped].mean() if mapped.any() else 0:.2f}, mapped "
             f"{int(mapped.sum())}/{B})")
+        if label == "aligner winners":
+            # the golden Smith-Waterman model's lanes (phase 10)
+            n = GOLDEN_LANES
+            golden["sw"] = dict(
+                lanes=[np.array(x[:n]) for x in lanes], params=p,
+                steps=steps, best=kbest[:n].cpu().numpy(),
+                packed=kout[0][:, :n].cpu().numpy(),
+                coords=kout[1][:, :n].cpu().numpy())
         k2.append((e2, t2, t2p, b2))
         k3.append((e3, t3, t3p, b3))
         del kptr, pptr
@@ -627,6 +651,12 @@ def phase_kernels(torch, S, P, results) -> None:
     args = to(reads, quals, rlen, haps, hl)
     prob_table_check(torch, P, args[1])
     kl = P.pairhmm_sc(*args, 45, 45, 10)
+    # the golden PairHMM model's pairs (phase 10)
+    golden["hmm"] = dict(
+        lanes=[np.array(x[:GOLDEN_LANES]) for x in (reads, quals, rlen,
+                                                    haps, hl)],
+        logp=kl[:GOLDEN_LANES].cpu().numpy(), trans=(45, 45, 10),
+        unrelated=unrelated[:GOLDEN_LANES].copy())
     pl = P._pairhmm_plain(args[0].T, args[1].T, 45, 45, 10, args[2][None],
                           args[4][None], args[3].T, R=R, H=H)
     e4, n4 = hold_pairhmm(torch, "K4", kl, pl)
@@ -692,7 +722,7 @@ def phase_kernels(torch, S, P, results) -> None:
         **bound(5 * B * R + B * H + 12 * B, PAIRHMM_FLOPS_PER_CELL * cells,
                 PEAK_F32))
     results["fgt_pairhmm"]["max_abs_err"] = max(e4, e_crafted)
-    return k5_args
+    return k5_args, golden
 
 
 def rescale_pairs(rng, n, R, H):
@@ -843,6 +873,154 @@ def phase_germline(torch, cli, S, P, validate, work: Path, results) -> None:
     check(cmp_["vcf_equivalent"] and cmp_["vcf_non_concordant"] == 0,
           "50 kb VCFs differ between --device cpu and --device cuda")
     return sample, Path(str(out["cuda"]) + ".work"), germline_1mb
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the aligner's record API and the golden models
+# ---------------------------------------------------------------------------
+
+def sam_records_of(params, b1, b2, a1, a2) -> list:
+    """``make_sam_records`` over a batch of pairs, in the columns' order
+    (read 1 then read 2 of each pair)."""
+    from falcon_genome_tpu_torch.aligner import make_sam_records
+    from falcon_genome_tpu_torch.io.dna import decode_seq
+
+    def seq_qual(b, i):
+        n = b.lengths[i]
+        return (decode_seq(b.codes[i, :n]),
+                (b.quals[i, :n] + 33).tobytes().decode())
+    out = []
+    for i in range(len(b1.lengths)):
+        out += make_sam_records(b1.names[i], *seq_qual(b1, i), a1[i],
+                                *seq_qual(b2, i), a2[i], params=params,
+                                read_group="smoke")
+    return out
+
+
+def golden_models(S, golden) -> None:
+    """Phase 3's kernel outputs against the float64/int64 NumPy golden
+    models (``ops/sw_ref.py``, ``ops/pairhmm_ref.py``), run in a pool of
+    spawned processes: K2/K3 on GOLDEN_LANES aligner lanes (160/256),
+    equal scores and CIGARs of the read's length; K4 on GOLDEN_LANES pairs
+    (160/384) within GOLDEN_PAIRHMM_TOL log10 wherever K4 is finite.  K4
+    may give -inf only to the batch's unrelated pairs (random reads,
+    log10 near -145 in float64), as the reference's own float32 path does
+    (``tests/test_torch_golden_models.py``); every pair sampled from its
+    haplotype must be finite."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from falcon_genome_tpu_torch.io.sam import cigar_query_len
+    from falcon_genome_tpu_torch.ops.pairhmm_ref import pairhmm_logp_single
+    from falcon_genome_tpu_torch.ops.sw_ref import sw_align_ref
+    sw, hmm = golden["sw"], golden["hmm"]
+    read, rl, win, wl = sw["lanes"]
+    reads, quals, rlen, haps, hl = hmm["lanes"]
+    n = GOLDEN_LANES
+    t0 = time.time()
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(min(8, os.cpu_count() or 1),
+                             mp_context=ctx) as pool:
+        sw_f = [pool.submit(sw_align_ref, read[b, :rl[b]], win[b, :wl[b]],
+                            sw["params"]) for b in range(n)]
+        hmm_f = [pool.submit(
+            pairhmm_logp_single, reads[b, :rlen[b]], quals[b, :rlen[b]],
+            *(np.full(rlen[b], q, np.uint8) for q in hmm["trans"]),
+            haps[b, :hl[b]]) for b in range(n)]
+        want_sw = [f.result() for f in sw_f]
+        want_hmm = np.array([f.result() for f in hmm_f])
+    got_sw = S._results_from_packed(sw["packed"], sw["steps"], sw["coords"],
+                                    sw["best"], rl)
+    err_sw = max(abs(g.score - w.score) for g, w in zip(got_sw, want_sw))
+    bad_len = [b for b, g in enumerate(got_sw)
+               if g.score > 0 and cigar_query_len(g.cigar) != rl[b]]
+    same = sum(vars(g) == vars(w) for g, w in zip(got_sw, want_sw))
+    mapped = sum(g.score > 0 for g in got_sw)
+    say(f"golden sw_align_ref vs K2/K3 (phase 3, aligner winners R=160 "
+        f"W=256, {n} lanes, {mapped} with a positive score): max |score "
+        f"difference| {err_sw}, CIGARs not of the read's length "
+        f"{len(bad_len)}, spans and CIGAR identical on {same}/{n}")
+    check(err_sw == 0, f"K2 scores differ from sw_align_ref by {err_sw}")
+    check(not bad_len, f"K3 CIGARs of lanes {bad_len} do not cover the read")
+    got = hmm["logp"].astype(np.float64)
+    fin = np.isfinite(got)
+    floored = np.flatnonzero(~fin)
+    check(np.isfinite(want_hmm).all(), "pairhmm_logp_ref gave -inf")
+    check(bool(hmm["unrelated"][floored].all()),
+          f"K4 gave -inf to pairs sampled from their haplotype: "
+          f"{floored[~hmm['unrelated'][floored]].tolist()}")
+    err_hmm = float(np.abs(got[fin] - want_hmm[fin]).max())
+    low = (f"{want_hmm[floored].min():.1f}..{want_hmm[floored].max():.1f}"
+           if len(floored) else "none")
+    say(f"golden pairhmm_logp_ref vs K4 (phase 3, R=160 H=384, "
+        f"{hmm['trans']}, {n} pairs, {int(hmm['unrelated'].sum())} of "
+        f"them unrelated): max |dlog10| {err_hmm:.3g} on {int(fin.sum())} "
+        f"finite pairs (tolerance {GOLDEN_PAIRHMM_TOL}); -inf in K4 on "
+        f"{len(floored)} unrelated pairs, float64 log10 {low}; both "
+        f"models {time.time() - t0:.1f} s")
+    check(err_hmm <= GOLDEN_PAIRHMM_TOL,
+          f"K4 differs from pairhmm_logp_ref by {err_hmm}")
+
+
+def phase_record_api(torch, S, sample, golden, results) -> None:
+    """``AlignerEngine.align_pair_batch`` (K1 → K2 → K3) on the card over
+    phase 5's 50 kb read pairs in production batches, with every count at
+    0 just before it: pairs/s and launches; its ``make_sam_records``
+    output record-equal to the columns path (``align_pair_dispatch`` /
+    ``align_pair_collect`` → ``alignments_to_columns``, as the align
+    stage emits) and its alignments equal to the same call on the CPU.
+    Then the golden models on phase 3's kernel outputs."""
+    from falcon_genome_tpu_torch.aligner import (
+        AlignerEngine, AlignerParams, alignments_to_columns)
+    from falcon_genome_tpu_torch.io.fastq import FastqReader
+    from falcon_genome_tpu_torch.stages.common import load_index
+    idx = load_index(sample.ref)
+    params = AlignerParams()
+    batches = list(FastqReader(sample.fastq1, sample.fastq2,
+                               batch_size=4096))
+    npairs = sum(len(b1.lengths) for b1, _ in batches)
+    cuda = AlignerEngine(idx, params, device=torch.device("cuda"))
+    cuda.genome_dev                  # the genome on the card before the clock
+    for k in S.LAUNCHES:
+        S.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    alns = [cuda.align_pair_batch(b1.codes, b1.lengths, b2.codes,
+                                  b2.lengths) for b1, b2 in batches]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(S.LAUNCHES)
+    say(f"align_pair_batch on the card: {npairs} pairs of the 50 kb sample "
+        f"in {len(batches)} batches, {wall:.3f} s, {npairs / wall:.0f} "
+        f"pairs/s, kernel launches {launches}")
+    for k in ("fgt_sw_score", "fgt_sw_full", "fgt_sw_traceback"):
+        check(launches[k] > 0, f"align_pair_batch did not launch {k}")
+        results[k]["launches_by_path"] = {
+            "germline": results[k]["launches"],
+            "align_pair_batch": launches[k]}
+    recs, cols = [], []
+    for (b1, b2), (a1, a2) in zip(batches, alns):
+        recs += sam_records_of(params, b1, b2, a1, a2)
+        ab1, ab2 = cuda.align_pair_collect(cuda.align_pair_dispatch(
+            b1.codes, b1.lengths, b2.codes, b2.lengths))
+        cols += alignments_to_columns(b1, ab1, b2, ab2, params=params,
+                                      read_group="smoke").to_records()
+    n_mapped = sum(not r.is_unmapped for r in recs)
+    check(recs == cols and len(recs) == 2 * npairs,
+          "align_pair_batch's make_sam_records differ from the columns path")
+    t1 = time.time()
+    cpu = AlignerEngine(idx, params, device=torch.device("cpu"))
+    cpu_alns = [cpu.align_pair_batch(b1.codes, b1.lengths, b2.codes,
+                                     b2.lengths) for b1, b2 in batches]
+    t_cpu = time.time() - t1
+    same = all([vars(a) for a in x] == [vars(a) for a in y]
+               for pair, cpu_pair in zip(alns, cpu_alns)
+               for x, y in zip(pair, cpu_pair))
+    say(f"align_pair_batch: {len(recs)} make_sam_records records equal to "
+        f"the columns path ({n_mapped} mapped); alignments equal to "
+        f"device=cpu: {same} (cpu {t_cpu:.2f} s)")
+    check(same, "align_pair_batch differs between the card and the CPU")
+    golden_models(S, golden)
 
 
 # ---------------------------------------------------------------------------
@@ -1286,6 +1464,7 @@ def phase_long_indel(torch, cli, S, P, validate, germline_1mb, sample_50kb,
     for k in ("fgt_sw_full", "fgt_sw_traceback"):
         results[k]["launches_by_path"] = {
             "germline": results[k]["launches"],
+            **results[k].get("launches_by_path", {}),
             **{path: n[k] for path, n in paths.items()}}
     return rows
 
@@ -1715,11 +1894,15 @@ def main() -> int:
         sw_sweep_counts(so)
         ablate_sweep_counts(so)
         results: dict[str, dict] = {}
-        k5_args = phase_kernels(torch, S, P, results)
+        k5_args, golden = phase_kernels(torch, S, P, results)
         work = REPO / "build" / "chip_smoke"
         shutil.rmtree(work, ignore_errors=True)
         sample, run_dir, germline_1mb = phase_germline(
             torch, cli, S, P, validate, work, results)
+        t10 = time.time()
+        phase_record_api(torch, S, sample, golden, results)
+        say(f"phase 10 (align_pair_batch, golden models) "
+            f"{time.time() - t10:.1f} s")
         t8 = time.time()
         buckets = phase_somatic(torch, cli, S, P, validate, work)
         phase_host(cli, *germline_1mb, work / "host")

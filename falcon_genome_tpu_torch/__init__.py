@@ -22,8 +22,9 @@ What runs where:
 The package imports ``torch`` and never ``jax``, and nothing of
 ``falcon_genome_tpu``: the host modules it shares with the reference
 (``io``, ``config``, ``utils``, ``samples``, ``bamops`` and the CLI's
-``build_parser``) are copies under the same relative paths, cut to what
-the port reaches.
+``build_parser``) are copies under the same relative paths, with all of
+the reference's functions apart from its TPU-only and dead code
+(``tests/test_torch_api_parity.py`` lists what is left out, and why).
 """
 
 __version__ = "0.1.0"

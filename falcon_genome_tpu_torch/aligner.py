@@ -8,7 +8,7 @@ candidate chaining, NM/mapq, SAM column emission) is the reference's code;
 
 * **host (numpy + the fgio C++ extension)**: k-mer/minimizer index build
   and lookup, diagonal chaining, candidate jobs, CIGAR run-length
-  encoding, SAM columns;
+  encoding, SAM columns (and, for the record-level API, ``SamRecord``s);
 * **device**: score-only SW over every candidate, pair selection, full SW
   and traceback of the winners, and mate rescue.
 """
@@ -27,9 +27,8 @@ from .io.sam import (
     CIGAR_D, CIGAR_I, CIGAR_M, CIGAR_S,
     FLAG_MATE_REVERSE, FLAG_MATE_UNMAPPED, FLAG_PAIRED,
     FLAG_PROPER_PAIR, FLAG_READ1, FLAG_READ2, FLAG_REVERSE, FLAG_UNMAPPED,
-    Cigar,
+    Cigar, SamRecord,
 )
-
 from .ops.smith_waterman import (
     PairPolicy, SWBucket, device_genome, device_reads, sw_extend_gather,
     sw_pair_collect, sw_pair_dispatch, sw_score_gather,
@@ -243,6 +242,15 @@ class MinimizerIndex:
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
+class Candidate:
+    """One chained candidate placement of a read (possibly reverse strand)."""
+    gdiag: int          # global ref position of read base 0
+    is_rev: bool
+    nseeds: int
+    span: int           # read-bp covered by seeds
+
+
+@dataclasses.dataclass
 class AlignerParams:
     index: IndexParams = dataclasses.field(default_factory=IndexParams)
     sw: SWParams = dataclasses.field(default_factory=SWParams)
@@ -255,6 +263,54 @@ class AlignerParams:
     unpaired_penalty: int = 17  # score penalty when mates can't pair (bwa -U)
     min_rescue_score: int = 30  # accept a mate-rescue hit at/above this
     rescue_window: int = 1024   # SW window bucket for mate rescue
+
+
+def find_candidates(read_codes: np.ndarray, index: MinimizerIndex,
+                    params: AlignerParams) -> list[Candidate]:
+    """Chained seed candidates of one read: per strand, the seed hits'
+    diagonals clustered within ``diag_band``; the top ``max_candidates``
+    clusters by (-nseeds, -span, gdiag).  The per-read golden model of
+    :func:`candidate_arrays`."""
+    # seeding parameters always come from the index that was built — a
+    # query at a different k/w can only match through packed-hash collisions
+    k, w = index.params.k, index.params.w
+    h, rpos, rstrand = _minimizers(read_codes, k, w)
+    if len(h) == 0:
+        return []
+    qidx, gpos, gstrand = index.lookup(h)
+    if len(qidx) == 0:
+        return []
+    L = len(read_codes)
+    rp = rpos[qidx]
+    rev = gstrand != rstrand[qidx]
+    # diagonal: global position where read base 0 sits
+    # forward: gpos - rpos ; reverse: read rc aligns, kmer at read pos p
+    # maps to rc-read pos L - k - p
+    diag = np.where(rev, gpos - (L - k - rp), gpos - rp)
+
+    cands: list[Candidate] = []
+    for is_rev in (False, True):
+        sel = rev == is_rev
+        if not sel.any():
+            continue
+        rcov = rp[sel]
+        # cluster diagonals within band
+        order = np.argsort(diag[sel], kind="stable")
+        ds = diag[sel][order]
+        rs = rcov[order]
+        start = 0
+        for i in range(1, len(ds) + 1):
+            if i == len(ds) or ds[i] - ds[i - 1] > params.diag_band:
+                grp_d = ds[start:i]
+                grp_r = rs[start:i]
+                if len(grp_d) >= params.min_seeds:
+                    span = int(grp_r.max() - grp_r.min()) + k
+                    cands.append(Candidate(
+                        gdiag=int(np.median(grp_d)), is_rev=is_rev,
+                        nseeds=len(grp_d), span=span))
+                start = i
+    cands.sort(key=lambda c: (-c.nseeds, -c.span, c.gdiag))
+    return cands[:params.max_candidates]
 
 
 def candidate_arrays(codes: np.ndarray, lengths: np.ndarray,
@@ -388,6 +444,21 @@ def candidate_arrays(codes: np.ndarray, lengths: np.ndarray,
             lens_g[sel].astype(np.int64), span[sel])
 
 
+def find_candidates_batch(codes: np.ndarray, lengths: np.ndarray,
+                          index: MinimizerIndex, params: AlignerParams
+                          ) -> list[list[Candidate]]:
+    """find_candidates over a batch (object form of candidate_arrays)."""
+    B = codes.shape[0]
+    out: list[list[Candidate]] = [[] for _ in range(B)]
+    c_read, c_rev, c_diag, c_nseeds, c_span = candidate_arrays(
+        codes, lengths, index, params)
+    for i in range(len(c_read)):
+        out[int(c_read[i])].append(Candidate(
+            gdiag=int(c_diag[i]), is_rev=bool(c_rev[i]),
+            nseeds=int(c_nseeds[i]), span=int(c_span[i])))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # batch alignment engine
 # ---------------------------------------------------------------------------
@@ -410,8 +481,9 @@ class Alignment:
 @dataclasses.dataclass
 class AlignmentBatch:
     """Array-native alignment results for a batch of reads — the columnar
-    twin of ``list[Alignment]`` (lane order = read order), consumed
-    directly by the SAM column emission."""
+    twin of ``list[Alignment]`` (lane order = read order).  The SAM
+    column emission consumes these arrays directly; ``to_alignments``
+    materializes objects only for the record-level API."""
     mapped: np.ndarray       # (N,) bool
     tid: np.ndarray          # (N,) int64
     pos: np.ndarray          # (N,) int64 contig-local leftmost
@@ -427,6 +499,23 @@ class AlignmentBatch:
 
     def __len__(self) -> int:
         return len(self.mapped)
+
+    def to_alignments(self) -> list[Alignment]:
+        out: list[Alignment] = []
+        for i in range(len(self.mapped)):
+            if not self.mapped[i]:
+                out.append(Alignment(mapped=False,
+                                     read_len=int(self.read_len[i])))
+                continue
+            n = int(self.nc[i])
+            cigar = list(zip(self.ops[i, :n].tolist(),
+                             self.lens[i, :n].tolist()))
+            out.append(Alignment(
+                True, int(self.tid[i]), int(self.pos[i]),
+                bool(self.is_rev[i]), int(self.score[i]),
+                int(self.sub[i]), int(self.mapq[i]), cigar,
+                int(self.nm[i]), int(self.read_len[i])))
+        return out
 
     def set_lane(self, i: int, a: Alignment) -> None:
         """Patch one lane from an Alignment (mate-rescue path)."""
@@ -700,6 +789,19 @@ class AlignerEngine:
                 int(sub_of[b]))
         return best
 
+    def align_pair_batch(self, codes1: np.ndarray, lengths1: np.ndarray,
+                         codes2: np.ndarray, lengths2: np.ndarray
+                         ) -> tuple[list[Alignment], list[Alignment]]:
+        """Pair-aware alignment of mate batches (bwa-mem semantics) as
+        ``Alignment`` objects: :meth:`align_pair_dispatch` (host seeding,
+        then score-only SW, pair selection, full SW and traceback enqueued
+        on the device), :meth:`align_pair_collect` (sync, NM/mapq, mate
+        rescue), then ``to_alignments`` of each mate's batch."""
+        handle = self.align_pair_dispatch(codes1, lengths1,
+                                          codes2, lengths2)
+        ab1, ab2 = self.align_pair_collect(handle)
+        return ab1.to_alignments(), ab2.to_alignments()
+
     def align_pair_dispatch(self, codes1, lengths1, codes2, lengths2):
         """Pair-aware alignment of mate batches (bwa-mem semantics), first
         half: host seeding/chaining, then the score → pair-select → extend
@@ -847,7 +949,85 @@ class AlignerEngine:
 
 
 # ---------------------------------------------------------------------------
-# columnar SAM emission
+# pairing + SAM record emission
+# ---------------------------------------------------------------------------
+
+def _pair_flags(a1: Alignment, a2: Alignment, params: AlignerParams
+                ) -> tuple[int, int, int]:
+    """(flag1, flag2, tlen1). Proper pair = FR orientation within insert."""
+    f1 = FLAG_PAIRED | FLAG_READ1
+    f2 = FLAG_PAIRED | FLAG_READ2
+    tlen = 0
+    if not a1.mapped:
+        f1 |= FLAG_UNMAPPED
+        f2 |= FLAG_MATE_UNMAPPED
+    if not a2.mapped:
+        f2 |= FLAG_UNMAPPED
+        f1 |= FLAG_MATE_UNMAPPED
+    if a1.is_rev:
+        f1 |= FLAG_REVERSE
+        f2 |= FLAG_MATE_REVERSE
+    if a2.is_rev:
+        f2 |= FLAG_REVERSE
+        f1 |= FLAG_MATE_REVERSE
+    if a1.mapped and a2.mapped and a1.tid == a2.tid and \
+            a1.is_rev != a2.is_rev:
+        left, right = (a1, a2) if a1.pos <= a2.pos else (a2, a1)
+        end_right = right.pos + sum(
+            n for op, n in right.cigar if op in (CIGAR_M, CIGAR_D))
+        span = end_right - left.pos
+        if (not left.is_rev and right.is_rev and
+                params.min_insert <= span <= params.max_insert):
+            f1 |= FLAG_PROPER_PAIR
+            f2 |= FLAG_PROPER_PAIR
+            tlen = span if a1.pos <= a2.pos else -span
+    return f1, f2, tlen
+
+
+def make_sam_records(name: str, seq1: str, qual1: str, a1: Alignment,
+                     seq2: str | None = None, qual2: str | None = None,
+                     a2: Alignment | None = None,
+                     params: AlignerParams = AlignerParams(),
+                     read_group: str | None = None
+                     ) -> list[SamRecord]:
+    """Emit SAM record(s) for a read or read pair (the record-level golden
+    model of :func:`alignments_to_columns`)."""
+    from .io.dna import decode_seq, encode_seq
+
+    def one(seq, qual, a: Alignment, flag: int, mate: Alignment | None,
+            tlen: int) -> SamRecord:
+        if a.mapped and a.is_rev:
+            seq = decode_seq(revcomp_codes(encode_seq(seq)))
+            qual = qual[::-1]
+        rec = SamRecord(
+            qname=name, flag=flag,
+            tid=a.tid if a.mapped else -1,
+            pos=a.pos if a.mapped else -1,
+            mapq=a.mapq if a.mapped else 0,
+            cigar=a.cigar if a.mapped else [],
+            mtid=(mate.tid if mate and mate.mapped else -1),
+            mpos=(mate.pos if mate and mate.mapped else -1),
+            tlen=tlen, seq=seq, qual=qual)
+        if a.mapped:
+            rec.set_tag("NM", "i", a.nm)
+            rec.set_tag("AS", "i", a.score)
+            rec.set_tag("XS", "i", a.sub_score)
+        if read_group:
+            rec.set_tag("RG", "Z", read_group)
+        return rec
+
+    if seq2 is None or a2 is None:
+        flag = 0 if a1.mapped else FLAG_UNMAPPED
+        if a1.mapped and a1.is_rev:
+            flag |= FLAG_REVERSE
+        return [one(seq1, qual1, a1, flag, None, 0)]
+    f1, f2, tlen = _pair_flags(a1, a2, params)
+    return [one(seq1, qual1, a1, f1, a2, tlen),
+            one(seq2, qual2, a2, f2, a1, -tlen)]
+
+
+# ---------------------------------------------------------------------------
+# columnar SAM emission (vectorized make_sam_records over a whole batch)
 # ---------------------------------------------------------------------------
 def _aln_scalars(alns: list[Alignment]) -> np.ndarray:
     """(n, 8) int64: mapped, tid, pos, is_rev, mapq, score, sub, nm."""
@@ -998,8 +1178,10 @@ def alignments_to_columns(b1, res1, b2=None, res2=None,
     """SAM records of a whole batch as RecordColumns (flags, proper-pair
     TLEN, mate fields, oriented SEQ/QUAL, NM/AS/XS/RG tags).
 
-    Pairs interleave read-major (rec 2i = read1_i, 2i+1 = read2_i).  No
-    per-read Python objects or strings are built.
+    Pairs interleave read-major (rec 2i = read1_i, 2i+1 = read2_i),
+    matching the record-path emission order: the decoded records equal
+    :func:`make_sam_records` over the batch.  No per-read Python objects
+    or strings are built.
 
     ``res1``/``res2`` are either ``list[Alignment]`` or (hot path)
     ``AlignmentBatch`` — the array form skips the per-record scalar and

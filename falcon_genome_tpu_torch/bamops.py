@@ -1,22 +1,120 @@
-"""BAM duplicate marking on record columns.
+"""BAM record operations: coordinate sort, duplicate marking, merge.
 
-Replaces the reference's SambambaWorker MARKDUP action (SURVEY.md §2
-row 19, src/workers/SambambaWorker.cpp:11-24) with an in-repo,
-array-shaped implementation: duplicate keys are flat numpy arrays
-(vectorized).  Duplicate criteria follow Picard/sambamba: same library,
-same reference, same *unclipped* 5' coordinate and strand — for pairs,
-of both mates; the representative kept is the one with the highest
-base-quality sum (ties: first by query name, deterministic).
+Replaces the reference's SambambaWorker MARKDUP / MERGE / SORT actions
+(SURVEY.md §2 row 19, src/workers/SambambaWorker.cpp:11-24) with in-repo
+implementations: a record path over ``SamRecord`` lists (the golden model
+of the columnar path) and the columnar path itself, whose duplicate keys
+are flat numpy arrays (vectorized).  Duplicate criteria follow
+Picard/sambamba: same library, same reference, same *unclipped* 5'
+coordinate and strand — for pairs, of both mates; the representative kept
+is the one with the highest base-quality sum (ties: first by query name,
+deterministic).
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import defaultdict
 
 import numpy as np
 
 from .io.sam import (
-    CIGAR_H, CIGAR_S, FLAG_DUP, FLAG_SECONDARY, FLAG_SUPPLEMENTARY,
+    CIGAR_D, CIGAR_EQ, CIGAR_H, CIGAR_M, CIGAR_N, CIGAR_S, CIGAR_X,
+    FLAG_DUP, FLAG_SECONDARY, FLAG_SUPPLEMENTARY,
+    SamRecord, cigar_ref_len,
 )
+
+_REF_CONSUME = (CIGAR_M, CIGAR_D, CIGAR_N, CIGAR_EQ, CIGAR_X)
+_CLIP = (CIGAR_S, CIGAR_H)
+
+
+# ---------------------------------------------------------------------------
+# sort (ref: SambambaWorker SORT action)
+# ---------------------------------------------------------------------------
+
+def sort_key_arrays(records: list[SamRecord]) -> np.ndarray:
+    """(n,) order for coordinate sort: (tid, pos), unmapped last."""
+    n = len(records)
+    tid = np.fromiter(((r.tid if not r.is_unmapped else (1 << 30))
+                       for r in records), np.int64, n)
+    pos = np.fromiter((r.pos for r in records), np.int64, n)
+    return np.lexsort((pos, tid))
+
+
+def sort_records(records: list[SamRecord]) -> list[SamRecord]:
+    order = sort_key_arrays(records)
+    return [records[i] for i in order]
+
+
+# ---------------------------------------------------------------------------
+# duplicate marking on records (ref: SambambaWorker MARKDUP)
+# ---------------------------------------------------------------------------
+
+def unclipped_start(rec: SamRecord) -> int:
+    """5' unclipped coordinate for the strand the read maps to."""
+    if rec.is_reverse:
+        end = rec.pos + cigar_ref_len(rec.cigar)
+        # only the contiguous trailing clip run counts
+        tail = 0
+        for op, n in reversed(rec.cigar):
+            if op in _CLIP:
+                tail += n
+            else:
+                break
+        return end + tail - 1
+    lead = 0
+    for op, n in rec.cigar:
+        if op in _CLIP:
+            lead += n
+        else:
+            break
+    return rec.pos - lead
+
+
+def _qual_sum(rec: SamRecord, min_q: int = 15) -> int:
+    if rec.qual in ("*", ""):
+        return 0
+    return sum(q - 33 for q in rec.qual.encode() if q - 33 >= min_q)
+
+
+def mark_duplicates(records: list[SamRecord]) -> tuple[list[SamRecord], int]:
+    """Set FLAG_DUP on duplicate records in place; returns (records, ndup).
+
+    Pairs are keyed by both mates' (tid, unclipped 5', strand); unpaired
+    reads by their own.  Secondary/supplementary/unmapped records are never
+    representatives and are marked if their primary is.
+    """
+    by_name: dict[str, list[SamRecord]] = defaultdict(list)
+    for r in records:
+        if r.flag & (FLAG_SECONDARY | FLAG_SUPPLEMENTARY):
+            continue
+        by_name[r.qname].append(r)
+
+    groups: dict[tuple, list[tuple[str, int]]] = defaultdict(list)
+    for name, recs in by_name.items():
+        mapped = [r for r in recs if not r.is_unmapped]
+        if not mapped:
+            continue
+        ends = sorted(
+            ((r.tid, unclipped_start(r), r.is_reverse) for r in mapped))
+        key = (len(mapped) > 1, tuple(ends))
+        score = sum(_qual_sum(r) for r in mapped)
+        groups[key].append((name, score))
+
+    dup_names: set[str] = set()
+    for key, members in groups.items():
+        if len(members) < 2:
+            continue
+        members.sort(key=lambda t: (-t[1], t[0]))
+        for name, _ in members[1:]:
+            dup_names.add(name)
+
+    ndup = 0
+    for r in records:
+        if r.qname in dup_names:
+            if not (r.flag & FLAG_DUP):
+                ndup += 1
+            r.flag |= FLAG_DUP
+    return records, ndup
 
 
 # ---------------------------------------------------------------------------
@@ -395,9 +493,9 @@ def mark_duplicates_columns(cols, optical_pixel_dist: int = 100,
     column in place; returns (cols, n newly marked) — or, with
     ``return_metrics``, (cols, n newly marked, DupMetrics).
 
-    Picard's criteria: keys (library, tid, unclipped 5', strand) per
-    mapped primary, pairs keyed by both ends; best base-quality sum kept,
-    ties by lexicographic qname.
+    Same criteria as :func:`mark_duplicates` (Picard keys: (library,
+    tid, unclipped 5', strand) per mapped primary, pairs keyed by both
+    ends; best base-quality sum kept, ties by lexicographic qname).
     ``rg_to_lib`` maps RG id → LB; Picard/sambamba group duplicates per
     library, so identical coordinates from different libraries are NOT
     duplicates of each other.  With no map (or one library) the key
@@ -438,3 +536,13 @@ def mark_duplicates_columns(cols, optical_pixel_dist: int = 100,
     ndup = int(newly.sum())
     return (cols, ndup, metrics) if return_metrics else (cols, ndup)
 
+
+
+# ---------------------------------------------------------------------------
+# merge (ref: SambambaWorker MERGE / MergeBamWorker)
+# ---------------------------------------------------------------------------
+
+def merge_sorted(shards: list[list[SamRecord]]) -> list[SamRecord]:
+    """K-way merge of coordinate-sorted shards (bucket merge)."""
+    all_recs = [r for shard in shards for r in shard]
+    return sort_records(all_recs)

@@ -24,6 +24,8 @@ import dataclasses
 
 import numpy as np
 
+from .io.sam import CIGAR_D, CIGAR_I, CIGAR_M, CIGAR_S, SamRecord
+
 
 MAX_QUAL = 94
 MAX_CYCLE = 512           # cycle bins: [-256, 256) offset by 256
@@ -84,6 +86,78 @@ class RecalTable:
         return cls([str(s) for s in z["read_groups"]],
                    z["qual_obs"], z["qual_err"], z["cycle_obs"],
                    z["cycle_err"], z["ctx_obs"], z["ctx_err"])
+
+
+# ---------------------------------------------------------------------------
+# covariate extraction on records (host: walks CIGARs, emits flat covariate
+# arrays; the golden model of extract_covariates_columns)
+# ---------------------------------------------------------------------------
+
+def extract_covariates(records: list[SamRecord],
+                       ref_codes_by_tid: dict[int, np.ndarray],
+                       known_sites: set[tuple[int, int]] | None = None,
+                       rg_index: dict[str, int] | None = None
+                       ) -> dict[str, np.ndarray]:
+    """Flatten eligible bases of aligned reads into covariate arrays.
+
+    Returns dict of (n,) arrays: rg, qual, cycle, context, is_error.
+    Skips: unmapped/dup/secondary reads, soft-clipped bases, N bases,
+    quals < MIN_USABLE_QUAL, and known-site positions (the reference's
+    dbSNP masking, BQSRWorker.cpp known-sites inputs).
+    """
+    from .io.dna import encode_seq
+
+    known = known_sites or set()
+    rgs, quals, cycles, ctxs, errs = [], [], [], [], []
+    for rec in records:
+        if rec.is_unmapped or rec.is_duplicate or \
+                rec.flag & 0x900 or rec.seq in ("*", ""):
+            continue
+        ref = ref_codes_by_tid.get(rec.tid)
+        if ref is None:
+            continue
+        rg = 0
+        if rg_index is not None:
+            rg = rg_index.get(rec.get_tag("RG") or "", 0)
+        seq = encode_seq(rec.seq)
+        q = np.frombuffer(rec.qual.encode(), dtype=np.uint8) - 33
+        L = len(seq)
+        i, rpos = 0, rec.pos
+        for op, n in rec.cigar:
+            if op == CIGAR_M:
+                for t in range(n):
+                    base = seq[i + t]
+                    bq = int(q[i + t])
+                    if base == 4 or bq < MIN_USABLE_QUAL:
+                        continue
+                    if (rec.tid, rpos + t) in known:
+                        continue
+                    if rpos + t >= len(ref):
+                        continue
+                    cyc = (L - 1 - (i + t)) if rec.is_reverse else (i + t)
+                    prev_i = i + t + 1 if rec.is_reverse else i + t - 1
+                    if 0 <= prev_i < L and seq[prev_i] != 4:
+                        ctx = int(seq[prev_i]) * 4 + int(base)
+                    else:
+                        ctx = 0
+                    rgs.append(rg)
+                    quals.append(bq)
+                    cycles.append(min(cyc, MAX_CYCLE - 1))
+                    ctxs.append(ctx)
+                    errs.append(int(base != ref[rpos + t]))
+                i += n
+                rpos += n
+            elif op == CIGAR_I or op == CIGAR_S:
+                i += n
+            elif op == CIGAR_D:
+                rpos += n
+    return {
+        "rg": np.asarray(rgs, np.int32),
+        "qual": np.asarray(quals, np.int32),
+        "cycle": np.asarray(cycles, np.int32),
+        "context": np.asarray(ctxs, np.int32),
+        "is_error": np.asarray(errs, np.float32),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -332,8 +406,9 @@ def extract_covariates_columns(cols,
                                | dict[int, np.ndarray] | None = None,
                                rg_index: dict[str, int] | None = None
                                ) -> dict[str, np.ndarray]:
-    """Covariate arrays (rg, qual, cycle, context, is_error) of the
-    eligible aligned bases of RecordColumns.
+    """Vectorized twin of :func:`extract_covariates` on RecordColumns:
+    the covariate arrays (rg, qual, cycle, context, is_error) of the
+    eligible aligned bases.
 
     Skips unmapped/dup/secondary/supplementary reads, soft-clipped and N
     bases, quals < MIN_USABLE_QUAL, and known-site positions."""
@@ -643,3 +718,46 @@ class RecalModel:
         assert tab.shape == (nrg, MAX_QUAL, MAX_CYCLE, N_CONTEXT)
         self._full_table = tab
         return tab
+
+
+def apply_bqsr(records: list[SamRecord], model: RecalModel,
+               rg_index: dict[str, int] | None = None) -> list[SamRecord]:
+    """PrintReads/ApplyBQSR on records: rewrite per-base qualities through
+    the model (the golden model of apply_bqsr_columns)."""
+    from .io.dna import encode_seq
+
+    for rec in records:
+        if rec.seq in ("*", "") or rec.qual in ("*", ""):
+            continue
+        rg = 0
+        if rg_index is not None:
+            rg = rg_index.get(rec.get_tag("RG") or "", 0)
+        seq = encode_seq(rec.seq)
+        q = np.frombuffer(rec.qual.encode(), dtype=np.uint8).astype(
+            np.int32) - 33
+        L = len(seq)
+        idx = np.arange(L)
+        cyc = np.minimum(np.where(rec.is_reverse, L - 1 - idx, idx),
+                         MAX_CYCLE - 1)
+        prev_i = np.where(rec.is_reverse, idx + 1, idx - 1)
+        valid_prev = (prev_i >= 0) & (prev_i < L)
+        prev = np.where(valid_prev, seq[np.clip(prev_i, 0, L - 1)], 0)
+        ctx = np.where(valid_prev & (prev != 4),
+                       prev.astype(np.int32) * 4 +
+                       np.minimum(seq, 3).astype(np.int32), 0)
+        q_clip = np.clip(q, 0, MAX_QUAL - 1)
+        newq = model.recalibrate(np.full(L, rg), q_clip, cyc, ctx)
+        rec.qual = "".join(chr(int(x) + 33) for x in newq)
+    return records
+
+
+def baserecal_table(records: list[SamRecord],
+                    ref_codes_by_tid: dict[int, np.ndarray],
+                    read_groups: list[str],
+                    known_sites: set[tuple[int, int]] | None = None
+                    ) -> RecalTable:
+    """One-shot: extract covariates and accumulate the table."""
+    rg_index = {rg: i for i, rg in enumerate(read_groups)}
+    cov = extract_covariates(records, ref_codes_by_tid, known_sites,
+                             rg_index)
+    return accumulate_table(cov, read_groups)

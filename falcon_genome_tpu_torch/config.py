@@ -402,3 +402,7 @@ def get_config_obj() -> Config:
 
 def get_config(key: str, fallback_key: str | None = None) -> Any:
     return get_config_obj().get(key, fallback_key)
+
+
+def set_config(key: str, value: Any) -> None:
+    get_config_obj().set(key, value)

@@ -630,3 +630,17 @@ def read_bam_region_columns(path: str | Path,
     keep = np.sort(uniq_idx)
     order = np.lexsort((cols.fixed[keep, F_POS], cols.fixed[keep, F_TID]))
     return header, cols.take(keep[order])
+
+
+def read_bam_coords(path: str | Path) -> np.ndarray:
+    """(n, 3) array of (tid, pos, flag) — fast scan for sort/dup checks."""
+    from . import native_ext
+    with BamReader(path) as r:
+        if native_ext.available():
+            blob = r._r.read(-1)
+            ok, fixed, *_ = native_ext.bam_scan(blob)
+            if not ok:
+                raise InvalidParam("truncated BAM record")
+            return fixed[:, [0, 1, 3]].astype(np.int64)
+        rows = [(rec.tid, rec.pos, rec.flag) for rec in r]
+    return np.asarray(rows, dtype=np.int64).reshape(-1, 3)

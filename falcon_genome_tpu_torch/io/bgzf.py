@@ -129,3 +129,23 @@ class BgzfReader:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def bgzf_compress_file(src: str | Path, dst: str | Path | None = None,
+                       level: int = 6) -> str:
+    """bgzip a file (ref ZIPWorker analog). Returns output path."""
+    dst = dst or str(src) + ".gz"
+    with open(src, "rb") as fin, BgzfWriter(dst, level) as out:
+        while True:
+            chunk = fin.read(1 << 20)
+            if not chunk:
+                break
+            out.write(chunk)
+    return str(dst)
+
+
+def is_bgzf(path: str | Path) -> bool:
+    with open(path, "rb") as f:
+        head = f.read(18)
+    return (len(head) >= 18 and head[:4] == b"\x1f\x8b\x08\x04"
+            and head[12:14] == b"BC")

@@ -426,3 +426,16 @@ def tag_string_values(cols: RecordColumns, tag: bytes,
         o = int(cols.tag_off[i])
         out.append(_find_tag(blob[o:o + int(cols.tag_len[i])], tag))
     return out
+
+
+def ref_span_lengths(cols: RecordColumns) -> np.ndarray:
+    """(N,) int64 reference bases consumed by each record's CIGAR."""
+    n = len(cols)
+    ncig = cols.fixed[:, F_NCIGAR].astype(np.int64)
+    if cols.cigar_ops.size == 0:
+        return np.zeros(n, np.int64)
+    contrib = np.where(_REF_CONSUME_MASK[cols.cigar_ops],
+                       cols.cigar_lens.astype(np.int64), 0)
+    csum = np.concatenate([[0], np.cumsum(contrib)])
+    starts = cols.cig_off.astype(np.int64)
+    return csum[starts + ncig] - csum[starts]

@@ -41,3 +41,7 @@ def decode_seq(codes: np.ndarray) -> str:
 def revcomp_codes(codes: np.ndarray) -> np.ndarray:
     """Reverse complement in code space."""
     return _COMP_LUT[codes[::-1]]
+
+
+def comp_codes(codes: np.ndarray) -> np.ndarray:
+    return _COMP_LUT[codes]

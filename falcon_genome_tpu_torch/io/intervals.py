@@ -261,3 +261,24 @@ def intersect_intervals(a: list[Interval], b: list[Interval]) -> list[Interval]:
         else:
             j += 1
     return out
+
+
+def merge_intervals(ivs: list[Interval]) -> list[Interval]:
+    """Union of possibly-overlapping intervals (the reference's region-merge
+    for bucketed inputs, BamInput.cpp:73-149 analog)."""
+    if not ivs:
+        return []
+    ivs = sorted(ivs)
+    out = [ivs[0]]
+    for iv in ivs[1:]:
+        last = out[-1]
+        if iv.contig == last.contig and iv.start <= last.end + 1:
+            if iv.end > last.end:
+                out[-1] = Interval(last.contig, last.start, iv.end)
+        else:
+            out.append(iv)
+    return out
+
+
+def total_bp(ivs: list[Interval]) -> int:
+    return sum(len(iv) for iv in ivs)

@@ -246,3 +246,26 @@ def record_from_sam_line(line: str, header: SamHeader) -> SamRecord:
             val = float(val)
         rec.tags[name] = (typ, val)
     return rec
+
+
+def write_sam(path: str, header: SamHeader, records: list[SamRecord]) -> str:
+    with open(path, "w") as f:
+        f.write(header.to_text())
+        for r in records:
+            f.write(record_to_sam_line(r, header) + "\n")
+    return path
+
+
+def read_sam(path: str) -> tuple[SamHeader, list[SamRecord]]:
+    header_text = []
+    records = []
+    with open(path) as f:
+        lines = f.readlines()
+    for line in lines:
+        if line.startswith("@"):
+            header_text.append(line)
+    header = SamHeader.from_text("".join(header_text))
+    for line in lines:
+        if not line.startswith("@") and line.strip():
+            records.append(record_from_sam_line(line, header))
+    return header, records

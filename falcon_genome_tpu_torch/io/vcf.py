@@ -318,3 +318,24 @@ def concat_vcfs(paths: list[str | Path], out_path: str | Path,
     if sort:
         all_records = sort_vcf(all_records, header)
     return write_vcf(out_path, header, all_records)
+
+
+def norm_vcf(path: str | Path, out_path: str | Path) -> str:
+    """Normalize + compress (ref ZIPWorker: ``bcftools norm -m +any -O z``).
+
+    Multiallelic join: merge records at the same (contig, pos, ref).
+    """
+    header, records = read_vcf(path)
+    merged: dict[tuple[str, int, str], VcfRecord] = {}
+    order: list[tuple[str, int, str]] = []
+    for r in records:
+        key = (r.contig, r.pos, r.ref)
+        if key in merged:
+            base = merged[key]
+            for alt in r.alts:
+                if alt not in base.alts:
+                    base.alts.append(alt)
+        else:
+            merged[key] = r
+            order.append(key)
+    return write_vcf(out_path, header, [merged[k] for k in order])

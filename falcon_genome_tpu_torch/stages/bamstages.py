@@ -59,6 +59,12 @@ def load_bam_input_columns(path: str) -> tuple[object, RecordColumns]:
     return read_bam_columns(path)
 
 
+def load_bam_input(path: str):
+    """Object-path twin of load_bam_input_columns (tests, small callers)."""
+    header, cols = load_bam_input_columns(path)
+    return header, cols.to_records()
+
+
 class BamInputSource:
     """Shard-aware columnar BAM input for scatter stages.
 
@@ -169,6 +175,18 @@ class BamInputSource:
     def records_for(self, shard) -> list:
         """Records overlapping a shard (list of Intervals), mapped only."""
         return self.columns_for(shard).to_records()
+
+    @property
+    def columns(self) -> RecordColumns:
+        """All records as columns (loads whole file in stream mode)."""
+        if self._cols is None:
+            _, self._cols = read_bam_columns(self.path)
+        return self._cols
+
+    @property
+    def records(self) -> list:
+        """All records as objects (whole-file mode only callers)."""
+        return self.columns.to_records()
 
 
 def stream_merge_sorted_parts(output: str, header, parts: list[str],

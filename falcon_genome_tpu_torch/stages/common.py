@@ -13,7 +13,7 @@ from ..aligner import IndexParams, MinimizerIndex
 from ..config import Config
 from ..io.fasta import FastaFile
 from ..io.intervals import Interval, split_equal_bp
-from ..io.sam import SamHeader
+from ..io.sam import SamHeader, SamRecord
 from ..utils.common import check_input
 
 log = logging.getLogger("falcon_genome_tpu")
@@ -95,3 +95,47 @@ def header_from_fasta(fa: FastaFile, read_groups=None,
         read_groups=read_groups or [],
         programs=[{"ID": "falcon-genome-tpu", "PN": "falcon-genome-tpu"}],
         sort_order=sort_order)
+
+
+# coordinate-column cache: stages filter the SAME record list once per
+# shard (ncontigs times), so evaluating python record properties per
+# (record, shard) pair is O(N·shards) interpreter work — memoize the
+# columns per list and do the overlap test vectorized
+_COLUMN_CACHE: dict[int, tuple] = {}
+
+
+def _record_columns(records: list[SamRecord]):
+    key = id(records)
+    ent = _COLUMN_CACHE.get(key)
+    if ent is not None and ent[0] is records:
+        return ent[1]
+    n = len(records)
+    tid = np.empty(n, np.int32)
+    pos = np.empty(n, np.int64)
+    end = np.empty(n, np.int64)
+    mapped = np.empty(n, bool)
+    for i, r in enumerate(records):
+        u = r.is_unmapped
+        mapped[i] = not u
+        tid[i] = r.tid
+        pos[i] = r.pos
+        end[i] = r.pos if u else r.end_pos
+    cols = (tid, pos, end, mapped)
+    _COLUMN_CACHE[key] = (records, cols)
+    while len(_COLUMN_CACHE) > 4:                 # bound retained lists
+        _COLUMN_CACHE.pop(next(iter(_COLUMN_CACHE)))
+    return cols
+
+
+def records_in_shard(records: list[SamRecord], shard: list[Interval],
+                     header: SamHeader) -> list[SamRecord]:
+    """Records overlapping any interval of a shard (the -L intersection)."""
+    if not records:
+        return []
+    tid, pos, end, mapped = _record_columns(records)
+    m = np.zeros(len(records), bool)
+    for iv in shard:
+        t = header.tid(iv.contig)
+        m |= (tid == t) & (pos < iv.end) & (end > iv.start - 1)
+    m &= mapped
+    return [records[i] for i in np.flatnonzero(m)]

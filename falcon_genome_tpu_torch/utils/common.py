@@ -20,6 +20,7 @@ import shutil
 import sys
 import time
 from pathlib import Path
+from typing import Iterable
 
 from .errors import FileNotFound, FilesNotFound, SilentExit
 
@@ -191,6 +192,11 @@ def get_fname_by_ext(fname: str | os.PathLike, ext: str) -> str:
     return f"{stem}.{ext}"
 
 
+def get_files_by_ext(dir_: str | os.PathLike, ext: str) -> list[str]:
+    return sorted(str(p) for p in Path(dir_).iterdir()
+                  if p.is_file() and p.suffix == f".{ext.lstrip('.')}")
+
+
 # ---------------------------------------------------------------------------
 # timing (ref: common.h:93-108)
 # ---------------------------------------------------------------------------
@@ -222,6 +228,34 @@ class Timer:
         if exc[0] is None:
             log.info("%s finishes in %d seconds", self.name, int(self.elapsed))
         return False
+
+
+def rss_suffix() -> str:
+    """' (rss X.X GB, peak Y.Y GB)' from /proc/self/status — per-stage
+    memory telemetry for WGS-scale runs; empty off Linux."""
+    try:
+        cur = peak = 0
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS"):
+                    cur = int(line.split()[1])
+                elif line.startswith("VmHWM"):
+                    peak = int(line.split()[1])
+        return f" (rss {cur / 1e6:.1f} GB, peak {peak / 1e6:.1f} GB)"
+    except OSError:
+        return ""
+
+
+def iter_chunks(seq: Iterable, n: int):
+    """Yield lists of at most n items."""
+    buf = []
+    for item in seq:
+        buf.append(item)
+        if len(buf) == n:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
 
 
 def rss_suffix() -> str:

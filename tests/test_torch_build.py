@@ -182,17 +182,22 @@ def test_chip_smoke_imports_only_the_port():
     assert not top & set(BLOCKED), sorted(top)
 
 
-@pytest.mark.parametrize("rel", sorted(
-    str(p.relative_to(PKG)) for p in PKG.rglob("*.py")))
+PORT_SOURCES = sorted(str(p.relative_to(PKG)) for p in PKG.rglob("*.py"))
+
+
+@pytest.mark.parametrize("rel", PORT_SOURCES)
 def test_port_sources_import_nothing_of_jax(rel):
     """No file of the package names ``jax``, ``jaxlib`` or
-    ``falcon_genome_tpu`` in an import."""
+    ``falcon_genome_tpu`` in an import (the golden models
+    ``ops/pairhmm_ref.py`` and ``ops/sw_ref.py`` among them)."""
+    assert {"ops/pairhmm_ref.py", "ops/sw_ref.py"} <= set(PORT_SOURCES)
     assert not _imported_tops(PKG / rel) & set(BLOCKED)
 
 
 # Refuses jax, jaxlib and falcon_genome_tpu, imports every module of the
-# port and chip_smoke.py, runs the CLI's help and the bench's argument
-# parsing, and checks that none of the refused names was imported.
+# port and chip_smoke.py, runs the CLI's help, the bench's argument
+# parsing and the two golden models, and checks that none of the refused
+# names was imported.
 _ISOLATED = r"""
 import importlib, importlib.util, pkgutil, sys
 
@@ -215,8 +220,17 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from falcon_genome_tpu_torch import bench, cli
 assert cli.main(["--device", "cpu", "--help"]) == 0
 assert bench.build_parser().parse_args(["--work", "w"]).work == "w"
+import numpy as np
+from falcon_genome_tpu_torch.ops import pairhmm_logp_ref
+from falcon_genome_tpu_torch.ops.sw_ref import sw_align_ref
+codes = np.array([[0, 1, 2, 3]], np.uint8)
+q = np.full((1, 4), 30, np.uint8)
+n4 = np.array([4], np.int32)
+assert np.isfinite(pairhmm_logp_ref(codes, q, q, q, q, n4, codes, n4)).all()
+assert sw_align_ref(codes[0], codes[0]).score == 4
 leaked = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
 assert not leaked, leaked
+print("MODULES", " ".join(names))
 print("ISOLATED", len(names))
 """
 
@@ -230,6 +244,10 @@ def test_port_runs_with_jax_and_the_jax_package_refused():
     n = int(res.stdout.split("ISOLATED")[1])
     assert n == len([p for p in PKG.rglob("*.py")
                      if p.name != "__init__.py" or p.parent != PKG])
+    imported = res.stdout.split("MODULES")[1].split("ISOLATED")[0].split()
+    for name in ("ops.pairhmm_ref", "ops.sw_ref", "bamops", "bqsr",
+                 "aligner"):
+        assert f"falcon_genome_tpu_torch.{name}" in imported, name
 
 
 def _device_defaults() -> dict[str, object]:
