@@ -101,7 +101,22 @@ Phases (each prints its numbers; any failure exits non-zero):
    3's K2/K3 aligner batch (160/256: equal scores, CIGARs of the read's
    length) and ``ops/pairhmm_ref.py`` on 64 pairs of its K4 batch
    (160/384: within 2e-3 log10 where K4 is finite, -inf only on the
-   batch's unrelated pairs), each maximum error printed.
+   batch's unrelated pairs), each maximum error printed;
+11. (run after phase 5) the out-of-core germline path: (a) the port's
+   ``benchmarks/wgs_rehearsal.py`` at its smoke scale (0.6 Mb, 50 k pairs
+   of 150 bp, 25x, 600 het SNPs) on the card, align → markdup → bqsr →
+   htc with 256 buckets and every stage forced out of core (``-O
+   tpu.align.spill_mb=0 -O tpu.bam.stream_mb=0``): align must log its
+   bucket-spill dataflow, markdup its streamed pass, ``dedup.bam`` must
+   stream through its ``.bai`` and the recalibrated tree be
+   region-pruned under that run's configuration, the native library
+   must be there, and the rehearsal's accuracy rule must hold (SNP
+   sensitivity >= 0.99, precision >= 0.999, every extra call forced by
+   GATK's pileup likelihood); (b) the same dataset and stages at the
+   default thresholds (in memory): every BAM record-equal to (a)'s and
+   the VCF with 0 non-concordant records; per stage its wall, reads/s,
+   peak RSS, peak device memory and K1-K4 launches (align K1-K3 and htc
+   K2-K4 each > 0), and a ``{"wgs_smoke": ...}`` line.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on its path, error against the plain version, kernel, plain and
@@ -873,6 +888,112 @@ def phase_germline(torch, cli, S, P, validate, work: Path, results) -> None:
     check(cmp_["vcf_equivalent"] and cmp_["vcf_non_concordant"] == 0,
           "50 kb VCFs differ between --device cpu and --device cuda")
     return sample, Path(str(out["cuda"]) + ".work"), germline_1mb
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the out-of-core germline path (the port's WGS rehearsal)
+# ---------------------------------------------------------------------------
+
+# what forces every out-of-core path at the rehearsal's smoke scale
+OUT_OF_CORE = ["tpu.align.spill_mb=0", "tpu.bam.stream_mb=0"]
+# the rehearsal's own accuracy rule (benchmarks/wgs_rehearsal.py)
+WGS_SENSITIVITY, WGS_PRECISION = 0.99, 0.999
+# kernels each stage of the path must launch: align K1-K3, htc K2-K4
+WGS_LAUNCHED = {"align": ("fgt_sw_score", "fgt_sw_full", "fgt_sw_traceback"),
+                "htc": ("fgt_sw_full", "fgt_sw_traceback", "fgt_pairhmm")}
+
+
+def phase_wgs(torch, S, P, validate, work: Path) -> None:
+    """(a) ``wgs_rehearsal`` at its smoke scale (0.6 Mb, 50 k pairs, 25x,
+    600 SNPs) with every stage forced out of core: align's bucket spill,
+    markdup streamed over the 256-bucket tree, bqsr streaming
+    ``dedup.bam`` through its ``.bai``, htc region-pruned over the
+    recalibrated tree; (b) the same dataset and stages in memory (the
+    default thresholds), record-equal to (a)."""
+    from falcon_genome_tpu_torch.benchmarks import wgs_rehearsal as W
+    from falcon_genome_tpu_torch.io import native_ext
+    from falcon_genome_tpu_torch.stages.bamstages import BamInputSource
+    check(native_ext.available(),
+          "phase 11: the native library is not available (align and "
+          "markdup would fall back to memory)")
+    W.G, W.N_PAIRS, W.N_SNPS = W.scale(W.SMOKE_MB)
+    t0 = time.time()
+    W.gen_dataset(work / "ooc")
+    (work / "mem").mkdir(parents=True)
+    for name in ("ref.fa", "r_1.fastq", "r_2.fastq", "truth.npy",
+                 "dataset.json"):
+        (work / "mem" / name).symlink_to((work / "ooc" / name).resolve())
+    say(f"phase 11 dataset: {W.G / 1e6:g} Mb, {W.N_PAIRS} pairs x 2 x "
+        f"{W.READ_LEN} bp (25x), {W.N_SNPS} het SNPs, written in "
+        f"{time.time() - t0:.1f} s")
+    device = torch.device("cuda", torch.cuda.current_device())
+    runs = {}
+    for name, options in (("ooc", OUT_OF_CORE), ("mem", [])):
+        conf = W.make_conf(work / name, options)
+        for d in (S.LAUNCHES, P.LAUNCHES):
+            for k in d:
+                d[k] = 0
+        torch.cuda.synchronize()
+        res = W.rehearse(work / name, set(W.STAGES.values()), device, conf,
+                         {})
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in {**S.LAUNCHES, **P.LAUNCHES}.items()
+                    if k != "fgt_pairhmm_pb"}
+        label = {"ooc": "11a out of core", "mem": "11b in memory"}[name]
+        for stage in W.STAGES.values():
+            r = res[stage]
+            say(f"phase {label}, {stage}: {r['wall_s']} s, "
+                f"{r['reads_per_s']} reads/s, peak RSS {r['peak_rss_gb']} "
+                f"GB, peak device memory {r['peak_device_gb']} GB, "
+                f"launches {json.dumps(r['launches'])}, path {r['path']}")
+        for stage, kernels in WGS_LAUNCHED.items():
+            for k in kernels:
+                check(res[stage]["launches"][k] > 0,
+                      f"phase {label}: {stage} did not launch {k}")
+        say(f"phase {label}: kernel launches {json.dumps(launches)}, "
+            f"{res['germline_e2e_reads_per_s']} reads/s over the four "
+            f"stages")
+        runs[name] = (conf, res)
+
+    conf, res = runs["ooc"]
+    out = W.outputs(work / "ooc")
+    check(res["align"]["path"] == "bucket spill",
+          "phase 11a: align did not log its bucket-spill dataflow")
+    check(res["markdup"]["path"] == "streamed",
+          "phase 11a: markdup did not stream the bucket tree")
+    check(BamInputSource.from_conf(conf, out["dedup"]).stream,
+          "phase 11a: bqsr's input dedup.bam does not stream via its .bai")
+    check(bool(BamInputSource.from_conf(conf, out["recal"]).parts),
+          "phase 11a: htc's input tree is not region-pruned")
+    h = res["htc"]
+    unforced = [c for c in h["extra_classification"]
+                if not c["gatk_forced"]]
+    say(f"phase 11a accuracy: sensitivity {h['sensitivity']}, precision "
+        f"{h['precision']}, {h['extra_calls']} extra calls "
+        f"({h['extras_gatk_concordant']} that GATK's pileup likelihood "
+        f"forces)")
+    check(h["sensitivity"] >= WGS_SENSITIVITY
+          and h["precision"] >= WGS_PRECISION and not unforced,
+          f"phase 11a: accuracy below the rehearsal's rule (sensitivity >= "
+          f"{WGS_SENSITIVITY}, precision >= {WGS_PRECISION}, no unforced "
+          f"extra call)")
+    mem = runs["mem"][1]
+    check({mem[stage]["path"] for stage in W.STAGES.values()}
+          == {"in memory"},
+          "phase 11b: a stage left memory at the default thresholds")
+    cmp_ = validate.compare_runs(
+        str(work / "ooc"), str(work / "mem"), out["vcf"],
+        W.outputs(work / "mem")["vcf"])
+    say(f"phase 11 out of core vs in memory: {json.dumps(cmp_)}")
+    check(all(same for same, _ in cmp_["bam"].values()),
+          "phase 11: BAMs differ between the out-of-core and in-memory runs")
+    check(cmp_["vcf_equivalent"] and cmp_["vcf_non_concordant"] == 0,
+          "phase 11: VCFs differ between the out-of-core and in-memory runs")
+    say(json.dumps({"wgs_smoke": {
+        name: {stage: {k: v for k, v in r[stage].items()
+                       if k != "extra_classification"}
+               for stage in W.STAGES.values()}
+        for name, (_, r) in runs.items()}}))
 
 
 # ---------------------------------------------------------------------------
@@ -1899,6 +2020,11 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
         sample, run_dir, germline_1mb = phase_germline(
             torch, cli, S, P, validate, work, results)
+        t11 = time.time()
+        phase_wgs(torch, S, P, validate, work / "wgs")
+        shutil.rmtree(work / "wgs", ignore_errors=True)
+        say(f"phase 11 (out-of-core germline rehearsal) "
+            f"{time.time() - t11:.1f} s")
         t10 = time.time()
         phase_record_api(torch, S, sample, golden, results)
         say(f"phase 10 (align_pair_batch, golden models) "

@@ -10,6 +10,11 @@ name must exist in the port's module at the same relative path, unless
 of what the port leaves out, and it cannot rot: every name in it must
 still exist in the reference and still be absent from the port.
 
+The root ``benchmarks/*.py`` scripts are held the same way: each maps to
+``falcon_genome_tpu_torch/benchmarks/`` with its top-level names, or
+stands in :data:`SCRIPTS` with its reason.  A script the table lists as
+queued that the port gains, or a new root script, fails.
+
 Run alone: ``python -m pytest tests/test_torch_api_parity.py``.
 """
 from __future__ import annotations
@@ -22,6 +27,8 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 REF = REPO / "falcon_genome_tpu"
 PORT = REPO / "falcon_genome_tpu_torch"
+REF_SCRIPTS = REPO / "benchmarks"
+PORT_SCRIPTS = PORT / "benchmarks"
 
 # The two reasons a reference name may have no counterpart in the port.
 TPU_ONLY = ("TPU-only: Pallas kernels and their JAX/Pallas dispatch, "
@@ -86,6 +93,23 @@ EXCLUDED: dict[tuple[str, str], str] = {
 }
 
 
+# Root benchmark scripts that do not map name for name, with the reason.
+PORTED_EARLIER = ("ported with the kernels, as the timing of K7 (the "
+                  "port's CUDA ablation kernel): the Pallas kernel factory "
+                  "make_kernel and its LANES are TPU-only")
+QUEUED = "queued, ROADMAP §1"
+SCRIPTS: dict[str, str] = {
+    "ablate_sw.py": PORTED_EARLIER,
+    "mutect2_rehearsal.py": QUEUED,
+    "mesh_rehearsal.py": QUEUED,
+    "longread_rehearsal.py": QUEUED,
+    "bench_longread.py": QUEUED,
+    "bench_sw_parts.py": QUEUED,
+    "indel_rehearsal.py": QUEUED,
+    "joint_cohort.py": QUEUED,
+}
+
+
 def _targets(node) -> list[ast.expr]:
     return node.targets if isinstance(node, ast.Assign) else [node.target]
 
@@ -138,6 +162,10 @@ def unported(ref: dict[str, set[str]], port: dict[str, set[str]],
 
 REF_NAMES = module_names(REF)
 PORT_NAMES = module_names(PORT)
+REF_SCRIPT_NAMES = {p.name: public_names(p.read_text())
+                    for p in sorted(REF_SCRIPTS.glob("*.py"))}
+PORT_SCRIPT_NAMES = {p.name: public_names(p.read_text())
+                     for p in sorted(PORT_SCRIPTS.glob("*.py"))}
 
 
 @pytest.mark.parametrize("rel", sorted(REF_NAMES))
@@ -155,6 +183,31 @@ def test_exclusions_still_name_reference_code():
         assert name in REF_NAMES.get(rel, set()), (rel, name)
         assert name not in PORT_NAMES.get(rel, set()), (rel, name)
         assert reason in (TPU_ONLY, DEAD), (rel, name)
+
+
+@pytest.mark.parametrize("script", sorted(REF_SCRIPT_NAMES.keys() - SCRIPTS))
+def test_benchmark_script_ported(script):
+    """Every root benchmark script without a row in SCRIPTS has a port
+    with all its names."""
+    assert script in PORT_SCRIPT_NAMES, f"the port has no benchmarks/{script}"
+    assert unported({script: REF_SCRIPT_NAMES[script]}, PORT_SCRIPT_NAMES,
+                    {}) == {}
+
+
+@pytest.mark.parametrize("script", sorted(SCRIPTS))
+def test_benchmark_script_table(script):
+    """Each row names a root script; a queued one is still absent from
+    the port, and one ported earlier is present and still lacks some of
+    the root script's names (else it belongs with the mapped scripts)."""
+    reason = SCRIPTS[script]
+    assert script in REF_SCRIPT_NAMES
+    assert reason in (PORTED_EARLIER, QUEUED)
+    if reason == QUEUED:
+        assert script not in PORT_SCRIPT_NAMES
+    else:
+        assert script in PORT_SCRIPT_NAMES
+        assert unported({script: REF_SCRIPT_NAMES[script]},
+                        PORT_SCRIPT_NAMES, {})
 
 
 def test_comparison_fails_for_an_unported_name(tmp_path):
