@@ -117,6 +117,24 @@ Phases (each prints its numbers; any failure exits non-zero):
    the VCF with 0 non-concordant records; per stage its wall, reads/s,
    peak RSS, peak device memory and K1-K4 launches (align K1-K3 and htc
    K2-K4 each > 0), and a ``{"wgs_smoke": ...}`` line.
+12. (run right after phase 11, on (a)'s dataset) the port's somatic,
+   mesh, long-read, indel and joint-cohort rehearsals and its two
+   Smith-Waterman bench scripts, each through its ``main`` on the card
+   with every count at 0 just before it and read just after:
+   ``mutect2_rehearsal`` on its own 1 Mb tumor/normal pair (25x each;
+   K2/K3/K4 launched, somatic sensitivity and precision >= 0.9),
+   ``mesh_rehearsal`` over (a)'s whole 0.6 Mb contig (htc on an 8-shard
+   (data=4, region=2) mesh record-equal to no mesh), ``longread_rehearsal``
+   (6 Mbp of ONT-class reads over (a)'s reference; K2/K3 and no other
+   kernel, mapped >= 0.95), ``indel_rehearsal`` on (a)'s ``dedup.bam``
+   (exit 0; reads realigned and launches printed), ``joint_cohort`` (5
+   samples; its gate passes), ``bench_longread`` (16 reads of 10 kb) and
+   ``bench_sw_parts`` (2240 lanes; its parts equal ``sw_extend_batch``,
+   each part's ms printed); every Smith-Waterman (R, W) and PairHMM (R,
+   H) bucket they launched, each once, held against the plain versions on
+   that run's inputs as in phase 8; the K2-K4 rows' ``launches_by_path``
+   gain each script; a ``{"rehearsals_smoke": ...}`` line and the phase's
+   time.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on its path, error against the plain version, kernel, plain and
@@ -997,6 +1015,155 @@ def phase_wgs(torch, S, P, validate, work: Path) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the somatic, mesh, long-read, indel and joint-cohort rehearsals
+# ---------------------------------------------------------------------------
+
+# phase 8's somatic gate, and the long-read rehearsal's mapped fraction
+SOMATIC_GATE, MAPPED_GATE = 0.9, 0.95
+# phase 12's sizes: the mutect2 rehearsal's genome (Mb), the long reads
+# over phase 11's reference (Mbp), the cohort's samples, bench_longread's
+# reads and their length, bench_sw_parts' lanes
+REHEARSAL_M2_MB, REHEARSAL_LONG_MBP, REHEARSAL_SAMPLES = 1, 6.0, 5
+BENCH_LONG_READS, BENCH_SW_LANES = ("16", "10000"), "2240"
+
+
+def phase_rehearsals(torch, S, P, results, wgs: Path, work: Path) -> None:
+    """Each of the port's somatic, mesh, long-read, indel and joint-cohort
+    rehearsals and its two Smith-Waterman bench scripts through its
+    ``main`` on the card, at a small size, on phase 11's dataset
+    (``wgs``: ``ref.fa``, ``dedup.bam``); every new bucket held against
+    the plain versions on that run's inputs."""
+    from falcon_genome_tpu_torch.benchmarks import (
+        bench_longread, bench_sw_parts, indel_rehearsal, joint_cohort,
+        longread_rehearsal, mesh_rehearsal, mutect2_rehearsal as M2,
+        wgs_rehearsal as W)
+    work.mkdir(parents=True, exist_ok=True)
+    out = work / "rows.json"
+    held: set = set()
+    rows, buckets, paths = {}, [], {}
+    card = ["--device", "cuda"]
+
+    def drive(label, main, argv, bucket=lambda R, W: (R, W)):
+        """``main(argv)`` on the card, every count at 0 just before it and
+        read just after it, the Smith-Waterman and PairHMM wrappers
+        recorded and its output kept; then each bucket it launched that
+        this phase has not held yet held against the plain versions.
+        Returns its launches and the lines it printed."""
+        for d in (S.LAUNCHES, P.LAUNCHES):
+            for k in d:
+                d[k] = 0
+        torch.cuda.synchronize()
+        printed = io.StringIO()
+        t0 = time.time()
+        with ShapeRecorder(S, P, bucket) as rec, \
+                contextlib.redirect_stdout(printed):
+            rc = main(argv)
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k: n for k, n in {**S.LAUNCHES, **P.LAUNCHES}.items()
+                    if n}
+        check(rc == 0, f"phase 12: {label} exited {rc}")
+        rec.sw = {k: v for k, v in rec.sw.items() if ("sw", k) not in held}
+        rec.hmm = {k: v for k, v in rec.hmm.items()
+                   if ("hmm", k) not in held}
+        held.update([("sw", k) for k in rec.sw]
+                    + [("hmm", k) for k in rec.hmm])
+        say(f"phase 12 {label}: exit 0 in {wall:.1f} s, kernel launches "
+            f"{launches}; buckets not yet held in this phase: SW (R, W) "
+            f"{sorted(rec.sw)}, PairHMM (R, H) {sorted(rec.hmm)}")
+        buckets.extend(hold_buckets(torch, S, P, rec, f"phase 12 {label}"))
+        paths[label] = launches
+        return launches, printed.getvalue().strip().splitlines()
+
+    def need(label, launches, kernels):
+        for k in kernels:
+            check(launches.get(k, 0) > 0,
+                  f"phase 12: {label} did not launch {k}")
+
+    # mutect2 at 1 Mb: the rehearsal's own dataset (25x tumor and normal)
+    M2.G, M2.N_SOMATIC, M2.N_GERMLINE = (int(REHEARSAL_M2_MB * 1e6),
+                                         int(100 * REHEARSAL_M2_MB),
+                                         int(200 * REHEARSAL_M2_MB))
+    launches, _ = drive("mutect2_rehearsal", M2.main,
+                        [str(work / "m2"), *card, "--out", str(out)],
+                        mutect2_bucket)
+    shutil.rmtree(work / "m2", ignore_errors=True)
+    need("mutect2_rehearsal", launches,
+         ("fgt_sw_full", "fgt_sw_traceback", "fgt_pairhmm"))
+    r = rows["mutect2"] = json.loads(out.read_text())["mutect2"]
+    say(f"phase 12 mutect2_rehearsal at {r['genome_mb']:g} Mb: "
+        f"{r['wall_s']} s, somatic sensitivity {r['somatic_sensitivity']}, "
+        f"precision {r['precision']}, {r['extra_calls']} extra calls")
+    check(r["somatic_sensitivity"] >= SOMATIC_GATE
+          and r["precision"] >= SOMATIC_GATE,
+          f"phase 12: mutect2_rehearsal's somatic sensitivity or precision "
+          f"below {SOMATIC_GATE}")
+
+    # htc under an 8-shard mesh against none, on phase 11's whole contig
+    launches, _ = drive("mesh_rehearsal", mesh_rehearsal.main,
+                        [str(wgs), str(W.SMOKE_MB), *card, "--out",
+                         str(work / "mesh.json")], mutect2_bucket)
+    need("mesh_rehearsal", launches,
+         ("fgt_sw_full", "fgt_sw_traceback", "fgt_pairhmm"))
+    r = rows["mesh"] = json.loads((work / "mesh.json").read_text())
+    say(f"phase 12 mesh_rehearsal: equal {r['equal']}, "
+        f"{r['single']['n_calls']} calls; single {r['single']['wall_s']} s, "
+        f"mesh {r['mesh8']['wall_s']} s on {r['mesh8']['pairhmm_cards']}")
+    check(r["equal"], "phase 12: htc under the mesh differs from no mesh")
+
+    launches, _ = drive("longread_rehearsal", longread_rehearsal.main,
+                        [str(wgs), str(REHEARSAL_LONG_MBP), *card, "--out",
+                         str(out)])
+    need("longread_rehearsal", launches, ("fgt_sw_full", "fgt_sw_traceback"))
+    check(set(launches) == {"fgt_sw_full", "fgt_sw_traceback"},
+          f"phase 12: longread_rehearsal launched kernels other than "
+          f"K2/K3: {launches}")
+    r = rows["longread"] = json.loads(out.read_text())["longread"]
+    say(f"phase 12 longread_rehearsal: {r['reads']} reads, "
+        f"{r['total_mbp']} Mbp in {r['wall_s']} s ({r['mbp_per_s']} Mbp/s), "
+        f"mapped {r['mapped_frac']}")
+    check(r["mapped_frac"] >= MAPPED_GATE,
+          f"phase 12: long reads mapped below {MAPPED_GATE}")
+
+    launches, _ = drive("indel_rehearsal", indel_rehearsal.main,
+                        [str(wgs), *card, "--out", str(out)])
+    r = rows["indel"] = json.loads(out.read_text())["indel"]
+    say(f"phase 12 indel_rehearsal: {r['genome_mb']:g} Mb, {r['reads']} "
+        f"reads in {r['wall_s']} s, {r['realigned_reads']} reads realigned, "
+        f"launches {launches}")
+
+    launches, _ = drive("joint_cohort", joint_cohort.main,
+                        [str(wgs), str(REHEARSAL_SAMPLES), *card, "--out",
+                         str(out)])
+    r = rows["joint_cohort"] = json.loads(out.read_text())["joint_cohort"]
+    say(f"phase 12 joint_cohort: {json.dumps(r)}")
+    check(r["pass"], "phase 12: joint_cohort's gate failed")
+
+    launches, lines = drive("bench_longread", bench_longread.main,
+                            [*BENCH_LONG_READS, *card])
+    need("bench_longread", launches, ("fgt_sw_full", "fgt_sw_traceback"))
+    say(f"phase 12 bench_longread: {lines[0]}")
+    rows["bench_longread"] = json.loads(lines[-1])
+
+    launches, lines = drive("bench_sw_parts", bench_sw_parts.main,
+                            [BENCH_SW_LANES, *card])
+    need("bench_sw_parts", launches, ("fgt_sw_full", "fgt_sw_traceback"))
+    r = rows["bench_sw_parts"] = json.loads(lines[-1])
+    check(r["parts_equal_sw_extend_batch"],
+          "phase 12: bench_sw_parts' parts differ from sw_extend_batch")
+    say(f"phase 12 bench_sw_parts ({r['lanes']} lanes, {r['bucket']}): "
+        f"the parts equal sw_extend_batch; ms {json.dumps(r['ms'])}")
+
+    for k in ("fgt_sw_full", "fgt_sw_traceback", "fgt_pairhmm"):
+        results[k]["launches_by_path"] = {
+            "germline": results[k]["launches"],
+            **results[k].get("launches_by_path", {}),
+            **{label: n[k] for label, n in paths.items() if n.get(k)}}
+    say(json.dumps({"rehearsals_smoke": {**rows, "launches": paths,
+                                         "buckets": buckets}}))
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the aligner's record API and the golden models
 # ---------------------------------------------------------------------------
 
@@ -1118,6 +1285,7 @@ def phase_record_api(torch, S, sample, golden, results) -> None:
         check(launches[k] > 0, f"align_pair_batch did not launch {k}")
         results[k]["launches_by_path"] = {
             "germline": results[k]["launches"],
+            **results[k].get("launches_by_path", {}),
             "align_pair_batch": launches[k]}
     recs, cols = [], []
     for (b1, b2), (a1, a2) in zip(batches, alns):
@@ -2022,9 +2190,15 @@ def main() -> int:
             torch, cli, S, P, validate, work, results)
         t11 = time.time()
         phase_wgs(torch, S, P, validate, work / "wgs")
-        shutil.rmtree(work / "wgs", ignore_errors=True)
         say(f"phase 11 (out-of-core germline rehearsal) "
             f"{time.time() - t11:.1f} s")
+        t12 = time.time()
+        phase_rehearsals(torch, S, P, results, work / "wgs" / "ooc",
+                         work / "rehearsals")
+        shutil.rmtree(work / "wgs", ignore_errors=True)
+        shutil.rmtree(work / "rehearsals", ignore_errors=True)
+        say(f"phase 12 (somatic, mesh, long-read, indel and joint-cohort "
+            f"rehearsals) {time.time() - t12:.1f} s")
         t10 = time.time()
         phase_record_api(torch, S, sample, golden, results)
         say(f"phase 10 (align_pair_batch, golden models) "

@@ -12,8 +12,8 @@ still exist in the reference and still be absent from the port.
 
 The root ``benchmarks/*.py`` scripts are held the same way: each maps to
 ``falcon_genome_tpu_torch/benchmarks/`` with its top-level names, or
-stands in :data:`SCRIPTS` with its reason.  A script the table lists as
-queued that the port gains, or a new root script, fails.
+stands in :data:`SCRIPTS` with its reason.  A new root script, or a
+row whose script the port has since matched name for name, fails.
 
 Run alone: ``python -m pytest tests/test_torch_api_parity.py``.
 """
@@ -97,16 +97,8 @@ EXCLUDED: dict[tuple[str, str], str] = {
 PORTED_EARLIER = ("ported with the kernels, as the timing of K7 (the "
                   "port's CUDA ablation kernel): the Pallas kernel factory "
                   "make_kernel and its LANES are TPU-only")
-QUEUED = "queued, ROADMAP §1"
 SCRIPTS: dict[str, str] = {
     "ablate_sw.py": PORTED_EARLIER,
-    "mutect2_rehearsal.py": QUEUED,
-    "mesh_rehearsal.py": QUEUED,
-    "longread_rehearsal.py": QUEUED,
-    "bench_longread.py": QUEUED,
-    "bench_sw_parts.py": QUEUED,
-    "indel_rehearsal.py": QUEUED,
-    "joint_cohort.py": QUEUED,
 }
 
 
@@ -196,18 +188,14 @@ def test_benchmark_script_ported(script):
 
 @pytest.mark.parametrize("script", sorted(SCRIPTS))
 def test_benchmark_script_table(script):
-    """Each row names a root script; a queued one is still absent from
-    the port, and one ported earlier is present and still lacks some of
-    the root script's names (else it belongs with the mapped scripts)."""
-    reason = SCRIPTS[script]
+    """Each row names a root script that the port has, ported earlier,
+    and that still lacks some of the root script's names (else it
+    belongs with the mapped scripts)."""
     assert script in REF_SCRIPT_NAMES
-    assert reason in (PORTED_EARLIER, QUEUED)
-    if reason == QUEUED:
-        assert script not in PORT_SCRIPT_NAMES
-    else:
-        assert script in PORT_SCRIPT_NAMES
-        assert unported({script: REF_SCRIPT_NAMES[script]},
-                        PORT_SCRIPT_NAMES, {})
+    assert SCRIPTS[script] == PORTED_EARLIER
+    assert script in PORT_SCRIPT_NAMES
+    assert unported({script: REF_SCRIPT_NAMES[script]},
+                    PORT_SCRIPT_NAMES, {})
 
 
 def test_comparison_fails_for_an_unported_name(tmp_path):

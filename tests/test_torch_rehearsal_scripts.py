@@ -4,7 +4,10 @@ result row with the JAX script's quantities (``germline_cmd``,
 ``profile_align``, ``profile_htc``, ``bench_align``, ``bench_germline``,
 ``markdup_scale``).  ``markdup_scale`` must find exactly the planted
 duplicates, with flags equal to the in-memory path's.  Every script's
-``--device cuda`` raises without a card."""
+``--device cuda`` raises without a card, also those of the somatic,
+mesh, long-read, indel and joint-cohort rehearsals and the two
+Smith-Waterman bench scripts (``tests/test_torch_rehearsal_somatic.py``
+and ``tests/test_torch_rehearsal_rest.py`` run them)."""
 import importlib
 import json
 
@@ -118,6 +121,13 @@ def test_markdup_scale_exact(tmp_path, capsys):
     ("profile_htc", ["--genome-mb", "0.01", "--pstats", "{tmp}/h.pstats"]),
     ("bench_align", ["--genome-mb", "0.01"]),
     ("bench_germline", ["--genome-mb", "0.01"]),
+    ("mutect2_rehearsal", ["{tmp}/w", "--out", "{tmp}/r.json"]),
+    ("mesh_rehearsal", ["{tmp}/w", "--out", "{tmp}/m.json"]),
+    ("longread_rehearsal", ["{tmp}/w", "--out", "{tmp}/r.json"]),
+    ("bench_longread", ["4", "3000"]),
+    ("bench_sw_parts", ["64"]),
+    ("indel_rehearsal", ["{tmp}/w", "--out", "{tmp}/r.json"]),
+    ("joint_cohort", ["{tmp}/w", "3", "--out", "{tmp}/r.json"]),
 ])
 def test_cuda_without_card_raises(script, argv, tmp_path):
     """No fallback to the CPU: ``--device cuda`` without a card raises
