@@ -135,6 +135,15 @@ Phases (each prints its numbers; any failure exits non-zero):
    that run's inputs as in phase 8; the K2-K4 rows' ``launches_by_path``
    gain each script; a ``{"rehearsals_smoke": ...}`` line and the phase's
    time.
+13. (run right after phase 12, on phase 11(a)'s dataset) the host memory
+   of the port's processes, each a fresh process on the card: (a)
+   ``benchmarks/rss_probe.py`` from Python with numpy to the first K1-K4
+   launches, one line a step (VmRSS, RssAnon, RssFile, threads, pinned
+   bytes); no CUDA context before the first tensor on the card and one
+   after it; (b) ``bqsr --device cuda`` through the CLI on (a)'s
+   ``dedup.bam`` under the probe's ``--cli``: a command that launches no
+   kernel exits 0 with no CUDA context in its process.  Phase 11's lines
+   carry each stage's peak RssAnon and RssFile beside its peak RSS.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on its path, error against the plain version, kernel, plain and
@@ -962,7 +971,10 @@ def phase_wgs(torch, S, P, validate, work: Path) -> None:
             r = res[stage]
             say(f"phase {label}, {stage}: {r['wall_s']} s, "
                 f"{r['reads_per_s']} reads/s, peak RSS {r['peak_rss_gb']} "
-                f"GB, peak device memory {r['peak_device_gb']} GB, "
+                f"GB (RssAnon {r['peak_rss_anon_gb']} GB, RssFile "
+                f"{r['peak_rss_file_gb']} GB; RssAnon added "
+                f"{r['rss_anon_added_gb']}, left {r['rss_anon_left_gb']} "
+                f"GB), peak device memory {r['peak_device_gb']} GB, "
                 f"launches {json.dumps(r['launches'])}, path {r['path']}")
         for stage, kernels in WGS_LAUNCHED.items():
             for k in kernels:
@@ -1012,6 +1024,59 @@ def phase_wgs(torch, S, P, validate, work: Path) -> None:
                        if k != "extra_classification"}
                for stage in W.STAGES.values()}
         for name, (_, r) in runs.items()}}))
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the host memory of the port's processes
+# ---------------------------------------------------------------------------
+
+def rss_probe(argv: list[str], out: Path) -> tuple[dict, str]:
+    """``benchmarks/rss_probe.py`` with ``argv`` in a fresh process; its
+    JSON document and its standard output."""
+    r = subprocess.run(
+        [sys.executable, "-m", "falcon_genome_tpu_torch.benchmarks.rss_probe",
+         "--out", str(out), *argv], capture_output=True, text=True,
+        cwd=REPO, timeout=900)
+    check(r.returncode == 0, f"phase 13: rss_probe {' '.join(argv[:3])} "
+          f"exited {r.returncode}: {r.stderr[-2000:]}")
+    return json.loads(out.read_text()), r.stdout
+
+
+def phase_rss(wgs: Path, work: Path) -> None:
+    """(a) The probe's steps in a fresh process on the card, each step's
+    memory printed; CUDA comes up with the first tensor on the card and
+    not before.  (b) ``bqsr --device cuda`` on ``wgs``'s ``dedup.bam``, a
+    command that launches no kernel, under the probe's ``--cli``: exit 0
+    and no CUDA context in its process."""
+    work.mkdir(parents=True, exist_ok=True)
+    doc, out = rss_probe(["--device", "cuda", "--genomes", ""],
+                         work / "probe.json")
+    for line in out.splitlines():
+        if line.startswith("rss_probe "):
+            say(f"phase 13a {line}")
+    steps = [s["step"] for s in doc["steps"]]
+    up = [s["cuda_initialized"] for s in doc["steps"]]
+    first = steps.index("first tensor on the device")
+    check(not any(up[:first]) and all(up[first:]),
+          f"phase 13a: CUDA came up at the wrong step: "
+          f"{list(zip(steps, up))}")
+    last = doc["steps"][-1]
+    say(f"phase 13a floor (a process with its CUDA context, the kernel "
+        f"library and K1-K4 launched once): VmRSS {last['rss_gb']} GB, "
+        f"RssAnon {last['anon_gb']} GB, RssFile {last['file_gb']} GB; "
+        f"host {json.dumps(doc['host'])}")
+    doc, _ = rss_probe(
+        ["--cli", "--device", "cuda", "bqsr", "-r", str(wgs / "ref.fa"),
+         "-i", str(wgs / "dedup.bam"), "-o", str(work / "bqsr.bam"), "-f",
+         "-O", f"log_dir={work / 'log'}", "-O", f"temp_dir={work / 'tmp'}"],
+        work / "cli.json")
+    c = doc["cli"]
+    say(f"phase 13b bqsr --device cuda: exit {c['rc']} in {c['wall_s']} s, "
+        f"CUDA context {c['cuda_initialized']}, VmRSS after imports "
+        f"{c['imported']['rss_gb']} GB, peak {c['peak_rss_gb']} GB "
+        f"(RssAnon {c['peak_rss_anon_gb']} GB)")
+    check(c["rc"] == 0 and not c["cuda_initialized"],
+          "phase 13b: bqsr --device cuda failed or opened a CUDA context")
 
 
 # ---------------------------------------------------------------------------
@@ -2195,10 +2260,14 @@ def main() -> int:
         t12 = time.time()
         phase_rehearsals(torch, S, P, results, work / "wgs" / "ooc",
                          work / "rehearsals")
-        shutil.rmtree(work / "wgs", ignore_errors=True)
         shutil.rmtree(work / "rehearsals", ignore_errors=True)
         say(f"phase 12 (somatic, mesh, long-read, indel and joint-cohort "
             f"rehearsals) {time.time() - t12:.1f} s")
+        t13 = time.time()
+        phase_rss(work / "wgs" / "ooc", work / "rss")
+        shutil.rmtree(work / "wgs", ignore_errors=True)
+        shutil.rmtree(work / "rss", ignore_errors=True)
+        say(f"phase 13 (host memory) {time.time() - t13:.1f} s")
         t10 = time.time()
         phase_record_api(torch, S, sample, golden, results)
         say(f"phase 10 (align_pair_batch, golden models) "

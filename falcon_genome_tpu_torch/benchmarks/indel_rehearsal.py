@@ -13,7 +13,7 @@ memory and each kernel's launches.  It merges into ``--out``.
 
 Usage:
     python -m falcon_genome_tpu_torch.benchmarks.indel_rehearsal
-        [WORKDIR] [--device cuda|cpu] [--out PATH]
+        [WORKDIR] [--device cuda|cpu] [--out PATH] [--series PATH]
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ import sys
 from pathlib import Path
 
 from .wgs_rehearsal import (
-    DEFAULT_OUT, DEFAULT_WORK, Measured, card_label, load_results, make_conf)
+    DEFAULT_OUT, DEFAULT_WORK, Measured, card_label, load_results, make_conf,
+    save_series)
 
 
 def realigned(log_lines: list[str]) -> int | None:
@@ -43,6 +44,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=str(DEFAULT_OUT),
                     help="results JSON (merged with what it holds)")
+    ap.add_argument("--series", default=None, metavar="PATH",
+                    help="also sample the stage's memory every second; "
+                         "the snapshots merge into PATH")
     args = ap.parse_args(argv)
     from .. import stages
     from ..device import resolve_device
@@ -56,7 +60,7 @@ def main(argv: list[str] | None = None) -> int:
 
     conf = make_conf(work)
     out = work / "realigned.bam"
-    with Measured(device) as m:
+    with Measured(device, series=args.series is not None) as m:
         stages.run_indel(conf, str(work / "ref.fa"), str(bam), str(out),
                          force=True, device=device)
 
@@ -64,17 +68,18 @@ def main(argv: list[str] | None = None) -> int:
     genome_mb, reads = sizes["G"] / 1e6, 2 * sizes["N_PAIRS"]
     results_path = Path(args.out)
     results = load_results(results_path)
-    results["indel"] = {"wall_s": round(m.wall, 1),
-                        "peak_rss_gb": round(m.rss, 2),
+    results["indel"] = {"wall_s": round(m.wall, 1), **m.memory(),
                         "genome_mb": genome_mb,
                         "reads": reads,
                         "s_per_mb": round(m.wall / genome_mb, 1),
                         "realigned_reads": realigned(m.log.lines),
-                        "peak_device_gb": m.row(reads)["peak_device_gb"],
                         "launches": m.launches,
                         "card": card_label(device)}
     results_path.parent.mkdir(parents=True, exist_ok=True)
     results_path.write_text(json.dumps(results, indent=1))
+    if args.series is not None:
+        save_series(Path(args.series), {"indel": {
+            "start": m.start, "end": m.end, "samples": m.series}})
     print(json.dumps(results["indel"]))
     return 0
 

@@ -171,7 +171,7 @@ def main(argv: list[str] | None = None) -> int:
     row = {"samples": args.n_samples, "sites": int(len(pos)),
            "genome_mb": min(REGION_MB * 1e6, FastaFile(str(ref)).dict
                             .contigs[0].length) / 1e6,
-           "wall_s": round(m.wall, 1), "peak_rss_gb": round(m.rss, 2),
+           "wall_s": round(m.wall, 1), **m.memory(),
            **gate(recs, pos, gts), "launches": m.launches,
            "card": card_label(device)}
     print(json.dumps(row))

@@ -116,12 +116,11 @@ def main(argv: list[str] | None = None) -> int:
 
     _, recs = read_bam(str(out))
     mapped = sum(1 for r in recs if not r.is_unmapped)
-    row = {"wall_s": round(m.wall, 1), "peak_rss_gb": round(m.rss, 2),
+    row = {"wall_s": round(m.wall, 1), **m.memory(),
            "reads": n_reads, "total_mbp": round(total_bp / 1e6, 1),
            "mbp_per_s": round(total_bp / 1e6 / m.wall, 3),
            "reads_per_s": round(n_reads / m.wall, 1),
            "mapped_frac": round(mapped / max(n_reads, 1), 4),
-           "peak_device_gb": m.row(n_reads)["peak_device_gb"],
            "launches": m.launches,
            "card": card_label(device)}
     results_path = Path(args.out)

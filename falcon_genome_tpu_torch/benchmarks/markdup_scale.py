@@ -152,10 +152,17 @@ def generate(out_dir: str, n_records: int, n_buckets: int, seed: int = 0):
 
 
 def run_markdup(tree_dir: str, out_bam: str, partition_mb: int):
-    """Subprocess body: run _stream_markdup, print JSON result."""
+    """Subprocess body: run _stream_markdup, print JSON result: the
+    subprocess's peak RSS (``ru_maxrss``) and its split, the peaks of
+    ``RssAnon`` and ``RssFile`` and what the process held once its imports
+    were done (``rss_probe.snapshot``)."""
     from ..stages.bamstages import _stream_markdup
     from ..utils.common import get_input_list
+    from .rss_probe import snapshot
+    from .wgs_rehearsal import RssSampler
 
+    imported = snapshot()
+    sampler = RssSampler()
     parts = get_input_list(tree_dir, r"part-\d+.*\.bam")
     t0 = time.perf_counter()
     res = _stream_markdup(parts, out_bam, {"rg1": "lib1"},
@@ -167,10 +174,20 @@ def run_markdup(tree_dir: str, out_bam: str, partition_mb: int):
         sys.exit("streamed path fell back (no native library, or the "
                  "bucket ranges overlap)")
     ndup, metrics, _ = res
+    sampler.stop()
+    end = snapshot()
     peak_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
     print(json.dumps({
         "ndup": ndup, "wall_s": round(wall, 1),
         "peak_rss_gb": round(peak_gb, 2),
+        **{f"peak_rss_{k}_gb": None if v is None else round(v, 2)
+           for k, v in (("anon", sampler.peak_anon),
+                        ("file", sampler.peak_file))},
+        "after_imports": {k: imported[k] for k in (
+            "rss_gb", "anon_gb", "file_gb", "threads", "torch_threads")},
+        "at_end": {k: end.get(k) for k in (
+            "rss_gb", "anon_gb", "file_gb", "huge_gb", "malloc_arena_gb",
+            "malloc_free_gb", "threads")},
         "pairs_examined": metrics.pairs_examined,
         "pair_duplicates": metrics.pair_duplicates,
     }))

@@ -200,14 +200,12 @@ def main(argv: list[str] | None = None) -> int:
               if not r.filter or r.filter in ("PASS", ".")}
     tp = len(truth & called)
     n_reads = 2 * (G * DEPTH // READ_LEN)
-    row = {"wall_s": round(m.wall, 1),
-           "peak_rss_gb": round(m.rss, 2),
+    row = {"wall_s": round(m.wall, 1), **m.memory(),
            "reads_per_s": round(n_reads / m.wall, 1),
            "genome_mb": G / 1e6,
            "somatic_sensitivity": round(tp / len(truth), 4),
            "extra_calls": len(called - truth),
            "precision": round(tp / max(len(called), 1), 5),
-           "peak_device_gb": m.row(n_reads)["peak_device_gb"],
            "launches": m.launches,
            "pairhmm_call_sizes": summary(calls.sizes),
            "card": card_label(device)}

@@ -6,7 +6,9 @@ a 256-bucket ``part-%06d`` tree) → markdup (streamed over the tree) →
 bqsr (baserecal + printreads, streamed over ``dedup.bam`` and its
 ``.bai``) → htc (region-pruned over the recalibrated tree and its
 ``part-*.list`` sidecars), with the kernels on ``--device``.  Each stage's
-row records its wall, reads/s, peak RSS (``RssSampler``), peak device
+row records its wall, reads/s, peak RSS (``RssSampler``: VmRSS, and the
+peaks of its parts ``RssAnon`` and ``RssFile``; the ``RssAnon`` a stage
+added and left behind), peak device
 memory (``torch.cuda.max_memory_allocated``, reset per stage), the
 launches of each kernel in the stage (``ops.smith_waterman.LAUNCHES``,
 ``ops.pairhmm.LAUNCHES``) and which path the stage took (``path``).  The
@@ -26,7 +28,7 @@ Usage:
     WGS_G_MB=60 python -m \
         falcon_genome_tpu_torch.benchmarks.wgs_rehearsal
         [WORKDIR] [--stages a,m,b,h] [--device cuda|cpu]
-        [-O KEY=VALUE ...] [--out PATH]
+        [-O KEY=VALUE ...] [--out PATH] [--series PATH]
 """
 from __future__ import annotations
 
@@ -43,6 +45,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from .rss_probe import peak_split, proc_status, smaps_parts, snapshot
 
 REPO = Path(__file__).resolve().parents[2]
 DEFAULT_WORK = REPO / "build" / "wgs_rehearsal"
@@ -69,6 +73,11 @@ STAGES = {"a": "align", "m": "markdup", "b": "bqsr", "h": "htc"}
 KERNELS = ("fgt_sw_score", "fgt_sw_full", "fgt_sw_traceback", "fgt_pairhmm")
 
 
+# seconds between reads of /proc/self/smaps where the status has no split
+# (parsing it holds the interpreter for milliseconds)
+PARTS_PERIOD = 5.0
+
+
 def peak_rss_gb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
 
@@ -79,26 +88,50 @@ class RssSampler:
     ru_maxrss is a process-lifetime max: any stage after a spike would
     inherit the spike's number.  VmRSS is current residency, so its max
     over the stage window attributes memory to the stage that used it.
+    The peaks of its parts ``RssAnon`` and ``RssFile`` are kept beside it
+    (``peak_anon``, ``peak_file``).  On kernels whose status lacks them,
+    ``RssFile`` is read from ``/proc/self/smaps`` every
+    :data:`PARTS_PERIOD` seconds and ``RssAnon`` is VmRSS less it; None
+    where neither file gives them.  With ``series_period``, a full
+    ``rss_probe.snapshot`` every ``series_period`` seconds (``series``).
     """
 
-    def __init__(self, period: float = 0.25):
+    def __init__(self, period: float = 0.25,
+                 series_period: float | None = None):
         self.peak = 0.0
+        self.peak_anon: float | None = None
+        self.peak_file: float | None = None
+        self.series: list[dict] = []
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._run, args=(period,),
-                                        daemon=True)
+        self._thread = threading.Thread(
+            target=self._run, args=(period, series_period), daemon=True)
         self._thread.start()
 
-    def _run(self, period: float) -> None:
+    def _run(self, period: float, series_period: float | None) -> None:
+        t0 = time.perf_counter()
+        next_sample = next_parts = t0
+        file_kb = None          # RssFile from smaps, where status lacks it
         while not self._stop.is_set():
-            try:
-                with open("/proc/self/status") as f:
-                    for line in f:
-                        if line.startswith("VmRSS:"):
-                            kb = float(line.split()[1])
-                            self.peak = max(self.peak, kb / 1e6)
-                            break
-            except OSError:
-                pass
+            st = proc_status()
+            now = time.perf_counter()
+            if "RssAnon" in st:
+                anon, file = st["RssAnon"], st.get("RssFile", 0)
+            else:
+                if now >= next_parts:
+                    next_parts = now + PARTS_PERIOD
+                    file_kb = (smaps_parts() or {}).get("file")
+                anon = file = None
+                if file_kb is not None and "VmRSS" in st:
+                    anon, file = st["VmRSS"] - file_kb, file_kb
+            if "VmRSS" in st:
+                self.peak = max(self.peak, st["VmRSS"] / 1e6)
+            if anon is not None:
+                self.peak_anon = max(self.peak_anon or 0.0, anon / 1e6)
+                self.peak_file = max(self.peak_file or 0.0, file / 1e6)
+            if series_period and now >= next_sample:
+                self.series.append({"t_s": round(now - t0, 2),
+                                    **snapshot()})
+                next_sample += series_period
             self._stop.wait(period)
 
     def stop(self) -> float:
@@ -284,12 +317,15 @@ class LogLines(logging.Handler):
 
 
 class Measured:
-    """Wall, peak RSS, peak device memory, kernel launches and log lines
-    of the work inside a ``with`` block."""
+    """Wall, peak RSS (VmRSS and its anonymous and file parts), peak device
+    memory, kernel launches and log lines of the work inside a ``with``
+    block; with ``series``, a snapshot of the process's memory every
+    second (``rss_probe.snapshot``) and the split at its peak."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, series: bool = False):
         self.device = device
         self.log = LogLines()
+        self.series_period = 1.0 if series else None
 
     def __enter__(self):
         # the path a stage took is read from its INFO lines
@@ -298,36 +334,68 @@ class Measured:
         if logger.getEffectiveLevel() > logging.INFO:
             logger.setLevel(logging.INFO)
         logger.addHandler(self.log)
-        if self.device.type == "cuda":
+        if self._cuda_up():
             torch.cuda.synchronize(self.device)
             torch.cuda.reset_peak_memory_stats(self.device)
         self.launches0 = launch_counts()
-        self.sampler = RssSampler()
+        self.start = snapshot()
+        self.sampler = RssSampler(series_period=self.series_period)
         self.t0 = time.perf_counter()
         return self
 
+    def _cuda_up(self) -> bool:
+        """Whether the device is a card and CUDA is up in this process:
+        measuring work that put nothing on the card opens no context."""
+        return self.device.type == "cuda" and torch.cuda.is_initialized()
+
     def __exit__(self, *exc):
-        if self.device.type == "cuda":
+        if self._cuda_up():
             torch.cuda.synchronize(self.device)
         self.wall = time.perf_counter() - self.t0
         self.rss = self.sampler.stop()
+        self.series = self.sampler.series
+        self.end = snapshot()
         logger = logging.getLogger("falcon_genome_tpu")
         logger.removeHandler(self.log)
         logger.setLevel(self.level)
         now = launch_counts()
         self.launches = {k: now[k] - self.launches0[k] for k in KERNELS}
         self.device_gb = (
-            torch.cuda.max_memory_allocated(self.device) / 1e9
-            if self.device.type == "cuda" else None)
+            None if self.device.type != "cuda"
+            else torch.cuda.max_memory_allocated(self.device) / 1e9
+            if self._cuda_up() else 0.0)
         return False
 
+    def memory(self) -> dict:
+        """The memory columns of a row: peak VmRSS (``peak_rss_gb``, the
+        number the JAX side's rows carry), the peaks of its anonymous and
+        file parts, the ``RssAnon`` the work added over its start and left
+        behind at its end, peak device memory, and with ``series`` the
+        split at the peak (``rss_probe.peak_split``)."""
+        def r2(v):          # None: the kernel gives no such field
+            return None if v is None else round(v, 2)
+
+        anon0, anon1 = self.start["anon_gb"], self.end["anon_gb"]
+        peak_anon = self.sampler.peak_anon
+        known = None not in (anon0, anon1, peak_anon)
+        out = {"peak_rss_gb": round(self.rss, 2),
+               "peak_rss_anon_gb": r2(peak_anon),
+               "peak_rss_file_gb": r2(self.sampler.peak_file),
+               "rss_anon_added_gb": r2(max(peak_anon, anon1) - anon0
+                                       if known else None),
+               "rss_anon_left_gb": r2(anon1 - anon0 if known else None),
+               "peak_device_gb": (None if self.device_gb is None
+                                  else round(self.device_gb, 3))}
+        if self.series_period:
+            out["peak_split"] = peak_split(self.series)
+        return out
+
     def row(self, n_reads: int) -> dict:
+        mem = self.memory()
         return {"wall_s": round(self.wall, 1),
-                "peak_rss_gb": round(self.rss, 2),
+                "peak_rss_gb": mem.pop("peak_rss_gb"),
                 "reads_per_s": round(n_reads / max(self.wall, 1e-9), 1),
-                "peak_device_gb": (None if self.device_gb is None
-                                   else round(self.device_gb, 3)),
-                "launches": self.launches}
+                **mem, "launches": self.launches}
 
 
 def logged_paths(log: LogLines) -> dict[str, str]:
@@ -384,10 +452,13 @@ def outputs(work: Path) -> dict[str, str]:
 
 
 def rehearse(work: Path, run_stages, device: torch.device, conf,
-             results: dict, save=lambda results: None) -> dict:
+             results: dict, save=lambda results: None,
+             series: dict | None = None) -> dict:
     """Run ``run_stages`` (names of :data:`STAGES`) on the dataset cached
     in ``work``; each stage's row goes into ``results``, which ``save``
-    gets after every stage."""
+    gets after every stage.  With a ``series`` dict, each stage is also
+    sampled every second and ``series[stage]`` gets its snapshots
+    (``start``, ``end``, ``samples``; ``rss_probe.snapshot``)."""
     from .. import stages
     from .call_sizes import PairHMMCalls, summary
 
@@ -397,12 +468,18 @@ def rehearse(work: Path, run_stages, device: torch.device, conf,
 
     def record(name, fn, path, *inputs):
         size = input_mb(*inputs)
-        with Measured(device) as m:
+        with Measured(device, series=series is not None) as m:
             fn()
         results[name] = {**m.row(n_reads), "path": path(m.log),
                          "input_mb": size}
+        if series is not None:
+            series[name] = {"start": m.start, "end": m.end,
+                            "samples": m.series}
         save(results)
+        mem = results[name]
         print(f"== {name}: {m.wall:.0f}s (stage peak rss {m.rss:.1f} GB, "
+              f"anon {mem['peak_rss_anon_gb']} GB, file "
+              f"{mem['peak_rss_file_gb']} GB, "
               f"process max {peak_rss_gb():.1f} GB, device "
               f"{results[name]['peak_device_gb']} GB, launches "
               f"{m.launches}, path {results[name]['path']})")
@@ -485,6 +562,9 @@ def parse_args(argv, description: str, stages: bool = True):
     ap.add_argument("work", nargs="?", default=str(DEFAULT_WORK))
     if stages:
         ap.add_argument("--stages", default="a,m,b,h")
+        ap.add_argument("--series", default=None, metavar="PATH",
+                        help="also sample each stage's memory every "
+                             "second; the snapshots merge into PATH")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("-O", "--option", action="append", default=[],
                     metavar="KEY=VALUE", help="configuration override")
@@ -495,6 +575,13 @@ def parse_args(argv, description: str, stages: bool = True):
 
 def load_results(path: Path) -> dict:
     return json.loads(path.read_text()) if path.exists() else {}
+
+
+def save_series(path: Path, series: dict) -> None:
+    """Merge stages' memory snapshots into the JSON at ``path``."""
+    merged = {**load_results(path), **series}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(merged))
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -520,8 +607,11 @@ def main(argv: list[str] | None = None) -> int:
         results_path.write_text(json.dumps(res, indent=1))
 
     conf = make_conf(work, args.option)
-    rehearse(work, run_stages, device, conf, results, save)
+    series = None if args.series is None else {}
+    rehearse(work, run_stages, device, conf, results, save, series)
     save(results)
+    if series is not None:
+        save_series(Path(args.series), series)
     print(json.dumps(results))
     return 0
 

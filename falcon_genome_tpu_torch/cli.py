@@ -220,11 +220,12 @@ def dispatch(args: argparse.Namespace, conf, device: str | torch.device
     cmd = args.command
     if cmd in DEVICE_COMMANDS:
         from .parallel.mesh import initialize_from_conf, process_device
+        # no torch.cuda.set_device: the device goes down to every op, the
+        # kernels' wrappers make their inputs' card current, and a
+        # command that launches no kernel opens no CUDA context
         device = resolve_device(device)
         initialize_from_conf(conf, device)
         device = process_device(device)
-        if device.type == "cuda":
-            torch.cuda.set_device(device)
     if cmd == "align":
         stages.run_align(conf, args.ref, args.output,
                          fastq1=args.fastq1, fastq2=args.fastq2,

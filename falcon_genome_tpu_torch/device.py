@@ -5,7 +5,9 @@ probes for a default.  Every ``device`` default of the package, in its
 parameter dataclasses and stage signatures, is :data:`DEFAULT_DEVICE`, the
 card: a caller that means the CPU says ``device=torch.device("cpu")``.
 Asking for ``cuda`` on a machine without a card is an error, never a
-silent move to the CPU.
+silent move to the CPU.  Resolving the card does not bring CUDA up: a
+process opens its CUDA context when it first puts a tensor on the card,
+so a command that launches no kernel holds none.
 """
 from __future__ import annotations
 
@@ -32,7 +34,9 @@ def resolve_device(name: str | torch.device) -> torch.device:
                 "--device cuda: no CUDA device is available "
                 "(use --device cpu to run the plain PyTorch versions)")
         if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+            # the current card; until CUDA is up in this process, card 0
+            dev = torch.device("cuda", torch.cuda.current_device()
+                               if torch.cuda.is_initialized() else 0)
     elif dev.type != "cpu":
         raise DeviceUnavailable(f"unsupported device {name!r}")
     return dev

@@ -10,6 +10,7 @@ for device upload and windowed gather.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -116,6 +117,9 @@ class FastaFile:
         if not dict_path.exists():
             write_dict(self.path, self.dict)
         self._cache: dict[str, np.ndarray] = {}
+        # a stage's runner threads ask for the same contig at once: one
+        # decodes it, the others wait for its copy
+        self._lock = threading.Lock()
 
     def _scan(self) -> None:
         contigs: list[ContigInfo] = []
@@ -147,25 +151,30 @@ class FastaFile:
         self.dict = ReferenceDict(contigs)
 
     def contig_codes(self, name: str) -> np.ndarray:
-        """Full contig as uint8 codes (cached)."""
-        if name not in self._cache:
-            info = self.dict.by_name.get(name)
-            if info is None:
-                raise InvalidParam(f"unknown contig {name!r} in {self.path}")
-            nlines = (info.length + info.line_bases - 1) // info.line_bases \
-                if info.line_bases else 0
-            nbytes = info.length + nlines * (info.line_width - info.line_bases) \
-                if info.line_bases else 0
-            with open(self.path, "rb") as f:
-                f.seek(info.offset)
-                raw = np.frombuffer(f.read(nbytes), dtype=np.uint8)
-            if info.line_bases:
-                # drop newline columns by reshaping full lines + remainder
-                keep = raw[~np.isin(raw, (10, 13))]
-            else:
-                keep = raw
-            self._cache[name] = encode_seq_np(keep[:info.length])
-        return self._cache[name]
+        """Full contig as uint8 codes (cached; decoded once however many
+        threads ask for it at once)."""
+        with self._lock:
+            if name not in self._cache:
+                self._cache[name] = self._decode(name)
+            return self._cache[name]
+
+    def _decode(self, name: str) -> np.ndarray:
+        info = self.dict.by_name.get(name)
+        if info is None:
+            raise InvalidParam(f"unknown contig {name!r} in {self.path}")
+        nlines = (info.length + info.line_bases - 1) // info.line_bases \
+            if info.line_bases else 0
+        nbytes = info.length + nlines * (info.line_width - info.line_bases) \
+            if info.line_bases else 0
+        with open(self.path, "rb") as f:
+            f.seek(info.offset)
+            raw = np.frombuffer(f.read(nbytes), dtype=np.uint8)
+        if info.line_bases:
+            # drop newline columns by reshaping full lines + remainder
+            keep = raw[~np.isin(raw, (10, 13))]
+        else:
+            keep = raw
+        return encode_seq_np(keep[:info.length])
 
     def fetch_codes(self, name: str, start: int, end: int) -> np.ndarray:
         """Half-open 0-based [start, end) slice of a contig as codes."""

@@ -346,9 +346,10 @@ def sw_score(read, rlen, win, wlen, params: SWParams):
         _, best, pos = _plain_scan(read, rlen, win, wlen, params)
         return best[0], pos[0]
     read, win, rlen, wlen = _cuda_args(read, rlen, win, wlen)
-    out = _sw_score_launch(_build.load(), read, rlen, win, wlen, params,
-                           _stream(read))
-    _count("fgt_sw_score")
+    with torch.cuda.device(read.device):
+        out = _sw_score_launch(_build.load(), read, rlen, win, wlen, params,
+                               _stream(read))
+        _count("fgt_sw_score")
     return out
 
 
@@ -363,9 +364,10 @@ def sw_pointers(read, rlen, win, wlen, params: SWParams):
         ptrs, best, pos = _plain_scan(read, rlen, win, wlen, params)
         return ptrs, best[0], pos[0]
     read, win, rlen, wlen = _cuda_args(read, rlen, win, wlen)
-    out = _sw_full_launch(_build.load(), read, rlen, win, wlen, params,
-                          _stream(read))
-    _count("fgt_sw_full")
+    with torch.cuda.device(read.device):
+        out = _sw_full_launch(_build.load(), read, rlen, win, wlen, params,
+                              _stream(read))
+        _count("fgt_sw_full")
     return out
 
 
@@ -377,9 +379,10 @@ def sw_traceback(ptrs, best, pos, max_steps: int):
         return _traceback_core(ptrs, best, pos, max_steps=max_steps)
     if ptrs.device.type != "cuda":
         raise ValueError(f"no Smith-Waterman kernel for device {ptrs.device}")
-    out = _sw_traceback_launch(_build.load(), ptrs, best, pos, max_steps,
-                               _stream(ptrs))
-    _count("fgt_sw_traceback")
+    with torch.cuda.device(ptrs.device):
+        out = _sw_traceback_launch(_build.load(), ptrs, best, pos,
+                                   max_steps, _stream(ptrs))
+        _count("fgt_sw_traceback")
     return out
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 import logging
 import os
 import shutil
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -331,8 +332,16 @@ def run_indel(conf: Config, ref: str, input_path: str, output: str,
     part_paths = [get_contig_fname(str(parts_root), i, "bam")
                   for i in range(len(shards))]
 
-    # the contigs' genomes on the device, shipped once each
+    # the contigs' genomes on the device, shipped once each: the runner's
+    # threads fill the cache under its lock
     genome_dev_cache: dict[str, torch.Tensor] = {}
+    genome_lock = threading.Lock()
+
+    def genome_dev(contig: str, codes: np.ndarray) -> torch.Tensor:
+        with genome_lock:
+            if contig not in genome_dev_cache:
+                genome_dev_cache[contig] = device_genome(codes, device)
+            return genome_dev_cache[contig]
 
     def one(shard, idx):
         parts = []
@@ -346,11 +355,9 @@ def run_indel(conf: Config, ref: str, input_path: str, output: str,
             if len(cols) == 0:
                 continue
             codes = fa.contig_codes(iv.contig)
-            if iv.contig not in genome_dev_cache:
-                genome_dev_cache[iv.contig] = device_genome(codes, device)
             n_re += _realign_columns(cols, codes, iv.start - 1, iv.end,
                                      params,
-                                     genome_dev=genome_dev_cache[iv.contig],
+                                     genome_dev=genome_dev(iv.contig, codes),
                                      device=device)
             parts.append(cols)
         parts_root.mkdir(parents=True, exist_ok=True)

@@ -212,11 +212,14 @@ def test_longread_bam_equals_jax(longread_runs):
 def test_indel_rehearsal(chain, tmp_path, capsys):
     """``realigned.bam`` equals the JAX ``run_indel``'s; the row has the
     dataset's genome and reads and the count the stage logged."""
-    out = tmp_path / "r.json"
+    out, series = tmp_path / "r.json", tmp_path / "series.json"
     assert indel_rehearsal.main([str(chain), "--device", "cpu", "--out",
-                                 str(out)]) == 0
+                                 str(out), "--series", str(series)]) == 0
     row = last_row(capsys)
     assert row == json.loads(out.read_text())["indel"]
+    snaps = json.loads(series.read_text())["indel"]
+    assert {"start", "end", "samples"} <= snaps.keys() and snaps["samples"]
+    assert row["peak_split"]["rss_gb"] > 0
     assert {"wall_s", "peak_rss_gb", "genome_mb", "reads",
             "s_per_mb"} <= row.keys()
     assert (row["genome_mb"], row["reads"]) == (
