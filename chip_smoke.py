@@ -142,8 +142,12 @@ Phases (each prints its numbers; any failure exits non-zero):
    bytes); no CUDA context before the first tensor on the card and one
    after it; (b) ``bqsr --device cuda`` through the CLI on (a)'s
    ``dedup.bam`` under the probe's ``--cli``: a command that launches no
-   kernel exits 0 with no CUDA context in its process.  Phase 11's lines
-   carry each stage's peak RssAnon and RssFile beside its peak RSS.
+   kernel exits 0 with no CUDA context in its process; (c) the same
+   command as a child of ``rss_probe --watch``: its exit code passed
+   through, a peak above 0 and the RssAnon / RssFile split at the peak
+   present (from ``smaps`` where the status lacks it), and a child that
+   exits 3 makes the probe exit 3.  Phase 11's lines carry each stage's
+   peak RssAnon and RssFile beside its peak RSS.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on its path, error against the plain version, kernel, plain and
@@ -1047,7 +1051,10 @@ def phase_rss(wgs: Path, work: Path) -> None:
     memory printed; CUDA comes up with the first tensor on the card and
     not before.  (b) ``bqsr --device cuda`` on ``wgs``'s ``dedup.bam``, a
     command that launches no kernel, under the probe's ``--cli``: exit 0
-    and no CUDA context in its process."""
+    and no CUDA context in its process.  (c) The same command as a child
+    of ``rss_probe --watch``: its exit code passed through, a peak above
+    0 and the split at the peak present; and a child that exits 3 makes
+    the probe exit 3."""
     work.mkdir(parents=True, exist_ok=True)
     doc, out = rss_probe(["--device", "cuda", "--genomes", ""],
                          work / "probe.json")
@@ -1077,6 +1084,39 @@ def phase_rss(wgs: Path, work: Path) -> None:
         f"(RssAnon {c['peak_rss_anon_gb']} GB)")
     check(c["rc"] == 0 and not c["cuda_initialized"],
           "phase 13b: bqsr --device cuda failed or opened a CUDA context")
+
+    def watch(cmd: list[str]) -> tuple[int, dict]:
+        out = work / "watch.json"
+        r = subprocess.run(
+            [sys.executable, "-m",
+             "falcon_genome_tpu_torch.benchmarks.rss_probe", "--watch",
+             "--period", "0.5", "--out", str(out), "--", *cmd],
+            capture_output=True, text=True, cwd=REPO, timeout=900)
+        return r.returncode, json.loads(out.read_text())["runs"][-1]
+
+    rc, w = watch([sys.executable, "-m", "falcon_genome_tpu_torch.cli",
+                   "--device", "cuda", "bqsr", "-r", str(wgs / "ref.fa"),
+                   "-i", str(wgs / "dedup.bam"), "-o",
+                   str(work / "bqsr_watch.bam"), "-f",
+                   "-O", f"log_dir={work / 'log'}",
+                   "-O", f"temp_dir={work / 'tmp'}"])
+    p = w["split_at_peak"] or {}
+    say(f"phase 13c rss_probe --watch -- cli bqsr --device cuda: exit "
+        f"{rc} (child {w['rc']}) in {w['wall_s']} s, {w['samples']} "
+        f"samples; peak VmRSS {w['peak_rss_gb']} GB, at the peak RssAnon "
+        f"{p.get('anon_gb')} / RssFile {p.get('file_gb')} GB (from "
+        f"{p.get('split_from')}), {p.get('threads')} threads; base_anon "
+        f"{w['base_anon_gb']} GB at {w['base_at_s']} s, added_anon "
+        f"{w['added_anon_gb']} GB")
+    check(rc == w["rc"] == 0,
+          f"phase 13c: --watch exited {rc}, its child {w['rc']}")
+    check((w["peak_rss_gb"] or 0) > 0, "phase 13c: --watch saw no memory")
+    check(p.get("anon_gb") is not None and p.get("file_gb") is not None,
+          f"phase 13c: no RssAnon / RssFile split at the peak: {p}")
+    rc, w = watch([sys.executable, "-c", "import sys; sys.exit(3)"])
+    say(f"phase 13c rss_probe --watch -- a child that exits 3: exit {rc}")
+    check(rc == w["rc"] == 3,
+          f"phase 13c: --watch exited {rc} for a child that exited 3")
 
 
 # ---------------------------------------------------------------------------
@@ -1155,7 +1195,7 @@ def phase_rehearsals(torch, S, P, results, wgs: Path, work: Path) -> None:
     shutil.rmtree(work / "m2", ignore_errors=True)
     need("mutect2_rehearsal", launches,
          ("fgt_sw_full", "fgt_sw_traceback", "fgt_pairhmm"))
-    r = rows["mutect2"] = json.loads(out.read_text())["mutect2"]
+    r = rows["mutect2"] = json.loads(out.read_text())[M2.result_key()]
     say(f"phase 12 mutect2_rehearsal at {r['genome_mb']:g} Mb: "
         f"{r['wall_s']} s, somatic sensitivity {r['somatic_sensitivity']}, "
         f"precision {r['precision']}, {r['extra_calls']} extra calls")
@@ -1183,7 +1223,8 @@ def phase_rehearsals(torch, S, P, results, wgs: Path, work: Path) -> None:
     check(set(launches) == {"fgt_sw_full", "fgt_sw_traceback"},
           f"phase 12: longread_rehearsal launched kernels other than "
           f"K2/K3: {launches}")
-    r = rows["longread"] = json.loads(out.read_text())["longread"]
+    r = rows["longread"] = json.loads(out.read_text())[
+        longread_rehearsal.result_key(REHEARSAL_LONG_MBP)]
     say(f"phase 12 longread_rehearsal: {r['reads']} reads, "
         f"{r['total_mbp']} Mbp in {r['wall_s']} s ({r['mbp_per_s']} Mbp/s), "
         f"mapped {r['mapped_frac']}")
@@ -1192,7 +1233,8 @@ def phase_rehearsals(torch, S, P, results, wgs: Path, work: Path) -> None:
 
     launches, _ = drive("indel_rehearsal", indel_rehearsal.main,
                         [str(wgs), *card, "--out", str(out)])
-    r = rows["indel"] = json.loads(out.read_text())["indel"]
+    r = rows["indel"] = json.loads(out.read_text())[
+        indel_rehearsal.result_key(W.SMOKE_MB)]
     say(f"phase 12 indel_rehearsal: {r['genome_mb']:g} Mb, {r['reads']} "
         f"reads in {r['wall_s']} s, {r['realigned_reads']} reads realigned, "
         f"launches {launches}")
@@ -1200,7 +1242,8 @@ def phase_rehearsals(torch, S, P, results, wgs: Path, work: Path) -> None:
     launches, _ = drive("joint_cohort", joint_cohort.main,
                         [str(wgs), str(REHEARSAL_SAMPLES), *card, "--out",
                          str(out)])
-    r = rows["joint_cohort"] = json.loads(out.read_text())["joint_cohort"]
+    r = rows["joint_cohort"] = json.loads(out.read_text())[
+        joint_cohort.result_key(REHEARSAL_SAMPLES)]
     say(f"phase 12 joint_cohort: {json.dumps(r)}")
     check(r["pass"], "phase 12: joint_cohort's gate failed")
 

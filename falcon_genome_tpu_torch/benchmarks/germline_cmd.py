@@ -5,7 +5,8 @@ Port of ``benchmarks/germline_cmd.py``: the single ``germline`` entry
 the dataset that ``wgs_rehearsal`` cached in the work directory, with its
 wall, reads/s, peak RSS, peak device memory, kernel launches, the path
 align and markdup took, and accuracy against the planted truth.  The row
-goes into ``--out`` under ``germline_cmd``.
+goes into ``--out`` under ``germline_cmd`` on the default 60 Mb genome and
+under ``germline_cmd@<Mb>mb`` on any other.
 
 Usage:
     python -m falcon_genome_tpu_torch.benchmarks.germline_cmd [WORKDIR]
@@ -21,8 +22,8 @@ from pathlib import Path
 import numpy as np
 
 from .wgs_rehearsal import (
-    Measured, card_label, dataset_files, dataset_pairs, input_path,
-    load_results, logged_paths, make_conf, parse_args)
+    DEFAULT_MB, Measured, card_label, dataset_files, dataset_pairs,
+    input_path, logged_paths, make_conf, parse_args, row_key, save_row)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -59,11 +60,9 @@ def main(argv: list[str] | None = None) -> int:
                "bqsr": input_path(conf, str(gwork / "dedup.bam")),
                "htc": input_path(conf, str(gwork / "recal"))},
            "card": card_label(device)}
-    results_path = Path(args.out)
-    results = load_results(results_path)
-    results["germline_cmd"] = row
-    results_path.parent.mkdir(parents=True, exist_ok=True)
-    results_path.write_text(json.dumps(results, indent=1))
+    genome_mb = json.loads((work / "dataset.json").read_text())["G"] / 1e6
+    save_row(Path(args.out),
+             row_key("germline_cmd", genome_mb, DEFAULT_MB, "mb"), row)
     print(json.dumps(row))
     return 0
 

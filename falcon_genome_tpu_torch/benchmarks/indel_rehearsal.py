@@ -9,7 +9,9 @@ and reads are those of the dataset that ran (the sizes that
 ``wgs_rehearsal.gen_dataset`` records in ``dataset.json``), where the JAX
 script wrote 60 Mb and 10 M reads whatever ran.  It adds the reads
 realigned (from the stage's closing log line), the card, the peak device
-memory and each kernel's launches.  It merges into ``--out``.
+memory and each kernel's launches.  It merges into ``--out`` under
+``indel`` on the default 60 Mb genome and under ``indel@<Mb>mb`` on any
+other (:func:`result_key`).
 
 Usage:
     python -m falcon_genome_tpu_torch.benchmarks.indel_rehearsal
@@ -25,8 +27,8 @@ import sys
 from pathlib import Path
 
 from .wgs_rehearsal import (
-    DEFAULT_OUT, DEFAULT_WORK, Measured, card_label, load_results, make_conf,
-    save_series)
+    DEFAULT_MB, DEFAULT_OUT, DEFAULT_WORK, Measured, card_label, make_conf,
+    row_key, save_row, save_series)
 
 
 def realigned(log_lines: list[str]) -> int | None:
@@ -36,6 +38,12 @@ def realigned(log_lines: list[str]) -> int | None:
         if m:
             return int(m.group(1))
     return None
+
+
+def result_key(genome_mb: float) -> str:
+    """The row's key in the results JSON for a dataset of ``genome_mb``:
+    ``indel`` at the rehearsal's default genome, ``indel@<Mb>mb`` else."""
+    return row_key("indel", genome_mb, DEFAULT_MB, "mb")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -66,21 +74,19 @@ def main(argv: list[str] | None = None) -> int:
 
     sizes = json.loads((work / "dataset.json").read_text())
     genome_mb, reads = sizes["G"] / 1e6, 2 * sizes["N_PAIRS"]
-    results_path = Path(args.out)
-    results = load_results(results_path)
-    results["indel"] = {"wall_s": round(m.wall, 1), **m.memory(),
-                        "genome_mb": genome_mb,
-                        "reads": reads,
-                        "s_per_mb": round(m.wall / genome_mb, 1),
-                        "realigned_reads": realigned(m.log.lines),
-                        "launches": m.launches,
-                        "card": card_label(device)}
-    results_path.parent.mkdir(parents=True, exist_ok=True)
-    results_path.write_text(json.dumps(results, indent=1))
+    row = {"wall_s": round(m.wall, 1), **m.memory(),
+           "genome_mb": genome_mb,
+           "reads": reads,
+           "s_per_mb": round(m.wall / genome_mb, 1),
+           "realigned_reads": realigned(m.log.lines),
+           "launches": m.launches,
+           "card": card_label(device)}
+    key = result_key(genome_mb)
+    save_row(Path(args.out), key, row)
     if args.series is not None:
-        save_series(Path(args.series), {"indel": {
+        save_series(Path(args.series), {key: {
             "start": m.start, "end": m.end, "samples": m.series}})
-    print(json.dumps(results["indel"]))
+    print(json.dumps(row))
     return 0
 
 

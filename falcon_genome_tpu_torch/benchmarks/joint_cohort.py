@@ -14,7 +14,9 @@ blocks; the records equal the JAX script's — then the production
   * hom-ref samples are reconstituted from their covering ref block.
 
 The ``joint_cohort`` row (samples, sites, wall, peak RSS, the gate's
-counts and ``pass``, the kernels' launches (none) and the card) merges into ``--out``; a failed gate
+counts and ``pass``, the kernels' launches (none) and the card) merges into
+``--out`` under ``joint_cohort`` at the default 60 samples and under
+``joint_cohort@<N>`` at any other count (:func:`result_key`); a failed gate
 exits 1.  No kernel runs: joint genotyping is host work, and ``--device``
 only names the machine the row is taken on (``cuda`` without a card
 raises, as in every rehearsal script).
@@ -35,7 +37,10 @@ from pathlib import Path
 import numpy as np
 
 from .wgs_rehearsal import (
-    DEFAULT_OUT, DEFAULT_WORK, Measured, card_label, load_results, make_conf)
+    DEFAULT_OUT, DEFAULT_WORK, Measured, card_label, make_conf, row_key,
+    save_row)
+
+DEFAULT_SAMPLES = 60
 
 REGION_MB = 10
 N_SITES = 8000
@@ -139,10 +144,16 @@ def gate(recs, pos, gts) -> dict:
             "pass": missing == 0 and gt_errors == 0 and ac_errors == 0}
 
 
+def result_key(n_samples: int) -> str:
+    """The row's key in the results JSON for a cohort of ``n_samples``."""
+    return row_key("joint_cohort", n_samples, DEFAULT_SAMPLES, "")
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("work", nargs="?", default=str(DEFAULT_WORK))
-    ap.add_argument("n_samples", nargs="?", type=int, default=60)
+    ap.add_argument("n_samples", nargs="?", type=int,
+                    default=DEFAULT_SAMPLES)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=str(DEFAULT_OUT),
                     help="results JSON (merged with what it holds)")
@@ -175,11 +186,7 @@ def main(argv: list[str] | None = None) -> int:
            **gate(recs, pos, gts), "launches": m.launches,
            "card": card_label(device)}
     print(json.dumps(row))
-    results_path = Path(args.out)
-    results = load_results(results_path)
-    results["joint_cohort"] = row
-    results_path.parent.mkdir(parents=True, exist_ok=True)
-    results_path.write_text(json.dumps(results, indent=1))
+    save_row(Path(args.out), result_key(args.n_samples), row)
     if not row["pass"]:
         print("joint cohort gate FAILED", file=sys.stderr)
         return 1

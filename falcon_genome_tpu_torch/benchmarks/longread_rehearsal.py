@@ -14,7 +14,8 @@ card that takes the kernels' build and first launches, as the warm-up
 took XLA's compiles on the TPU.  The ``longread`` row (wall, peak RSS,
 reads, Mbp, Mbp/s, reads/s, mapped fraction) adds the card, the peak
 device memory and each kernel's launches in the timed run; it merges into
-``--out``.
+``--out`` under ``longread`` at the default 60 Mbp and under
+``longread@<Mbp>mbp`` at any other total (:func:`result_key`).
 
 Usage:
     python -m falcon_genome_tpu_torch.benchmarks.longread_rehearsal
@@ -32,7 +33,10 @@ from pathlib import Path
 import numpy as np
 
 from .wgs_rehearsal import (
-    DEFAULT_OUT, DEFAULT_WORK, Measured, card_label, load_results, make_conf)
+    DEFAULT_OUT, DEFAULT_WORK, Measured, card_label, make_conf, row_key,
+    save_row)
+
+DEFAULT_MBP = 60.0
 
 
 def gen_reads(work: Path, ref_codes, total_bp: int, rng) -> Path:
@@ -67,10 +71,15 @@ def gen_reads(work: Path, ref_codes, total_bp: int, rng) -> Path:
     return fq
 
 
+def result_key(total_mbp: float) -> str:
+    """The row's key in the results JSON for a run of ``total_mbp``."""
+    return row_key("longread", total_mbp, DEFAULT_MBP, "mbp")
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("work", nargs="?", default=str(DEFAULT_WORK))
-    ap.add_argument("total_mbp", nargs="?", type=float, default=60.0)
+    ap.add_argument("total_mbp", nargs="?", type=float, default=DEFAULT_MBP)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=str(DEFAULT_OUT),
                     help="results JSON (merged with what it holds)")
@@ -123,11 +132,7 @@ def main(argv: list[str] | None = None) -> int:
            "mapped_frac": round(mapped / max(n_reads, 1), 4),
            "launches": m.launches,
            "card": card_label(device)}
-    results_path = Path(args.out)
-    results = load_results(results_path)
-    results["longread"] = row
-    results_path.parent.mkdir(parents=True, exist_ok=True)
-    results_path.write_text(json.dumps(results, indent=1))
+    save_row(Path(args.out), result_key(args.total_mbp), row)
     print(json.dumps(row))
     return 0
 

@@ -13,8 +13,11 @@ work directory.
 
 The ``mutect2`` row (wall, peak RSS, reads/s, somatic sensitivity, extra
 calls and precision, as the JAX script's) adds the card, the peak device
-memory, each kernel's launches in the run and the pairs of its PairHMM
-calls (``call_sizes.summary``).  It merges into ``--out``.
+memory, each kernel's launches in the run, the pairs of its PairHMM
+calls (``call_sizes.summary``) and the path each BAM was read by
+(``input_paths``: ``in memory`` or ``stream``, the out-of-core reader).
+It merges into ``--out`` under ``mutect2`` at the default 10 Mb and under
+``mutect2@<Mb>mb`` at any other genome (:func:`result_key`).
 
 ``M2_G_MB`` in the environment sets the genome in Mb (default 10); the
 somatic and germline site counts follow it.
@@ -37,9 +40,10 @@ from pathlib import Path
 import numpy as np
 
 from .wgs_rehearsal import (
-    DEFAULT_OUT, REPO, Measured, card_label, load_results)
+    DEFAULT_OUT, REPO, Measured, card_label, input_path, row_key, save_row)
 
-G_MB = int(os.environ.get("M2_G_MB", "10"))
+DEFAULT_MB = 10
+G_MB = int(os.environ.get("M2_G_MB", str(DEFAULT_MB)))
 G = G_MB * 1_000_000
 DEPTH = 25
 READ_LEN = 150
@@ -166,6 +170,11 @@ def gen_dataset(work: Path) -> None:
     print(f"dataset: {n_t + n_n} reads in {time.perf_counter() - t0:.0f}s")
 
 
+def result_key() -> str:
+    """The row's key in the results JSON at this module's genome."""
+    return row_key("mutect2", G / 1e6, DEFAULT_MB, "mb")
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("work", nargs="?",
@@ -208,12 +217,10 @@ def main(argv: list[str] | None = None) -> int:
            "precision": round(tp / max(len(called), 1), 5),
            "launches": m.launches,
            "pairhmm_call_sizes": summary(calls.sizes),
+           "input_paths": {n: input_path(conf, str(work / f"{n}.bam"))
+                           for n in ("tumor", "normal")},
            "card": card_label(device)}
-    results_path = Path(args.out)
-    results = load_results(results_path)
-    results["mutect2"] = row
-    results_path.parent.mkdir(parents=True, exist_ok=True)
-    results_path.write_text(json.dumps(results, indent=1))
+    save_row(Path(args.out), result_key(), row)
     print(json.dumps(row))
     return 0
 

@@ -31,6 +31,20 @@ With ``--cli``, the rest of the arguments are one command of the CLI
 its exit code, its memory before, at its peak and after, and whether a
 CUDA context came up (``torch.cuda.is_initialized()``).
 
+With ``--watch``, the rest of the arguments (after ``--``) are any
+command, run as a child process.  Every ``--period`` seconds the probe
+sums ``VmRSS``, ``RssAnon``, ``RssFile`` and ``Threads`` over the child
+and its descendants (from each one's ``/proc/<pid>/status``, or its
+``smaps`` where the status lacks the split; ``RssFile`` is a plain sum,
+so a library that two processes map counts twice).  It timestamps the child's
+standard-error lines (passing them on), takes ``base_anon``, the summed
+``RssAnon`` when the first log line appears (a line that starts with a
+``YYYY-MM-DD HH:MM:SS`` timestamp: the stage has begun, its imports are
+done), and reports the peaks, the split at the peak of ``VmRSS``,
+``added_anon`` = peak ``RssAnon`` - ``base_anon`` (both None where the
+child logs no such line), the wall time and the exit code, which it
+exits with.
+
 GB are 10^6 kB of ``/proc`` (1.024e9 bytes), the unit of the rehearsal
 rows' ``peak_rss_gb``; ``mallinfo2`` and allocator bytes are converted to
 it.
@@ -41,6 +55,8 @@ Usage:
         [--lanes N] [--out PATH]
     python -m falcon_genome_tpu_torch.benchmarks.rss_probe [--out PATH]
         --cli [--device cuda|cpu] COMMAND ARGS...
+    python -m falcon_genome_tpu_torch.benchmarks.rss_probe --watch
+        [--period S] [--out PATH] -- COMMAND ARGS...
 """
 from __future__ import annotations
 
@@ -48,7 +64,10 @@ import argparse
 import ctypes
 import json
 import os
+import re
+import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -390,6 +409,178 @@ def reading_cost(n: int = 5) -> dict[str, float]:
             "snapshot": ms(snapshot)}
 
 
+# ---------------------------------------------------------------------------
+# --watch: any command as a child process, sampled from outside
+# ---------------------------------------------------------------------------
+
+# a log record's start (the logging format's asctime): the stage has begun
+LOG_LINE = re.compile(r"\d{4}-\d\d-\d\d \d\d:\d\d:\d\d")
+# samples and standard-error lines kept in a watch's document (the peaks
+# use every sample)
+SERIES_KEPT, LOG_KEPT = 60, 10
+
+
+def descendants(pid: int) -> list[int]:
+    """``pid`` and every live process below it, by each process's parent
+    in ``/proc/<p>/stat``."""
+    children: dict[int, list[int]] = {}
+    for entry in os.scandir("/proc"):
+        if not entry.name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry.name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        ppid = int(stat.rpartition(")")[2].split()[1])
+        children.setdefault(ppid, []).append(int(entry.name))
+    out, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        out.append(p)
+        todo.extend(children.get(p, ()))
+    return out
+
+
+def process_memory(pid: int) -> dict | None:
+    """``VmRSS``, ``RssAnon``, ``RssFile`` (kB) and ``Threads`` of one
+    process, the split from its ``smaps`` where its status lacks it (then
+    ``"smaps": True``; the split None where neither gives it); None once
+    the process is gone or holds no memory (a zombie)."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            st = proc_status(f.read())
+    except OSError:
+        return None
+    if "VmRSS" not in st:
+        return None
+    if "RssAnon" not in st:
+        try:
+            with open(f"/proc/{pid}/smaps") as f:
+                parts = smaps_parts(f.read())
+        except OSError:
+            parts = None
+        st["RssAnon"] = None if parts is None else parts["anon"]
+        st["RssFile"] = None if parts is None else parts["file"]
+        st["smaps"] = True
+    return st
+
+
+def tree_sample(pid: int, t0: float) -> dict | None:
+    """The process ``pid`` and its descendants, summed now: GB of
+    ``VmRSS``, ``RssAnon`` and ``RssFile`` (None where a process gives no
+    split), threads and processes; None once ``pid`` is gone."""
+    procs = [m for m in map(process_memory, descendants(pid)) if m]
+    if not procs:
+        return None
+    split = all(m["RssAnon"] is not None for m in procs)
+
+    def total(key):
+        return gb(sum(m[key] for m in procs)) if split else None
+
+    return {"t_s": round(time.perf_counter() - t0, 3),
+            "rss_gb": gb(sum(m["VmRSS"] for m in procs)),
+            "anon_gb": total("RssAnon"), "file_gb": total("RssFile"),
+            "threads": sum(m.get("Threads", 0) for m in procs),
+            "processes": len(procs),
+            "split_from": (None if not split else "smaps"
+                           if any(m.get("smaps") for m in procs)
+                           else "status")}
+
+
+def thin(items: list, n: int) -> list:
+    """At most ``n`` of ``items``, evenly spaced, the last one kept."""
+    if len(items) <= n:
+        return list(items)
+    step = (len(items) - 1) / (n - 1)
+    return [items[round(i * step)] for i in range(n)]
+
+
+def watch(cmd: list[str], period: float = 0.5) -> dict:
+    """Run ``cmd`` as a child process and sample it and its descendants
+    every ``period`` seconds (see the module's docstring); its standard
+    error is passed on, each line timestamped."""
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True,
+                             errors="replace")
+    lines: list[list] = []
+    base: dict = {}
+
+    def read_stderr():
+        for line in child.stderr:
+            t = round(time.perf_counter() - t0, 3)
+            sys.stderr.write(line)
+            sys.stderr.flush()
+            lines.append([t, line.rstrip("\n")])
+            if "at_s" not in base and LOG_LINE.match(line):
+                base.update(at_s=t, line=line.rstrip("\n"),
+                            sample=tree_sample(child.pid, t0))
+
+    reader = threading.Thread(target=read_stderr, daemon=True)
+    reader.start()
+    samples: list[dict] = []
+    try:
+        while True:
+            s = tree_sample(child.pid, t0)
+            if s is not None:
+                samples.append(s)
+            try:
+                child.wait(timeout=period)
+                break
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        if child.poll() is None:            # interrupted: stop the child
+            child.kill()
+            child.wait()
+    reader.join()
+    wall = time.perf_counter() - t0
+    rc = child.returncode
+
+    if "at_s" in base and base["sample"] is None:   # the line, no sample
+        after = [s for s in samples if s["t_s"] >= base["at_s"]]
+        base["sample"] = after[0] if after else None
+    # no log line: no base, and no added_anon
+    base_sample = base.get("sample")
+    base_anon = None if base_sample is None else base_sample["anon_gb"]
+    known = [s["anon_gb"] for s in samples if s["anon_gb"] is not None]
+    peak_anon = max(known) if known else None
+    peak = max(samples, key=lambda s: s["rss_gb"]) if samples else None
+
+    def peak_of(key):
+        vals = [s[key] for s in samples if s[key] is not None]
+        return max(vals) if vals else None
+
+    return {"argv": cmd, "rc": rc, "wall_s": round(wall, 2),
+            "period_s": period, "samples": len(samples),
+            "peak_rss_gb": peak_of("rss_gb"), "peak_anon_gb": peak_anon,
+            "peak_file_gb": peak_of("file_gb"),
+            "peak_threads": peak_of("threads"),
+            "peak_processes": peak_of("processes"),
+            "split_at_peak": peak,
+            "base_at_s": base.get("at_s"), "base_line": base.get("line"),
+            "base_anon_gb": base_anon,
+            "added_anon_gb": (None if None in (peak_anon, base_anon)
+                              else round(peak_anon - base_anon, 4)),
+            "stderr_lines": len(lines),
+            "stderr_head": lines[:LOG_KEPT],
+            "stderr_tail": lines[-LOG_KEPT:] if len(lines) > LOG_KEPT
+            else [],
+            "series": thin(samples, SERIES_KEPT)}
+
+
+def append_run(path: str | None, doc: dict) -> None:
+    """Append a watch's document to the ``runs`` of the JSON at ``path``
+    (made where it does not exist), so runs in turn collect in one file."""
+    if not path:
+        return
+    p = Path(path)
+    runs = json.loads(p.read_text())["runs"] if p.exists() else []
+    p.parent.mkdir(parents=True, exist_ok=True)
+    p.write_text(json.dumps({"host": host_info(),
+                             "runs": [*runs, doc]}, indent=1))
+
+
 def write(path: str | None, doc: dict) -> None:
     if path:
         Path(path).parent.mkdir(parents=True, exist_ok=True)
@@ -398,6 +589,8 @@ def write(path: str | None, doc: dict) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
+    if "--watch" in (argv[:argv.index("--")] if "--" in argv else argv):
+        return main_watch(argv)
     cli_argv = None
     if "--cli" in argv:
         i = argv.index("--cli")
@@ -452,6 +645,31 @@ def main(argv: list[str] | None = None) -> int:
                                     "steps": len(steps),
                                     "stages": len(doc["stages"])}}))
     return 0
+
+
+def main_watch(argv: list[str]) -> int:
+    """``--watch [--period S] [--out PATH] -- COMMAND ...``: the command's
+    memory from outside; exits with its exit code."""
+    if "--" not in argv:
+        raise SystemExit("rss_probe --watch: the command follows --")
+    i = argv.index("--")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--watch", action="store_true")
+    ap.add_argument("--period", type=float, default=0.5,
+                    help="seconds between samples")
+    ap.add_argument("--out", default="",
+                    help="JSON whose runs this run is appended to")
+    args = ap.parse_args(argv[:i])
+    cmd = argv[i + 1:]
+    if not cmd:
+        raise SystemExit("rss_probe --watch: no command after --")
+    doc = watch(cmd, args.period)
+    append_run(args.out, doc)
+    print(json.dumps({k: v for k, v in doc.items()
+                      if k not in ("series", "stderr_head", "stderr_tail")}),
+          flush=True)
+    rc = doc["rc"]
+    return rc if rc >= 0 else 128 - rc      # killed by signal -rc
 
 
 if __name__ == "__main__":

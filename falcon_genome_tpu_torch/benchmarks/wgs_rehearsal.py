@@ -22,7 +22,9 @@ the JAX script's from the same sizes) is cached in the work directory, so
 environment sets the genome in Mb (default 60; ``WGS_SMOKE=1`` gives the
 0.6 Mb smoke scale); pairs and SNPs follow it at 25x and 1 SNP/kb.
 Results merge into ``--out`` (default ``wgs_rehearsal.json`` beside this
-file).
+file): at the default 60 Mb at its top level, at any other genome in a
+section ``wgs@<Mb>mb`` of their own, so no run overwrites the rows of
+another size.
 
 Usage:
     WGS_G_MB=60 python -m \
@@ -64,8 +66,9 @@ def scale(genome_mb: float) -> tuple[int, int, int]:
     return g, g * DEPTH // (2 * READ_LEN), g // 1000
 
 
+DEFAULT_MB = 60
 G_MB = float(os.environ.get("WGS_G_MB") or
-             (SMOKE_MB if os.environ.get("WGS_SMOKE") else 60))
+             (SMOKE_MB if os.environ.get("WGS_SMOKE") else DEFAULT_MB))
 G, N_PAIRS, N_SNPS = scale(G_MB)
 
 STAGES = {"a": "align", "m": "markdup", "b": "bqsr", "h": "htc"}
@@ -149,13 +152,27 @@ def dataset_files(work: Path) -> dict:
             "fq2": str(work / "r_2.fastq")}
 
 
+def gen_reference(work: Path, rng=None) -> np.ndarray:
+    """``ref.fa`` alone: the genome's codes, the first draw of ``rng``
+    (``default_rng(42)`` where not given), as :func:`gen_dataset` writes
+    it; for the scripts that read only the reference (long reads, the
+    joint cohort)."""
+    from ..io.dna import decode_seq
+    from ..io.fasta import write_fasta
+    if rng is None:
+        rng = np.random.default_rng(42)
+    Path(work).mkdir(parents=True, exist_ok=True)
+    chrom = rng.integers(0, 4, G).astype(np.uint8)
+    write_fasta(Path(work) / "ref.fa", {"chr1": decode_seq(chrom)})
+    return chrom
+
+
 def gen_dataset(work: Path) -> dict:
     """Reference ``ref.fa``, read pairs ``r_{1,2}.fastq`` and the planted
     SNPs ``truth.npy`` from ``default_rng(42)``, in the JAX script's draw
     order (so its bytes equal that script's at the same sizes).  Reused
     when ``dataset.json`` records the same sizes."""
     from ..io.dna import decode_seq, revcomp_codes
-    from ..io.fasta import write_fasta
 
     work = Path(work)
     ds = dataset_files(work)
@@ -170,8 +187,7 @@ def gen_dataset(work: Path) -> dict:
     meta.unlink(missing_ok=True)
     rng = np.random.default_rng(42)
     t0 = time.perf_counter()
-    chrom = rng.integers(0, 4, G).astype(np.uint8)
-    write_fasta(ref_fa, {"chr1": decode_seq(chrom)})
+    chrom = gen_reference(work, rng)
     alt = chrom.copy()
     snps = np.sort(rng.choice(np.arange(1000, G - 1000), N_SNPS,
                               replace=False))
@@ -577,6 +593,21 @@ def load_results(path: Path) -> dict:
     return json.loads(path.read_text()) if path.exists() else {}
 
 
+def row_key(name: str, size: float, default: float, unit: str) -> str:
+    """Where a script's row goes in its results JSON: ``name`` at the
+    script's default size, ``name@<size><unit>`` at any other, so that a
+    run at one size leaves the rows of every other size in place."""
+    return name if size == default else f"{name}@{size:g}{unit}"
+
+
+def save_row(path: Path, key: str, row: dict) -> None:
+    """Merge ``row`` into the results JSON at ``path`` under ``key``."""
+    results = load_results(path)
+    results[key] = row
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(results, indent=1))
+
+
 def save_series(path: Path, series: dict) -> None:
     """Merge stages' memory snapshots into the JSON at ``path``."""
     merged = {**load_results(path), **series}
@@ -595,16 +626,23 @@ def main(argv: list[str] | None = None) -> int:
     work = Path(args.work)
     work.mkdir(parents=True, exist_ok=True)
     results_path = Path(args.out)
-    results = load_results(results_path)
+    # the default genome's rows sit at the top level, beside the other
+    # scripts' rows; another genome's in a section of their own
+    everything = load_results(results_path)
+    key = row_key("wgs", G / 1e6, DEFAULT_MB, "mb")
+    results = (everything if key == "wgs"
+               else everything.setdefault(key, {}))
     if results.get("genome_mb", G / 1e6) != G / 1e6:
-        results = {}            # rows of another genome do not add up
+        # stage rows of another genome do not add up with this run's
+        for k in (*STAGES.values(), "germline_e2e_reads_per_s"):
+            results.pop(k, None)
     gen_dataset(work)
     results.update(card=card_label(device), genome_mb=G / 1e6,
                    pairs=N_PAIRS, snps=N_SNPS, options=args.option)
 
-    def save(res):
+    def save(_):
         results_path.parent.mkdir(parents=True, exist_ok=True)
-        results_path.write_text(json.dumps(res, indent=1))
+        results_path.write_text(json.dumps(everything, indent=1))
 
     conf = make_conf(work, args.option)
     series = None if args.series is None else {}

@@ -196,8 +196,8 @@ def test_port_sources_import_nothing_of_jax(rel):
 
 # Refuses jax, jaxlib and falcon_genome_tpu, imports every module of the
 # port and chip_smoke.py, runs the CLI's help, the bench's argument
-# parsing and the two golden models, and checks that none of the refused
-# names was imported.
+# parsing, the two golden models and the memory probe's ``--watch`` around
+# a child, and checks that none of the refused names was imported.
 _ISOLATED = r"""
 import importlib, importlib.util, pkgutil, sys
 
@@ -228,6 +228,9 @@ q = np.full((1, 4), 30, np.uint8)
 n4 = np.array([4], np.int32)
 assert np.isfinite(pairhmm_logp_ref(codes, q, q, q, q, n4, codes, n4)).all()
 assert sw_align_ref(codes[0], codes[0]).score == 4
+from falcon_genome_tpu_torch.benchmarks import rss_probe
+assert rss_probe.main(["--watch", "--period", "0.05", "--", sys.executable,
+                       "-c", "raise SystemExit(5)"]) == 5
 leaked = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("MODULES", " ".join(names))

@@ -112,7 +112,8 @@ def run_main(work: Path, out: Path, options: list[str]) -> dict:
         assert W.main(argv) == 0
     finally:
         W.G, W.N_PAIRS, W.N_SNPS = saved
-    return json.loads(out.read_text())
+    # a genome other than the default 60 Mb has a section of its own
+    return json.loads(out.read_text())[f"wgs@{GENOME_MB:g}mb"]
 
 
 def run_jax_chain(work: Path, options: list[str]) -> dict[str, str]:

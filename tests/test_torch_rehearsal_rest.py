@@ -186,7 +186,8 @@ def longread_runs(tmp_path_factory):
                       str(root / "jax" / "long_aligned.bam"),
                       fastq1=str(root / "port" / "long_reads.fastq"),
                       sample_id="lr", long_reads=True, force=True)
-    return root, json.loads(out.read_text())["longread"]
+    return root, json.loads(out.read_text())[
+        longread_rehearsal.result_key(0.1)]
 
 
 def test_longread_reads_equal_jax_script(longread_runs):
@@ -216,8 +217,10 @@ def test_indel_rehearsal(chain, tmp_path, capsys):
     assert indel_rehearsal.main([str(chain), "--device", "cpu", "--out",
                                  str(out), "--series", str(series)]) == 0
     row = last_row(capsys)
-    assert row == json.loads(out.read_text())["indel"]
-    snaps = json.loads(series.read_text())["indel"]
+    key = indel_rehearsal.result_key(GENOME_MB)
+    assert key == f"indel@{GENOME_MB:g}mb"
+    assert row == json.loads(out.read_text())[key]
+    snaps = json.loads(series.read_text())[key]
     assert {"start", "end", "samples"} <= snaps.keys() and snaps["samples"]
     assert row["peak_split"]["rss_gb"] > 0
     assert {"wall_s", "peak_rss_gb", "genome_mb", "reads",
@@ -232,6 +235,72 @@ def test_indel_rehearsal(chain, tmp_path, capsys):
     d = compare_bam(str(want), str(chain / "realigned.bam"),
                     compare_tags=True)
     assert d.equivalent and d.matching > 1000, d
+
+
+@pytest.mark.parametrize("key,default,other", [
+    (lambda: longread_rehearsal.result_key(60.0),
+     "longread", lambda: longread_rehearsal.result_key(240.0)),
+    (lambda: joint_cohort.result_key(60), "joint_cohort",
+     lambda: joint_cohort.result_key(100)),
+    (lambda: indel_rehearsal.result_key(60.0), "indel",
+     lambda: indel_rehearsal.result_key(16.0)),
+])
+def test_result_keys_name_every_size_but_the_default(key, default, other):
+    assert key() == default
+    assert other() != default and other().startswith(default + "@")
+
+
+def test_a_run_at_a_second_size_leaves_the_first_sizes_row(
+        chain, tmp_path, few_sites):
+    """``joint_cohort`` at 3 samples, then at 2, into a results file that
+    holds a default-size row: all three rows stay, each its own."""
+    out = tmp_path / "r.json"
+    out.write_text(json.dumps({"joint_cohort": {"samples": 60}}))
+    for n in (3, 2):
+        (tmp_path / f"n{n}").mkdir()
+        (tmp_path / f"n{n}" / "ref.fa").symlink_to(chain / "ref.fa")
+        assert joint_cohort.main([str(tmp_path / f"n{n}"), str(n),
+                                  "--device", "cpu", "--out", str(out)]) == 0
+    rows = json.loads(out.read_text())
+    assert {k: rows[k]["samples"] for k in rows} == {
+        "joint_cohort": 60, "joint_cohort@3": 3, "joint_cohort@2": 2}
+    assert rows["joint_cohort@3"]["pass"] and rows["joint_cohort@2"]["pass"]
+
+
+def test_wgs_rehearsal_keeps_the_rows_of_other_genomes(tmp_path,
+                                                       monkeypatch):
+    """``wgs_rehearsal`` at 60 Mb writes its rows at the top level, at 8 kb
+    in a ``wgs@0.008mb`` section; neither run takes away the other's rows
+    or another script's (the stages themselves stubbed)."""
+    out = tmp_path / "r.json"
+    out.write_text(json.dumps({"mutect2": {"genome_mb": 10}}))
+
+    def rehearse(work, run_stages, device, conf, results, save, series):
+        results["align"] = {"genome": W.G}
+        save(results)
+        return results
+
+    monkeypatch.setattr(W, "gen_dataset", lambda work: None)
+    monkeypatch.setattr(W, "rehearse", rehearse)
+    for mb in (60, 0.008, 60):
+        monkeypatch.setattr(W, "G", int(mb * 1e6))
+        assert W.main([str(tmp_path / "w"), "--device", "cpu", "--out",
+                       str(out)]) == 0
+    rows = json.loads(out.read_text())
+    assert rows["mutect2"] == {"genome_mb": 10}
+    assert (rows["genome_mb"], rows["align"]) == (60, {"genome": 60e6})
+    sec = rows["wgs@0.008mb"]
+    assert (sec["genome_mb"], sec["align"]) == (0.008, {"genome": 8000})
+
+
+def test_gen_reference_writes_the_datasets_reference(chain, tmp_path,
+                                                     monkeypatch):
+    """``gen_reference`` alone writes the ``ref.fa`` that ``gen_dataset``
+    writes with the reads."""
+    monkeypatch.setattr(W, "G", W.scale(GENOME_MB)[0])
+    codes = W.gen_reference(tmp_path)
+    assert len(codes) == W.G
+    assert (tmp_path / "ref.fa").read_bytes() == (chain / "ref.fa").read_bytes()
 
 
 def test_realigned_count_from_the_log():
@@ -258,7 +327,7 @@ def test_joint_cohort(chain, tmp_path, few_sites, capsys):
     assert joint_cohort.main([str(tmp_path), "5", "--device", "cpu",
                               "--out", str(out)]) == 0
     row = last_row(capsys)
-    assert row == json.loads(out.read_text())["joint_cohort"]
+    assert row == json.loads(out.read_text())[joint_cohort.result_key(5)]
     assert {"samples", "sites", "genome_mb", "wall_s", "peak_rss_gb",
             "missing_sites", "extra_sites", "gt_errors", "ac_errors",
             "pass"} <= row.keys()

@@ -53,7 +53,8 @@ def test_germline_cmd(work, tmp_path, capsys):
     assert germline_cmd.main([str(work), "--device", "cpu", "--out",
                               str(out), *OPTIONS, *OUT_OF_CORE]) == 0
     row = last_row(capsys)
-    assert row == json.loads(out.read_text())["germline_cmd"]
+    assert row == json.loads(out.read_text())[
+        f"germline_cmd@{GENOME_MB:g}mb"]
     assert {"wall_s", "peak_rss_gb", "reads_per_s", "sensitivity",
             "extra_calls", "precision"} <= row.keys()
     assert row["path"] == {"align": "bucket spill", "markdup": "streamed",

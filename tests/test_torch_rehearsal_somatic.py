@@ -71,6 +71,7 @@ def runs(tmp_path_factory):
                 setattr(mod, k, v)
         assert M.main([str(root / "port"), "--device", "cpu",
                        "--out", str(root / "port.json")]) == 0
+        port_key = M.result_key()
         sys.argv = [str(JAX_SCRIPT), str(root / "jax")]
         jax_mod.main()
     finally:
@@ -80,6 +81,7 @@ def runs(tmp_path_factory):
             setattr(M, k, v)
     return {"port": root / "port", "jax": root / "jax",
             "port_row": json.loads((root / "port.json").read_text()),
+            "port_key": port_key,
             "jax_row": json.loads((root / "jax_script" /
                                    "wgs_rehearsal.json").read_text())}
 
@@ -101,7 +103,8 @@ def test_somatic_vcf_equals_jax_script(runs):
 
 
 def test_row_carries_the_jax_script_keys(runs):
-    row, want = runs["port_row"]["mutect2"], runs["jax_row"]["mutect2"]
+    row = runs["port_row"][runs["port_key"]]
+    want = runs["jax_row"]["mutect2"]
     assert JAX_KEYS <= row.keys() and set(want) == JAX_KEYS
     for k in ("somatic_sensitivity", "extra_calls", "precision"):
         assert row[k] == want[k], k
@@ -113,6 +116,30 @@ def test_row_carries_the_jax_script_keys(runs):
         0)
     sizes = row["pairhmm_call_sizes"]
     assert sizes["pairs"] > 0 and sum(sizes["calls"].values()) > 0
+    # 20 kb BAMs are under the stream threshold: both read whole
+    assert row["input_paths"] == {"tumor": "in memory",
+                                  "normal": "in memory"}
+    assert runs["port_key"] == "mutect2@0.02mb"
+
+
+@pytest.mark.parametrize("mb,somatic,germline", [("10", 1_000, 2_000),
+                                                 ("60", 6_000, 12_000)])
+def test_m2_g_mb_scales_the_sites_as_the_jax_script(monkeypatch, mb,
+                                                    somatic, germline):
+    """``M2_G_MB`` sets the genome, and the somatic and germline sites
+    follow it as in the JAX script (6,000 and 12,000 at 60 Mb); the row's
+    key names any genome but the default."""
+    monkeypatch.setenv("M2_G_MB", mb)
+    spec = importlib.util.spec_from_file_location(
+        "falcon_genome_tpu_torch.benchmarks._m2_at_size", M.__file__)
+    port = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(port)
+    jax_mod = load_jax_script(JAX_SCRIPT, f"jax_m2_at_{mb}")
+    got = [(m.G_MB, m.G, m.N_SOMATIC, m.N_GERMLINE) for m in (port, jax_mod)]
+    assert got[0] == got[1] == (int(mb), int(mb) * 1_000_000, somatic,
+                                germline)
+    assert port.result_key() == ("mutect2" if mb == "10" else
+                                 f"mutect2@{mb}mb")
 
 
 @pytest.mark.parametrize("first", [0, 7])

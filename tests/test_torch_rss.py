@@ -17,9 +17,18 @@ CPU.
   eight runner threads, and its records equal a one-thread run's; a
   FASTA contig asked for by eight threads at once is decoded once;
 * on a kernel whose ``/proc/self/status`` lacks ``RssAnon`` and
-  ``RssFile`` the split comes from ``/proc/self/smaps``, or is None.
+  ``RssFile`` the split comes from ``/proc/self/smaps``, or is None;
+* ``rss_probe --watch -- COMMAND``: a child that touches 300 MB after its
+  first log line shows it as ``added_anon``, a grandchild's memory is in
+  the sum, the child's exit code is the probe's, and runs in turn collect
+  in one ``--out`` file;
+* ``traced_run -- MODULE``: numpy's arrays are traced and named by their
+  source line, torch's tensors show only as untraced ``RssAnon``, and the
+  module's exit code is passed through.
 """
 import json
+import os
+import sys
 import time
 
 import numpy as np
@@ -27,7 +36,8 @@ import pytest
 import torch
 
 from falcon_genome_tpu_torch import cli as tcli
-from falcon_genome_tpu_torch.benchmarks import joint_cohort, rss_probe
+from falcon_genome_tpu_torch.benchmarks import (
+    joint_cohort, rss_probe, traced_run)
 from falcon_genome_tpu_torch.benchmarks.wgs_rehearsal import Measured
 from falcon_genome_tpu_torch.config import Config, Machine
 from falcon_genome_tpu_torch.device import resolve_device
@@ -231,6 +241,7 @@ def test_rehearsal_series_per_stage(tmp_path):
     finally:
         W.G, W.N_PAIRS, W.N_SNPS = saved
     rows, snaps = (json.loads(f.read_text()) for f in (out, series))
+    rows = rows["wgs@0.01mb"]      # the rows of a genome not the default
     assert set(snaps) == {"align", "markdup"}
     for stage in snaps:
         assert snaps[stage]["samples"] and snaps[stage]["end"]["rss_gb"] > 0
@@ -314,7 +325,7 @@ def test_joint_cohort_on_cuda_opens_no_context(tmp_path, pretend_card,
     out = tmp_path / "rows.json"
     assert joint_cohort.main([str(tmp_path), "2", "--device", "cuda",
                               "--out", str(out)]) == 0
-    row = json.loads(out.read_text())["joint_cohort"]
+    row = json.loads(out.read_text())[joint_cohort.result_key(2)]
     assert row["pass"] and row["peak_device_gb"] == 0.0
     assert {"peak_rss_anon_gb", "peak_rss_file_gb"} <= row.keys()
     assert pretend_card == [] and not torch.cuda.is_initialized()
@@ -377,3 +388,134 @@ def test_fasta_contig_decoded_once_under_eight_threads(tmp_path,
     assert decoded == [5000]
     assert all(g is got[0] for g in got)
     assert np.array_equal(got[0], chrom)
+
+
+# ---- --watch: any command, sampled from outside ---------------------------
+
+# a child that logs a line (the stage has begun), then, once the probe has
+# had time to read that line, allocates and touches 300 MB of numpy and
+# holds it
+ALLOC = """
+import logging, time
+import numpy as np
+logging.basicConfig(format="%(asctime)s %(message)s")
+logging.warning("stage begins")
+time.sleep(0.5)
+a = np.ones(300 * 10**6 // 8)
+time.sleep(1.5)
+"""
+
+
+def watch(tmp_path, code: str, period: str = "0.1") -> tuple[int, dict]:
+    out = tmp_path / "watch.json"
+    rc = rss_probe.main(["--watch", "--period", period, "--out", str(out),
+                         "--", sys.executable, "-c", code])
+    return rc, json.loads(out.read_text())["runs"][-1]
+
+
+def test_watch_sees_what_the_stage_adds(tmp_path, capsys):
+    rc, doc = watch(tmp_path, ALLOC)
+    assert rc == 0 == doc["rc"]
+    assert doc["base_line"].endswith("stage begins")
+    assert doc["added_anon_gb"] >= 0.28
+    assert doc["peak_anon_gb"] == round(doc["base_anon_gb"]
+                                        + doc["added_anon_gb"], 4)
+    peak = doc["split_at_peak"]
+    assert peak["split_from"] == "status" and peak["processes"] == 1
+    assert peak["rss_gb"] >= peak["anon_gb"] + peak["file_gb"] - 1e-3
+    assert doc["peak_rss_gb"] == peak["rss_gb"] > 0.28
+    assert 1.5 <= doc["wall_s"] < 30 and doc["samples"] >= 5
+    assert [line for _, line in doc["stderr_head"]] == [doc["base_line"]]
+    assert "stage begins" in capsys.readouterr().err
+
+
+def test_watch_sums_a_grandchild(tmp_path):
+    """The child only waits for its own child, which holds the 300 MB."""
+    code = ("import subprocess, sys; "
+            f"sys.exit(subprocess.run([sys.executable, '-c', {ALLOC!r}])"
+            ".returncode)")
+    rc, doc = watch(tmp_path, code)
+    assert rc == 0
+    assert doc["peak_processes"] == 2
+    assert doc["added_anon_gb"] >= 0.28
+
+
+def test_watch_passes_the_exit_code_through(tmp_path, capsys):
+    rc, doc = watch(tmp_path, "import sys; sys.exit(3)")
+    assert rc == 3 == doc["rc"]
+    # no log line: no base, nothing said to be added
+    assert doc["base_anon_gb"] is None is doc["added_anon_gb"]
+    assert doc["peak_anon_gb"] > 0
+    rc, doc = watch(tmp_path, "import os, signal; "
+                              "os.kill(os.getpid(), signal.SIGTERM)")
+    assert doc["rc"] == -15 and rc == 128 + 15
+    runs = json.loads((tmp_path / "watch.json").read_text())["runs"]
+    assert [r["rc"] for r in runs] == [3, -15]
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["rc"] == -15 and "series" not in last
+
+
+def test_watch_splits_from_smaps_where_the_status_lacks_it(monkeypatch):
+    """A kernel without ``RssAnon`` in its status: each process's split
+    comes from its ``smaps``."""
+    real = rss_probe.proc_status
+
+    def without_split(text=None):
+        st = real(text)
+        st.pop("RssAnon", None)
+        st.pop("RssFile", None)
+        return st
+
+    want = rss_probe.tree_sample(os.getpid(), time.perf_counter())
+    monkeypatch.setattr(rss_probe, "proc_status", without_split)
+    got = rss_probe.tree_sample(os.getpid(), time.perf_counter())
+    assert got["split_from"] == "smaps" and want["split_from"] == "status"
+    assert got["anon_gb"] == pytest.approx(want["anon_gb"], abs=0.05)
+    assert got["file_gb"] == pytest.approx(want["file_gb"], abs=0.05)
+
+
+def test_watch_needs_a_command():
+    with pytest.raises(SystemExit):
+        rss_probe.main(["--watch", "--"])
+    with pytest.raises(SystemExit):
+        rss_probe.main(["--watch", "python"])
+
+
+# ---- traced_run: the Python heap of a module, by source line ---------------
+
+HOLD = """
+import sys, time
+import numpy as np
+import torch
+a = np.empty(60 * 10**6 // 8); a.fill(1.0)    # traced
+t = torch.ones(120 * 10**6 // 4)              # not traced
+time.sleep(0.6)
+sys.exit(int(sys.argv[1]))
+"""
+
+
+@pytest.mark.parametrize("code", [0, 4])
+def test_traced_run_names_numpy_and_leaves_torch_untraced(
+        tmp_path, monkeypatch, capsys, code):
+    (tmp_path / "holds_memory.py").write_text(HOLD)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(traced_run, "PERIOD", 0.05)
+    out = tmp_path / "traced.json"
+    rc = traced_run.main(["--out", str(out), "--", "holds_memory",
+                          str(code)])
+    doc = json.loads(out.read_text())
+    assert rc == code == doc["rc"]
+    assert doc["argv"] == ["holds_memory", str(code)]
+    assert doc["traced_peak_gb"] >= 0.058
+    top = doc["at_snapshot"]["top"][0]
+    assert top["line"] == "holds_memory.py:5" and top["gb"] >= 0.058
+    assert doc["untraced_peak"]["untraced_anon_gb"] >= 0.11
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == doc
+
+
+def test_traced_run_needs_a_module():
+    with pytest.raises(SystemExit):
+        traced_run.main(["--out", "x.json"])
+    with pytest.raises(SystemExit):
+        traced_run.main(["--"])
