@@ -21,12 +21,16 @@ Phases (each prints its numbers; any failure exits non-zero):
    its pointer array, and for K3 the walk per mapped lane, mean and
    longest, its round trips, its byte bound and its latency floor),
    PairHMM K4 (scalar
-   transitions) and K5 (per-base transition planes) within 1e-4 log10
-   with the same -inf lanes (and how many pairs are not bit-equal), also
+   transitions) and K5 (per-base transition planes) bit-equal with the
+   same -inf lanes, also
    on quality-0 rescue pairs whose mass passes through float32's
    subnormal range, in small batches at the other row counts and the
    sweep's edges, and on pairs rescaled at diagonal 64; the kernels'
-   phred table bit-equal to ``torch.pow``; median times of both;
+   phred table on the card bit-equal to the port's table (the
+   reference's powf); K4 and K5 on the 128 seeded pairs of
+   ``tests/data/pairhmm_reference_bits.npz`` bit-equal to the reference's
+   ``_pairhmm_jax`` bits stored there (45/45/10 and BI/BD-like planes);
+   median times of both;
 4. ``germline`` end to end through the CLI (``--device cuda``) on a
    simulated 1 Mb contig at 30x (150 bp pairs), with per-stage wall time,
    reads/s, kernel launch counts (each must be > 0) and call accuracy
@@ -66,7 +70,7 @@ Phases (each prints its numbers; any failure exits non-zero):
    CLI on the card, with the wall of each step, the K2/K3/K4 launches of
    ``mutect2`` (each > 0, no other kernel), every Smith-Waterman (R, W)
    and PairHMM (R, H) bucket it launched, and K2/K3 (bit-equal) and K4
-   (1e-4, the same -inf lanes) held against their plain versions at each
+   (bit-equal, the same -inf lanes) held against their plain versions at each
    of them on that run's inputs, with kernel, plain and bound times;
    somatic SNV sensitivity and precision >= 0.9 and no germline site
    with ``FILTER=PASS``; ``mutect2`` over six 301 bp windows of the same
@@ -498,8 +502,9 @@ def early_rescale_lanes(R, H):
 
 def hold_pairhmm(torch, name: str, got, want) -> tuple[float, int]:
     """A PairHMM kernel's result against the plain version's: the same
-    -inf lanes and within 1e-4 log10 elsewhere.  Returns the largest
-    difference and the number of finite pairs that are not bit-equal."""
+    -inf lanes and the same bits elsewhere.  Returns the largest
+    difference and the number of finite pairs that are not bit-equal
+    (both 0, or the check fails)."""
     torch.cuda.synchronize()
     fin = torch.isfinite(want)
     check(torch.equal(fin, torch.isfinite(got)),
@@ -507,8 +512,10 @@ def hold_pairhmm(torch, name: str, got, want) -> tuple[float, int]:
     if not bool(fin.any()):
         return 0.0, 0
     err = float((got[fin] - want[fin]).abs().max())
-    check(err <= 1e-4, f"{name} differs from the plain version by {err}")
-    return err, int((got[fin] != want[fin]).sum())
+    n = int((got[fin].view(torch.int32) != want[fin].view(torch.int32)).sum())
+    check(n == 0, f"{name}: {n} finite pairs are not bit-equal to the plain "
+          f"version (largest difference {err})")
+    return err, n
 
 
 def pairhmm_edges(torch, P, to) -> float:
@@ -547,17 +554,48 @@ def pairhmm_edges(torch, P, to) -> float:
 
 
 def prob_table_check(torch, P, quals) -> None:
-    """The kernels' 256-entry phred table against ``torch.pow`` on the
-    card: bit-equal for every phred, and through a plane."""
+    """The kernels' 256-entry phred table on the card against the port's
+    table (the reference's powf bits, which the CPU tests hold to the
+    reference): bit-equal for every phred, and through a plane."""
     dev = quals.device
     q = torch.arange(256, dtype=torch.uint8, device=dev)
     table = P._prob_table(dev)
     plane = torch.cat([quals.flatten(), q])
-    check(torch.equal(table, P._phred_to_prob(q))
+    check(torch.equal(table.cpu(), P._prob_table(torch.device("cpu")))
+          and torch.equal(table, P._phred_to_prob(q))
           and torch.equal(table[plane.long()], P._phred_to_prob(plane)),
-          "the phred table differs from torch.pow on the card")
-    say(f"phred table: table[q] == _phred_to_prob(q) bit for bit for q = "
-        f"0..255 and through a plane of {plane.numel()} phreds")
+          "the phred table on the card differs from the port's table")
+    say(f"phred table: on the card equal to the port's table, and "
+        f"table[q] == _phred_to_prob(q) bit for bit for q = 0..255 and "
+        f"through a plane of {plane.numel()} phreds")
+
+
+def reference_bits_check(torch, P, to) -> None:
+    """K4 (45/45/10) and K5 (the stored planes) on the card on the 128
+    seeded pairs of ``tests/data/pairhmm_reference_bits.npz``, against the
+    reference's ``_pairhmm_jax`` bits stored with them (made on the CPU by
+    the JAX package; ``tests/test_torch_pairhmm_fixture.py`` regenerates
+    them): the same -inf lanes and the same bits on every finite lane."""
+    f = np.load(REPO / "tests" / "data" / "pairhmm_reference_bits.npz")
+    reads, q, rl, haps, hl, ins, dele, gcp = to(
+        *(f[k] for k in ("reads", "q", "rl", "haps", "hl", "ins", "dele",
+                         "gcp")))
+    for name, got, want in (
+            ("K4", P.pairhmm_sc(reads, q, rl, haps, hl, 45, 45, 10),
+             f["logp_sc"]),
+            ("K5", P.pairhmm_pb(reads, q, ins, dele, gcp, rl, haps, hl),
+             f["logp_pb"])):
+        got = got.cpu().numpy()
+        fin = np.isfinite(want)
+        check(np.array_equal(np.isfinite(got), fin)
+              and np.array_equal(np.isneginf(got), np.isneginf(want)),
+              f"{name}: -inf lanes differ from the reference's fixture")
+        n = int((got[fin].view(np.uint32) != want[fin].view(np.uint32)).sum())
+        check(n == 0, f"{name}: {n} of {int(fin.sum())} finite pairs differ "
+              f"from the reference's bits in the fixture")
+        say(f"{name} on the fixture's {len(want)} pairs (160/384): bit-equal "
+            f"to the reference's _pairhmm_jax on all {int(fin.sum())} finite "
+            f"pairs, -inf lanes equal ({int((~fin).sum())})")
 
 
 def phase_kernels(torch, S, P, results) -> None:
@@ -696,6 +734,7 @@ def phase_kernels(torch, S, P, results) -> None:
         haps[b, hl[b]:] = 4
     args = to(reads, quals, rlen, haps, hl)
     prob_table_check(torch, P, args[1])
+    reference_bits_check(torch, P, to)
     kl = P.pairhmm_sc(*args, 45, 45, 10)
     # the golden PairHMM model's pairs (phase 10)
     golden["hmm"] = dict(
@@ -791,7 +830,7 @@ def rescale_pairs(rng, n, R, H):
 def crafted_pairs(torch, P, rng, R, H, to) -> float:
     """K4 (45/45/10) and K5 (BI/BD-like planes) on the rescue pairs
     against their plain versions, which flush every operation as the
-    reference does: within 1e-4 log10, the same -inf lanes."""
+    reference does: bit-equal, the same -inf lanes."""
     reads, q, rl, haps, hl = rescale_pairs(rng, 64, R, H)
     a = to(reads, q, rl, haps, hl)
     pl = to(*indel_planes(rng, rl, R))
@@ -1482,8 +1521,8 @@ class ShapeRecorder:
 def hold_buckets(torch, S, P, rec: ShapeRecorder, label: str) -> list[dict]:
     """K2/K3 and K4 against their plain versions at every bucket the
     recorded run launched, on that run's own inputs: SW bit-equal
-    (scores, best positions, op streams, coordinates), PairHMM within
-    1e-4 log10 with the same -inf lanes.  Times and bounds as phase 3."""
+    (scores, best positions, op streams, coordinates), PairHMM bit-equal
+    with the same -inf lanes.  Times and bounds as phase 3."""
     rows = []
     for (rb, wb), (read, rl, win, wl, p, steps) in sorted(rec.sw.items()):
         B, R, W = read.shape[0], read.shape[1], win.shape[1]

@@ -267,6 +267,18 @@ inline T __ldg(const T* p) {
 
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  memcpy(&u, &x, sizeof u);
+  return u;
+}
+
+inline float __uint_as_float(unsigned u) {
+  float x;
+  memcpy(&x, &u, sizeof x);
+  return x;
+}
+
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 
 inline void __syncwarp(unsigned = 0xffffffffu) { fgt_emu::warp_barrier(); }

@@ -24,14 +24,26 @@
 //   the current and previous diagonal is in (0, 2^-60) is rescaled by
 //   2^100 (state, boundary and acc), the shift kept in log10; a NaN in
 //   that state (0 * inf once the boundary has overflowed) stops it, as
-//   the reference's NaN-propagating max does;
-//   float32 arithmetic as the reference's CPU backend runs it: every
-//   result subnormal-flushed (this source is built with -ftz=true), and
-//   a * b + c * d as fma(a, b, c * d) with no other contraction (built
-//   with --fmad=false; the FMAs below are explicit), and the mismatch
-//   prior err / 3 as err * float(1/3).
-// The kernel returns acc and the shift; the wrapper forms
-// log10(acc) - shift - 120 log10(2), or -inf where acc is 0.
+//   the reference's NaN-propagating max does; the reference tests all
+//   R + H diagonals, so a pair whose row 0 can fall below 2^-60 sweeps on
+//   past rlen + hlen, without sums, for the test alone (a quality-0 first
+//   base; see `late` in the kernel);
+//   float32 arithmetic as XLA's CPU backend runs the reference (read off
+//   the object code it emits, where LLVM forms the fused multiply-adds):
+//   every result subnormal-flushed (this source is built with -ftz=true),
+//   each a * b + c * d above as fma(a, b, c * d) with no other
+//   contraction (built with --fmad=false; the FMAs below are explicit),
+//   and the mismatch prior err / 3 as err * float(1/3);
+//   the phred -> probability table is the reference's powf(10, -q * 0.1f);
+//   the likelihood sum adds fma(X, prior, I) from two rows a thread on
+//   (33 read rows and more, where XLA splits the row reduction and leaves
+//   the prior's product unrounded), X being M before its prior, and
+//   prior * X + I up to 32 rows;
+//   log10(acc) - shift - 120 log10(2) is XLA's float32 log (its Cephes
+//   polynomial, FMAs where XLA's code has them) times float(log10(e))
+//   less the shift in one FMA, then plus float(-120 log10(2)); -inf where
+//   acc is 0.
+// The kernel writes that log10 likelihood per pair.
 //
 // What bounds it on the H100: a serial f32 recurrence over rlen + hlen
 // anti-diagonals per pair, 8 floating-point instructions per cell and
@@ -85,9 +97,9 @@
 //   * rows past R (R not 32 NR) are cut by a select, in an instantiation
 //     of its own (kRagged) that the full buckets do not pay for.
 //   * phreds arrive as the uint8 they are and turn into probabilities
-//     through a 256-entry float32 table that the wrapper fills once per
-//     device with the plain version's own torch.pow, so no float32 planes
-//     are made, written and read back around the launch.
+//     through the 256-entry float32 table that the plain version indexes
+//     (the wrapper puts it on the device once), so no float32 planes are
+//     made, written and read back around the launch.
 // The per-thread state is kept in plain arrays passed by reference: the
 // same state gathered into one struct went to local memory and cost half
 // of the gain.  The rescale test is a warp max-reduction with shuffles,
@@ -188,14 +200,16 @@ __device__ __forceinline__ void sweep_step(
     const float p_cont = kPerBase ? c.tc[k] : tr.p_cont;
     const float a_mm = kPerBase ? c.tmm[k] : tr.a_mm;
     const float a_im = kPerBase ? c.tim[k] : tr.a_im;
-    float Mn = prior * __fmaf_rn(m2u, a_mm, (i2u + d2u) * a_im);
+    const float Xm = __fmaf_rn(m2u, a_mm, (i2u + d2u) * a_im);
+    float Mn = prior * Xm;
     float In = __fmaf_rn(m1u, p_ins, i1u * p_cont);
     float Dn = __fmaf_rn(X.M[k], p_del, X.D[k] * p_cont);
     if (kRagged && !((c.inside >> k) & 1u)) Mn = In = Dn = 0.0f;
     Y.M[k] = Mn;
     Y.I[k] = In;
     Y.D[k] = Dn;
-    if (kSum) acc[k] += Mn + In;
+    // a row past R is never the pair's last row: its sum is dropped
+    if (kSum) acc[k] += NR > 1 ? __fmaf_rn(Xm, prior, In) : Mn + In;
   }
 }
 
@@ -252,6 +266,38 @@ __device__ __forceinline__ void rescale(Diag<NR>& A, Diag<NR>& B, Above& u,
   }
 }
 
+// ln(x) for a positive normal x (or +inf) as XLA's CPU backend computes it:
+// the Cephes polynomial of its code generator, operation for operation,
+// with an FMA where its object code has one
+__device__ __forceinline__ float xla_log(float x) {
+  const unsigned bits = __float_as_uint(x);
+  float e = (float)((int)(bits >> 23) - 127) + 1.0f;
+  const float m = __uint_as_float((bits & 0x007fffffu) | 0x3f000000u);
+  const bool small = m < 0.707106769f;
+  const float t = (m - 1.0f) + (small ? m : 0.0f);
+  e = e - (small ? 1.0f : 0.0f);
+  const float z = t * t;
+  const float t3 = z * t;
+  const float a = __fmaf_rn(__fmaf_rn(t, 7.0376836e-2f, -1.1514610e-1f), t,
+                            1.16769984e-1f);
+  const float b = __fmaf_rn(__fmaf_rn(t, -1.2420141e-1f, 1.4249323e-1f), t,
+                            -1.6668057e-1f);
+  const float c = __fmaf_rn(__fmaf_rn(t, 2.0000714e-1f, -2.4999994e-1f), t,
+                            3.3333331e-1f);
+  const float y = __fmaf_rn(__fmaf_rn(__fmaf_rn(a, t3, b), t3, c), t3,
+                            e * -2.12194440e-4f);
+  const float r = __fmaf_rn(e, 0.693359375f, __fmaf_rn(-0.5f, z, t) + y);
+  return x == __uint_as_float(0x7f800000u) ? x : r;
+}
+
+// log10 likelihood from the scaled sum and its log10 shift, as the
+// reference's epilogue computes it; -inf where the sum is 0
+__device__ __forceinline__ float finish(float acc, float sh) {
+  if (!(acc > 0.0f)) return -__uint_as_float(0x7f800000u);
+  const float r = xla_log(fmaxf(acc, 0x1p-126f));
+  return __fmaf_rn(r, 0.434294492f, -sh) + -36.1236f;
+}
+
 template <int NR, bool kPerBase, bool kRagged>
 __global__ void __launch_bounds__(kWarps * 32)
 pairhmm_kernel(const uint8_t* __restrict__ read,
@@ -259,8 +305,7 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
                const float* __restrict__ prob,
                const int* __restrict__ rlen, const uint8_t* __restrict__ hap,
                const int* __restrict__ hlen, int B, int R, int H, Trans tr,
-               float* __restrict__ acc_out,
-               float* __restrict__ shift_out) {
+               float* __restrict__ logp_out) {
   FGT_DYNAMIC_SMEM(uint8_t, hs_all);
   constexpr int kPad = 32 * NR;  // bytes in front of the haplotype
   const int lane = threadIdx.x & 31;
@@ -321,6 +366,16 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   Window<NR> win = 0u;
   const int dmax = min(rl + hl, R + H);
   const bool has_row = rl >= 1 && rl <= R;
+  // a pair whose row 0 can fall below the rescale threshold sweeps on to
+  // R + H, as the reference does: a rescale there still scales its sum
+  // (row 0's M past the pair's end is prior * (bound * a_im), the largest
+  // cell while that is at least the threshold)
+  const float a_im0 = kPerBase ? c.tim[0] : tr.a_im;
+  const bool late =
+      __shfl_sync(kFull,
+                  (int)(has_row && !(fminf(c.pm[0], c.pmm[0]) *
+                                         (bound * a_im0) >= 0x1p-60f)),
+                  0) != 0;
   // up to diagonal rlen, row rlen - 1 is left of the matrix and its sum
   // stays +0: those trips leave the sums out
   const int dquiet = has_row ? min(rl, dmax) : dmax;
@@ -349,6 +404,16 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   if (d <= dmax)  // an odd rlen + hlen ends on a first half
     sweep_step<NR, kPerBase, kRagged, true>(c, tr, lane0, bound, hp[d], win,
                                             S1, S0, u1, u0, acc);
+  // past the pair's end: no sums, the rescale test on every multiple of 64
+  for (int e = late ? dmax + 1 : R + H + 1; e <= R + H; ++e) {
+    if (e & 1)
+      sweep_step<NR, kPerBase, kRagged, false>(c, tr, lane0, bound, hp[e],
+                                               win, S1, S0, u1, u0, acc);
+    else
+      sweep_step<NR, kPerBase, kRagged, false>(c, tr, lane0, bound, hp[e],
+                                               win, S0, S1, u0, u1, acc);
+    if (e % kRescaleEvery == 0) rescale(S1, S0, u0, bound, acc, sh);
+  }
   // the pair's sum is row rlen - 1's
   const int last = has_row ? rl - 1 : 0;
   float mine = 0.0f;
@@ -356,10 +421,7 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   for (int k = 0; k < NR; ++k)
     if (k == last % NR) mine = acc[k];
   mine = __shfl_sync(kFull, mine, last / NR);
-  if (lane0) {
-    acc_out[b] = has_row ? mine : 0.0f;
-    shift_out[b] = sh;
-  }
+  if (lane0) logp_out[b] = finish(has_row ? mine : 0.0f, sh);
 }
 
 // The arguments of one call, as the C entry points receive them.
@@ -372,8 +434,7 @@ struct Call {
   const void* hlen;
   int B, R, H;
   Trans tr;
-  void* acc_out;
-  void* shift_out;
+  void* logp_out;
   void* stream;
 };
 
@@ -392,7 +453,7 @@ int launch_pairhmm(const Call& a) {
                (const uint8_t*)a.read, (const uint8_t*)a.base_q,
                (const float*)a.prob, (const int*)a.rlen,
                (const uint8_t*)a.hap, (const int*)a.hlen, a.B, a.R, a.H,
-               a.tr, (float*)a.acc_out, (float*)a.shift_out);
+               a.tr, (float*)a.logp_out);
   }
   return (int)cudaGetLastError();
 }
@@ -431,12 +492,12 @@ extern "C" int fgt_pairhmm(const void* read, const void* base_q,
                            const void* table, const void* rlen,
                            const void* hap, const void* hlen, int B, int R,
                            int H, float p_ins, float p_del, float p_cont,
-                           float a_mm, float a_im, void* acc_out,
-                           void* shift_out, void* stream) {
+                           float a_mm, float a_im, void* logp_out,
+                           void* stream) {
   const Trans tr{p_ins, p_del, p_cont, a_mm, a_im, nullptr, nullptr,
                  nullptr};
   return dispatch_rows<false>(Call{read, base_q, table, rlen, hap, hlen, B,
-                                   R, H, tr, acc_out, shift_out, stream});
+                                   R, H, tr, logp_out, stream});
 }
 
 extern "C" int fgt_pairhmm_pb(const void* read, const void* base_q,
@@ -444,10 +505,9 @@ extern "C" int fgt_pairhmm_pb(const void* read, const void* base_q,
                               const void* gcp, const void* table,
                               const void* rlen, const void* hap,
                               const void* hlen, int B, int R, int H,
-                              void* acc_out, void* shift_out,
-                              void* stream) {
+                              void* logp_out, void* stream) {
   const Trans tr{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, (const uint8_t*)ins_q,
                  (const uint8_t*)del_q, (const uint8_t*)gcp};
   return dispatch_rows<true>(Call{read, base_q, table, rlen, hap, hlen, B, R,
-                                  H, tr, acc_out, shift_out, stream});
+                                  H, tr, logp_out, stream});
 }

@@ -52,13 +52,13 @@ SIGNATURES = {
     # coords_out, stream
     "fgt_sw_traceback": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # read, base_q, table, rlen, hap, hlen, B, R, H, p_ins, p_del, p_cont,
-    # a_mm, a_im, acc_out, shift_out, stream
+    # a_mm, a_im, logp_out, stream
     "fgt_pairhmm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
-                    _P, _P, _P),
+                    _P, _P),
     # read, base_q, ins_q, del_q, gcp, table, rlen, hap, hlen, B, R, H,
-    # acc_out, shift_out, stream
+    # logp_out, stream
     "fgt_pairhmm_pb": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
-                       _P, _P),
+                       _P),
     # x, R, B, trips, a, b, zero, out, stream
     "fgt_fma_ceiling": (_P, _I, _I, _I, _F, _F, _F, _P, _P),
     # read, win, rlen, wlen, B, R, W, match, mismatch, go, ge, flags,

@@ -20,6 +20,9 @@ from falcon_genome_tpu.utils.compare import compare_bam, compare_vcf
 from falcon_genome_tpu_torch import cli, convert, stages as tstages
 from falcon_genome_tpu_torch.device import DeviceUnavailable, resolve_device
 
+sys.path.insert(0, str(Path(__file__).parent))
+from torch_parity import assert_vcf_records_equal  # noqa: E402
+
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
@@ -95,6 +98,8 @@ def test_germline_matches_reference(world, conf):
     assert d.equivalent and d.matching > 1000
     c = compare_vcf(str(rv), str(pv))
     assert c.equivalent and c.concordant == 2
+    # and every field of every record, PL and GQ included
+    assert assert_vcf_records_equal(pv, rv) == 2
     # the port's own copy of the gates gives the same verdicts
     from falcon_genome_tpu_torch.utils import compare as tcompare
     td = tcompare.compare_bam(str(rw / "dedup.bam"), str(pw / "dedup.bam"),

@@ -1,11 +1,17 @@
 """PairHMM port vs the JAX reference and the float64 golden model.
 
-Tolerances: within 1e-4 log10 of the reference's portable wavefront
-``_pairhmm_jax`` (the two sum the same float32 terms in the same order;
-what differs is rounding in the phred conversion and fused multiply-adds),
-within 2e-3 of the float64 model (the reference's own kernel tolerance,
-tests/test_pairhmm.py), and the same -inf lanes.  The CUDA kernel is
-held to the plain version in ``test_torch_kernels.py``.
+Tolerances: the same float32 bits as the reference's portable wavefront
+``_pairhmm_jax`` on every finite lane and the same -inf lanes, as the
+reference's entry points run it (lanes padded to a multiple of 128:
+``torch_parity.jax_pairhmm``), and through those entry points
+(``pairhmm_logp``, ``pairhmm_logp_pairs``).  The port gets there with the
+reference's own phred table (XLA's powf of -q * 0.1f, 50 entries away
+from powf(10, -q / 10)), the fused multiply-adds XLA's object code has
+(each rounded once; the row sum fused past the prior from 33 read rows
+on), and XLA's float32 log in the epilogue; within 2e-3 of the float64
+model (the reference's own kernel tolerance, tests/test_pairhmm.py).
+The CUDA kernels are held to the plain version in
+``test_torch_kernels.py`` and ``test_torch_pairhmm_emulated.py``.
 """
 import sys
 from pathlib import Path
@@ -14,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from falcon_genome_tpu.ops import pairhmm as J
@@ -25,6 +32,7 @@ sys.path.insert(0, str(Path(__file__).parent))
 from test_torch_kernels import (  # noqa: E402
     DEL, EARLY_DEL, EARLY_GCP, EARLY_INS, GCP, INS, early_rescale_pairs,
     indel_planes, make_pairs, pad_row_pairs, phred_planes, rescale_pairs)
+from torch_parity import assert_logp_bits, jax_pairhmm  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -32,19 +40,29 @@ CPU = torch.device("cpu")
 
 
 def _jax_logp(reads, q, rl, haps, hl, R, H):
-    return np.asarray(J._pairhmm_jax(
-        jnp.asarray(reads.T), jnp.asarray(q.T), jnp.uint8(INS),
-        jnp.uint8(DEL), jnp.uint8(GCP), jnp.asarray(rl[None]),
-        jnp.asarray(hl[None]), jnp.asarray(haps.T), R=R, H=H))
+    return jax_pairhmm(reads.T, q.T, INS, DEL, GCP, rl[None], hl[None],
+                       haps.T, R=R, H=H)
+
+
+def _time_major(x):
+    return x.T if np.ndim(x) else x
+
+
+def _plain(reads, q, trans, rl, haps, hl, R, H):
+    """The plain version on lane-major host arrays; ``trans`` holds
+    scalar phreds or (B, R) planes."""
+    return T._pairhmm_plain(
+        torch.from_numpy(reads.T), torch.from_numpy(q.T),
+        *(torch.from_numpy(_time_major(x)) if np.ndim(x) else x
+          for x in trans),
+        torch.from_numpy(rl[None]), torch.from_numpy(hl[None]),
+        torch.from_numpy(haps.T), R=R, H=H).numpy()
 
 
 def _check(got, want_jax, want_f64, need_inf=False):
-    fin = np.isfinite(want_jax)
-    np.testing.assert_array_equal(np.isfinite(got), fin)
-    assert fin.sum() >= len(got) // 2
+    fin = assert_logp_bits(got, want_jax, min_finite=len(got) // 2)
     if need_inf:
         assert (~fin).sum() >= 1
-    np.testing.assert_allclose(got[fin], want_jax[fin], rtol=0, atol=1e-4)
     f = fin & np.isfinite(want_f64)
     np.testing.assert_allclose(got[f], want_f64[f], rtol=0, atol=2e-3)
 
@@ -68,6 +86,23 @@ def test_plain_wavefront_matches_reference():
            _f64(reads, q, rl, haps, hl), need_inf=True)
 
 
+def test_pairhmm_1024_pairs_bit_equal_to_reference():
+    """HaplotypeCaller's 160/384 bucket at 1024 pairs, 45/45/10: before
+    the port took the reference's phred table, fused row sum and log,
+    275 of the 1020 finite pairs differed from it in their bits."""
+    R, H = 160, 384
+    reads, q, rl, haps, hl = make_pairs(7, 1024, R, H)
+    jparams = J.PairHMMParams(max_read_len=R, max_hap_len=H, backend="jax")
+    got = T.pairhmm_logp(reads, q, INS, DEL, GCP, rl, haps, hl,
+                         params=convert.pairhmm_params(jparams, CPU))
+    fin = assert_logp_bits(got, _jax_logp(reads, q, rl, haps, hl, R, H),
+                           min_finite=1020)
+    assert (~fin).sum() == 4
+    assert_logp_bits(got, np.asarray(J.pairhmm_logp(
+        reads, q, INS, DEL, GCP, rl, haps, hl, params=jparams)),
+        min_finite=1020)
+
+
 def test_plain_wavefront_rescales_as_reference(monkeypatch):
     R, H = 160, 384
     reads, q, rl, haps, hl = rescale_pairs(3, 4, R, H)
@@ -81,8 +116,7 @@ def test_plain_wavefront_rescales_as_reference(monkeypatch):
     got = plain()
     want = _jax_logp(reads, q, rl, haps, hl, R, H)
     np.testing.assert_array_equal(np.isfinite(got), [True] * 3 + [False])
-    np.testing.assert_array_equal(np.isfinite(want), np.isfinite(got))
-    np.testing.assert_allclose(got[:3], want[:3], rtol=0, atol=1e-4)
+    assert_logp_bits(got, want, min_finite=3)
     # without the rescale every pair floors to -inf
     monkeypatch.setattr(T, "RESCALE_THRESH", 0.0)
     assert not np.isfinite(plain()).any()
@@ -94,30 +128,15 @@ def test_plain_flushes_every_operation_as_reference(trans):
     range before the rescale.  The reference's CPU backend flushes every
     operation's result (and fuses multiply-adds); a port that flushed
     only each cell and the sum differed by up to 1e-3 log10 there with
-    BI/BD-like planes.  Held to the reference's tolerance between its
-    dispatch paths (tests/test_pairhmm.py), with the same -inf lanes."""
+    BI/BD-like planes.  Bit-equal, with the same -inf lanes."""
     R, H = 160, 384
     reads, q, rl, haps, hl = rescale_pairs(3, 16, R, H)
     tr = (INS, DEL, GCP) if trans == "45/45/10" else indel_planes(12, rl, R)
-
-    def time_major(x):
-        return x.T if np.ndim(x) else x
-
-    got = T._pairhmm_plain(
-        torch.from_numpy(reads.T), torch.from_numpy(q.T),
-        *(torch.from_numpy(time_major(x)) if np.ndim(x) else x for x in tr),
-        torch.from_numpy(rl[None]), torch.from_numpy(hl[None]),
-        torch.from_numpy(haps.T), R=R, H=H).numpy()
-    want = np.asarray(J._pairhmm_jax(
-        jnp.asarray(reads.T), jnp.asarray(q.T),
-        *(jnp.asarray(time_major(x)) if np.ndim(x) else jnp.uint8(x)
-          for x in tr),
-        jnp.asarray(rl[None]), jnp.asarray(hl[None]), jnp.asarray(haps.T),
-        R=R, H=H))
-    fin = np.isfinite(want)
-    np.testing.assert_array_equal(np.isfinite(got), fin)
+    got = _plain(reads, q, tr, rl, haps, hl, R, H)
+    want = jax_pairhmm(reads.T, q.T, *(_time_major(x) for x in tr),
+                       rl[None], hl[None], haps.T, R=R, H=H)
+    fin = assert_logp_bits(got, want)
     assert fin.sum() == len(want) - 1      # the last pair is subnormal
-    np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-4)
 
 
 def test_pairhmm_logp_matches_reference():
@@ -135,9 +154,7 @@ def test_pairhmm_logp_matches_reference():
                                      params=jparams))
     got = T.pairhmm_logp(reads, q, q, DEL, GCP, rl, haps, hl,
                          params=convert.pairhmm_params(jparams, CPU))
-    fin = np.isfinite(want)
-    np.testing.assert_array_equal(np.isfinite(got), fin)
-    np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-4)
+    assert_logp_bits(got, want)
 
 
 def test_pairhmm_logp_pairs_matches_reference():
@@ -168,10 +185,7 @@ def test_pairhmm_logp_pairs_matches_reference():
 # ---- per-base transition planes: kernel K5's path -------------------------
 
 def _check_planes(got, want):
-    fin = np.isfinite(want)
-    np.testing.assert_array_equal(np.isfinite(got), fin)
-    assert fin.any()
-    np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-4)
+    assert_logp_bits(got, want)
 
 
 @pytest.mark.parametrize("backend,B", [("jax", 20), ("interpret", 2)])
@@ -258,10 +272,8 @@ def test_plain_pad_rows_rescale_as_reference(monkeypatch):
             reads, q, ins, dele, gcp, rl, haps, hl))).numpy()
 
     got = port()
-    want = np.asarray(J._pairhmm_jax(
-        *(jnp.asarray(x.T) for x in (reads, q, ins, dele, gcp)),
-        jnp.asarray(rl[None]), jnp.asarray(hl[None]), jnp.asarray(haps.T),
-        R=R, H=H))
+    want = jax_pairhmm(*(x.T for x in (reads, q, ins, dele, gcp)), rl[None],
+                       hl[None], haps.T, R=R, H=H)
     _check_planes(got, want)
     assert np.isfinite(got).all()
     gold = pairhmm_logp_ref(reads, q, ins, dele, gcp, rl, haps, hl)
@@ -271,9 +283,31 @@ def test_plain_pad_rows_rescale_as_reference(monkeypatch):
     assert not np.isfinite(port()).any()
 
 
+@pytest.mark.parametrize("R,H", [(64, 128), (96, 128)])
+def test_plain_rescales_past_the_pairs_end_as_reference(R, H):
+    """Quality-0 reads end before the reference's sweep of R + H
+    diagonals does, and their state is rescaled on a multiple of 64 past
+    rlen + hlen: the reference scales their sum then too.  The plain
+    version sweeps on for such pairs alone (a batch of nothing else),
+    bit-equal to it, K5's pad-row pairs and K4's rescue pairs."""
+    reads, q, ins, dele, gcp, rl, haps, hl = pad_row_pairs(9, 64, R, H)
+    got = _plain(reads, q, (ins, dele, gcp), rl, haps, hl, R, H)
+    want = jax_pairhmm(*(x.T for x in (reads, q, ins, dele, gcp)),
+                       rl[None], hl[None], haps.T, R=R, H=H)
+    assert_logp_bits(got, want, min_finite=64)
+    assert (rl + hl).max() <= R + H - 64       # a multiple of 64 past all
+    reads, q, rl, haps, hl = rescale_pairs(3, 16, R, H)
+    got = _plain(reads, q, (INS, DEL, GCP), rl, haps, hl, R, H)
+    assert_logp_bits(got, _jax_logp(reads, q, rl, haps, hl, R, H))
+    p0 = T._phred_to_prob(torch.from_numpy(q[:, :1].T.copy()))
+    prior = torch.minimum(1.0 - p0, p0 * torch.tensor(1.0 / 3.0))
+    bound = 2.0 ** 120 / torch.from_numpy(hl[None].astype(np.float32))
+    assert T._late_rescale(prior, bound, 1.0 - T._phred_to_prob(GCP)).all()
+
+
 def test_early_rescale_pairs_need_the_rescale(monkeypatch):
-    """The card tests' diagonal-64 pairs on the plain version: within
-    1e-4 of ``_pairhmm_jax`` with 45/0/13 as scalars and as planes, all
+    """The card tests' diagonal-64 pairs on the plain version: bit-equal
+    to ``_pairhmm_jax`` with 45/0/13 as scalars and as planes, all
     finite, and (but for the first, whose sweep ends at diagonal 64) -inf
     once the rescale is switched off."""
     R, H = 96, 128
@@ -290,17 +324,103 @@ def test_early_rescale_pairs_need_the_rescale(monkeypatch):
     got_sc, got_pb = port()
     for got, trans in ((got_sc, (EARLY_INS, EARLY_DEL, EARLY_GCP)),
                        (got_pb, planes)):
-        tr = [jnp.asarray(x.T) if isinstance(x, np.ndarray) else x
-              for x in trans]
-        want = np.asarray(J._pairhmm_jax(
-            jnp.asarray(reads.T), jnp.asarray(q.T), *tr,
-            jnp.asarray(rl[None]), jnp.asarray(hl[None]),
-            jnp.asarray(haps.T), R=R, H=H))
+        want = jax_pairhmm(reads.T, q.T, *(_time_major(x) for x in trans),
+                           rl[None], hl[None], haps.T, R=R, H=H)
         assert np.isfinite(got).all()
         _check_planes(got, want)
     monkeypatch.setattr(T, "RESCALE_THRESH", 0.0)
     for got in port():
         assert np.isfinite(got[0]) and not np.isfinite(got[1:]).any()
+
+
+def test_prob_table_equals_reference():
+    """All 256 entries bit for bit against the reference's
+    ``_phred_to_prob`` as its compiled functions run it (XLA's powf of
+    -q * 0.1f)."""
+    q = np.arange(256, dtype=np.uint8)
+    want = np.asarray(jax.jit(J._phred_to_prob)(jnp.asarray(q)))
+    got = T._prob_table(CPU).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def _round_once(a, b, c):
+    """float32(a * b + c) rounded once, from the exact rational value."""
+    from fractions import Fraction
+    v = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    d = float(v)                                # the nearest double
+    if Fraction(d) != v:                        # to odd, then to float32
+        bits = np.array(d).view(np.int64)
+        if bits % 2 == 0:
+            up = (Fraction(d) < v) == (d > 0)
+            d = float((bits + (1 if up else -1)).view(np.float64))
+    return np.float32(d)
+
+
+def test_fma_rounds_once():
+    """``_fma`` is exactly rounded where a float64 sum rounded again to
+    float32 is not: two sums whose float64 rounding lands on a float32
+    tie (1 + 2^-24 + 2^-60 and 1 + 3 2^-24 - 6145 2^-71), and 10,000
+    random ones."""
+    f32 = np.float32
+    a = f32([2.0 ** -24 * (1 + 2.0 ** -12),
+             2.0 ** -24 * (1 + 2049 * 2.0 ** -23)])
+    b = f32([1 - 4095 * 2.0 ** -24, 1 - 4097 * 2.0 ** -24])
+    c = f32([1.0, 1 + 2.0 ** -23])
+    got = T._fma(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    np.testing.assert_array_equal(got, f32([1 + 2.0 ** -23, 1 + 2.0 ** -23]))
+    twice = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert (twice != got).all()                 # a double rounding misses
+    rng = np.random.default_rng(41)
+    x = [(rng.standard_normal(10000) * 2.0 ** rng.integers(-30, 30, 10000)
+          ).astype(np.float32) for _ in range(3)]
+    got = T._fma(*(torch.from_numpy(v) for v in x)).numpy()
+    want = np.array([_round_once(*t) for t in zip(*x)], np.float32)
+    want[np.abs(want) < T.FLT_MIN] = 0.0
+    np.testing.assert_array_equal(got, want)
+
+
+def _finish_inputs():
+    """262,144 (acc, shift) pairs: every power of two in the normal range,
+    4,000 values around 1, 1,000 just above the smallest normal, the
+    largest finite, 0, +inf and NaN, the rest uniform over the bits of
+    positive normal float32; shifts 0 and multiples of 100 log10(2)."""
+    rng = np.random.default_rng(31)
+    n = 1 << 18
+    acc = rng.integers(0x00800000, 0x7f800000, n,
+                       dtype=np.uint32).view(np.float32)
+    acc[:254] = np.ldexp(np.float32(1), np.arange(-126, 128))
+    eps = np.finfo(np.float32).eps
+    acc[256:4256] = np.float32(1) + np.arange(-2000, 2000) * (eps / 2)
+    tiny = np.finfo(np.float32).tiny
+    acc[4256:5256] = tiny * (1 + np.arange(1000) * eps)
+    acc[5256:5261] = [0, np.finfo(np.float32).max, np.inf, np.nan, -1]
+    sh = np.zeros(n, np.float32)
+    k = rng.integers(1, 8, n // 2)
+    sh[n // 2:] = (k * np.float32(T.RESCALE_SHIFT_LOG10)).astype(np.float32)
+    return acc, sh
+
+
+def test_finish_equals_reference_epilogue():
+    """``_finish`` (XLA's float32 log, times float32(log10 e) less the
+    shift in one FMA, less 120 log10(2)) against the reference's compiled
+    epilogue, bit for bit on every value."""
+    acc, sh = _finish_inputs()
+
+    @jax.jit
+    def epilogue(acc, sh):      # _pairhmm_jax's last lines
+        return jnp.where(
+            acc > 0.0,
+            jnp.log10(jnp.maximum(acc, jnp.finfo(jnp.float32).tiny))
+            - sh - J.LOG10_INITIAL, -jnp.inf)
+
+    want = np.asarray(epilogue(jnp.asarray(acc), jnp.asarray(sh)))
+    got = T._finish(torch.from_numpy(acc), torch.from_numpy(sh)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    bad = np.flatnonzero(got.view(np.uint32)[ok] != want.view(np.uint32)[ok])
+    assert bad.size == 0, (acc[ok][bad[:4]], got[ok][bad[:4]],
+                           want[ok][bad[:4]])
+    assert np.isneginf(got[acc <= 0]).all() and np.isposinf(got[5258])
 
 
 def test_prob_table_equals_phred_to_prob():

@@ -16,7 +16,8 @@ one-cell matrix, N and out-of-range codes and a lane that floors to -inf,
 and (from 64 rows on) with the card tests' pairs that are finite only
 through the 2^100 rescale at diagonal 64; and on the card tests' pairs
 rescaled through pad rows and at diagonal 320, with one whose mass
-passes through float32's subnormal range.  Each case checks that its
+passes through float32's subnormal range, and quality-0 pairs rescaled
+on a multiple of 64 past their own last diagonal.  Each case checks that its
 inputs do what it says.  Skips only where g++ is missing.
 """
 import ctypes
@@ -185,6 +186,20 @@ def test_emulated_k5_rescales_through_pad_rows(emu_lib):
     reads, q, ins, dele, gcp, rl, haps, hl = pad_row_pairs(5, B, 160, 384)
     lanes = (reads, q, rl, haps, hl)
     _check_rescaled(_hold_k5(emu_lib, lanes, (ins, dele, gcp)), lanes)
+
+
+@pytest.mark.parametrize("R,H", [(64, 128), (96, 128)])
+def test_emulated_kernels_rescale_past_the_pairs_end(emu_lib, R, H):
+    """Quality-0 pairs that end before R + H and are rescaled on a
+    multiple of 64 past rlen + hlen, as the reference's full sweep does:
+    K5 on pad-row pairs, K4 on the rescue pairs, each a batch of nothing
+    else, bit-equal to the plain version."""
+    reads, q, ins, dele, gcp, rl, haps, hl = pad_row_pairs(9, B, R, H)
+    assert (rl + hl).max() <= R + H - 64
+    want = _hold_k5(emu_lib, (reads, q, rl, haps, hl), (ins, dele, gcp))
+    assert torch.isfinite(want).all()
+    lanes = rescale_pairs(3, B, R, H)
+    assert torch.isfinite(_hold_k4(emu_lib, lanes, SCALARS)[:-1]).any()
 
 
 def test_emulated_kernels_flush_as_plain(emu_lib):

@@ -21,6 +21,7 @@ import ast
 import importlib.util
 import json
 import logging
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -32,6 +33,9 @@ from falcon_genome_tpu.config import init as jconf_init
 from falcon_genome_tpu.io import native_ext
 from falcon_genome_tpu.utils.compare import compare_bam, compare_vcf
 from falcon_genome_tpu_torch.benchmarks import wgs_rehearsal as W
+
+sys.path.insert(0, str(Path(__file__).parent))
+from torch_parity import assert_vcf_records_equal  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -237,6 +241,9 @@ def _same(work_a: Path, work_b: Path, artifact: str) -> None:
     else:
         c = compare_vcf(out_a["vcf"], out_b["vcf"])
         assert c.equivalent and c.concordant > 0, c
+        # every field of every record, PL and GQ included
+        assert assert_vcf_records_equal(out_a["vcf"], out_b["vcf"]) == \
+            c.concordant
 
 
 ARTIFACTS = ["buckets", "dedup", "recal_table", "recal", "vcf"]

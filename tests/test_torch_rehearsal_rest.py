@@ -49,6 +49,9 @@ from falcon_genome_tpu_torch.benchmarks import (
 from falcon_genome_tpu_torch.ops import smith_waterman as sw
 from falcon_genome_tpu_torch.ops.sw_ref import SWParams
 
+sys.path.insert(0, str(Path(__file__).parent))
+from torch_parity import assert_vcf_records_equal  # noqa: E402
+
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
@@ -133,6 +136,7 @@ def test_mesh_rehearsal(chain, tmp_path, capsys):
             [vars(r) for r in read_vcf(str(want))[1]]
         c = compare_vcf(str(want), got)
         assert c.equivalent and c.concordant > 0
+        assert assert_vcf_records_equal(got, want) == c.concordant
 
 
 def test_mesh_rehearsal_reports_a_difference(chain, tmp_path, monkeypatch,

@@ -26,6 +26,9 @@ from falcon_genome_tpu.io.vcf import read_vcf
 from falcon_genome_tpu.utils.compare import compare_vcf
 from falcon_genome_tpu_torch.benchmarks import mutect2_rehearsal as M
 
+sys.path.insert(0, str(Path(__file__).parent))
+from torch_parity import assert_vcf_records_equal  # noqa: E402
+
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
@@ -100,6 +103,7 @@ def test_somatic_vcf_equals_jax_script(runs):
     assert [vars(r) for r in got] == [vars(r) for r in want]
     c = compare_vcf(a, b)
     assert c.equivalent and c.concordant == len(want) >= SIZES["N_SOMATIC"]
+    assert assert_vcf_records_equal(b, a) == len(want)
 
 
 def test_row_carries_the_jax_script_keys(runs):
