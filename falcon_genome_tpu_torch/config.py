@@ -182,7 +182,9 @@ def build_option_table() -> dict[str, Option]:
         O("tpu.bucket.hap_len", int, 512, "haplotype length bucket (pad-to)"),
         O("tpu.pairhmm.dtype", str, "float32", "PairHMM accumulation dtype"),
         O("tpu.sw.band", int, 128, "Smith-Waterman extension band width"),
-        O("tpu.profile", bool, False, "emit jax.profiler traces per stage"),
+        O("tpu.profile", bool, False,
+          "write a torch.profiler Chrome trace of each stage (every "
+          "thread's host events, the card's, and the entries' spans)"),
     ]
     return {o.name: o for o in opts}
 

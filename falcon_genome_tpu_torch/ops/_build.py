@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -75,6 +76,11 @@ class KernelBuildError(RuntimeError):
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 
+# the process's load of the library: 1 once it is loaded, its wall
+# seconds (build, dlopen, bind), and the nvcc builds run (0 when the
+# library of this digest was there)
+LOAD = {"loads": 0, "seconds": 0.0, "builds": 0}
+
 
 def find_nvcc() -> str:
     """Path of ``nvcc``: PATH, then ``$CUDA_HOME/bin``, then the default
@@ -111,6 +117,7 @@ def build() -> Path:
     if so.exists():
         return so
     nvcc = find_nvcc()
+    LOAD["builds"] += 1
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     objs = [so.with_name(f"{so.stem}-{Path(s).stem}.{tag}.o")
@@ -150,12 +157,15 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
+            t0 = time.perf_counter()
             so = build()
             try:
                 lib = ctypes.CDLL(str(so))
             except OSError as e:
                 raise KernelBuildError(f"cannot load {so}: {e}") from e
             _lib = bind(lib)
+            LOAD["loads"] += 1
+            LOAD["seconds"] = time.perf_counter() - t0
         return _lib
 
 

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE
+from ..utils import spans
 from . import _build
 
 LOG10_2 = math.log10(2.0)
@@ -555,7 +556,11 @@ def pairhmm_logp(read_codes, base_q, ins_q, del_q, gcp, read_lens,
     phred array.  Reads and haps are padded to the bucket (N codes), quality
     planes with phred 0, as the reference does; calls hold at most 8192
     pairs.  All transitions scalar → kernel K4, else K5.  Under an active
-    mesh the call runs on one of its devices (``call_device``)."""
+    mesh the call runs on one of its devices (``call_device``).  Under a
+    profiler session the call and its steps are spans
+    (``utils/spans.py``): ``pairhmm.call``, and ``pairhmm.tables``,
+    ``pairhmm.copy_in`` and ``pairhmm.launch`` a chunk, then
+    ``pairhmm.wait``."""
     B, Rin = read_codes.shape
     Hin = hap_codes.shape[1]
     R, H = params.max_read_len, params.max_hap_len
@@ -564,10 +569,23 @@ def pairhmm_logp(read_codes, base_q, ins_q, del_q, gcp, read_lens,
     if Hin > H:
         raise ValueError(f"hap bucket {Hin} exceeds {H}")
     from ..parallel.mesh import call_device, get_active_mesh
-    trans = (ins_q, del_q, gcp)
-    per_base = any(_is_plane(q) for q in trans)
     mesh = get_active_mesh()
     dev = call_device(mesh.flat if mesh is not None else [params.device])
+    args = (read_codes, base_q, ins_q, del_q, gcp, read_lens, hap_codes,
+            hap_lens, R, H, dev)
+    if not spans.active():
+        return _logp_chunks(*args, spans.off)
+    with spans.span("pairhmm.call", cpu=True, pairs=B, card=str(dev)):
+        return _logp_chunks(*args, spans.span)
+
+
+def _logp_chunks(read_codes, base_q, ins_q, del_q, gcp, read_lens,
+                 hap_codes, hap_lens, R, H, dev, step) -> np.ndarray:
+    """:func:`pairhmm_logp` on ``dev`` in chunks of at most 8192 pairs,
+    each of its steps inside ``step(name)``."""
+    B = read_codes.shape[0]
+    trans = (ins_q, del_q, gcp)
+    per_base = any(_is_plane(q) for q in trans)
     pin = dev.type == "cuda"
     chunks = []
     for s0 in range(0, B, MAX_PAIRS_PER_CALL):
@@ -580,22 +598,26 @@ def pairhmm_logp(read_codes, base_q, ins_q, del_q, gcp, read_lens,
         # the chunk padded once on the host (megabytes: pinned for the
         # card, whose copies then take half the device time and do not
         # wait for the host)
-        host = [_host_plane(read_codes[s0:e0], n, R, 4, pin),
-                _host_plane(cut(base_q), n, R, 0, pin),
-                _host_vector(read_lens[s0:e0], torch.int32, pin),
-                _host_plane(hap_codes[s0:e0], n, H, 4, pin),
-                _host_vector(hap_lens[s0:e0], torch.int32, pin)]
-        if per_base:
-            host += [_host_plane(cut(q), n, R, 0, pin) for q in trans]
-        read, bq, rl, hap, hl, *planes = (t.to(dev, non_blocking=True)
-                                          for t in host)
-        if per_base:
-            chunks.append(pairhmm_pb(read, bq, *planes, rl, hap, hl))
-        else:
-            chunks.append(pairhmm_sc(read, bq, rl, hap, hl,
-                                     *(int(q) for q in trans)))
+        with step("pairhmm.tables"):
+            host = [_host_plane(read_codes[s0:e0], n, R, 4, pin),
+                    _host_plane(cut(base_q), n, R, 0, pin),
+                    _host_vector(read_lens[s0:e0], torch.int32, pin),
+                    _host_plane(hap_codes[s0:e0], n, H, 4, pin),
+                    _host_vector(hap_lens[s0:e0], torch.int32, pin)]
+            if per_base:
+                host += [_host_plane(cut(q), n, R, 0, pin) for q in trans]
+        with step("pairhmm.copy_in"):
+            read, bq, rl, hap, hl, *planes = [t.to(dev, non_blocking=True)
+                                              for t in host]
+        with step("pairhmm.launch"):
+            if per_base:
+                chunks.append(pairhmm_pb(read, bq, *planes, rl, hap, hl))
+            else:
+                chunks.append(pairhmm_sc(read, bq, rl, hap, hl,
+                                         *(int(q) for q in trans)))
     # read back once every chunk's launch is enqueued
-    out = [logp.cpu().numpy() for logp in chunks]
+    with step("pairhmm.wait", cpu=True):
+        out = [logp.cpu().numpy() for logp in chunks]
     return np.concatenate(out) if out else np.zeros(0, np.float32)
 
 
@@ -612,7 +634,11 @@ def pairhmm_logp_pairs(reads, quals, read_lens, haps, hap_lens,
     reads (NR, R') codes, quals (NR, R') phreds, haps (NH, H'),
     read_lens (NR,), hap_lens (NH,), pair_read/pair_hap (B,) with
     B <= 8192 (callers chunk).  Under an active mesh the call runs on one
-    of its devices (``parallel.mesh.call_device``)."""
+    of its devices (``parallel.mesh.call_device``).  Under a profiler
+    session the call and its steps are spans (``utils/spans.py``):
+    ``pairhmm.call``, then ``pairhmm.tables``, ``pairhmm.copy_in``,
+    ``pairhmm.gather``, ``pairhmm.launch``, ``pairhmm.wait`` and
+    ``pairhmm.free``."""
     B = len(pair_read)
     if B == 0:
         return np.zeros(0, np.float32)
@@ -626,16 +652,42 @@ def pairhmm_logp_pairs(reads, quals, read_lens, haps, hap_lens,
     from ..parallel.mesh import call_device, get_active_mesh
     mesh = get_active_mesh()
     dev = call_device(mesh.flat if mesh is not None else [params.device])
+    args = (reads, quals, read_lens, haps, hap_lens, pair_read, pair_hap,
+            ins_q, del_q, gcp, R, H, dev)
+    if not spans.active():
+        return _logp_pairs(*args, spans.off)
+    with spans.span("pairhmm.call", cpu=True, pairs=B, reads=NR, haps=NH,
+                    card=str(dev)):
+        return _logp_pairs(*args, spans.span)
+
+
+def _logp_pairs(reads, quals, read_lens, haps, hap_lens, pair_read,
+                pair_hap, ins_q, del_q, gcp, R, H, dev, step) -> np.ndarray:
+    """:func:`pairhmm_logp_pairs` on ``dev``, each of its steps inside
+    ``step(name)``."""
+    NR, NH = reads.shape[0], haps.shape[0]
     # tens of kilobytes: pinning them costs more host time than the
     # copies save (traced on the card)
-    tables = (_host_plane(reads, NR, R, 4, False),
-              _host_plane(quals, NR, R, 0, False),
-              _host_vector(read_lens, torch.int32, False),
-              _host_plane(haps, NH, H, 4, False),
-              _host_vector(hap_lens, torch.int32, False))
-    index = (_host_vector(pair_read, torch.int64, False),
-             _host_vector(pair_hap, torch.int64, False))
-    rd, q, rl, hp, hl = (t.to(dev, non_blocking=True) for t in tables)
-    pr, ph = (t.to(dev, non_blocking=True) for t in index)
-    return pairhmm_sc(rd[pr], q[pr], rl[pr], hp[ph], hl[ph], int(ins_q),
-                      int(del_q), int(gcp)).cpu().numpy()
+    with step("pairhmm.tables"):
+        tables = (_host_plane(reads, NR, R, 4, False),
+                  _host_plane(quals, NR, R, 0, False),
+                  _host_vector(read_lens, torch.int32, False),
+                  _host_plane(haps, NH, H, 4, False),
+                  _host_vector(hap_lens, torch.int32, False),
+                  _host_vector(pair_read, torch.int64, False),
+                  _host_vector(pair_hap, torch.int64, False))
+    with step("pairhmm.copy_in"):
+        rd, q, rl, hp, hl, pr, ph = [t.to(dev, non_blocking=True)
+                                     for t in tables]
+    with step("pairhmm.gather"):
+        tiles = (rd[pr], q[pr], rl[pr], hp[ph], hl[ph])
+    with step("pairhmm.launch"):
+        logp = pairhmm_sc(*tiles, int(ins_q), int(del_q), int(gcp))
+    with step("pairhmm.wait", cpu=True):
+        out = logp.cpu().numpy()
+    # the call's tensors are released in a step of their own and not at
+    # the return: torch hands the GIL over at each tensor's release, and
+    # under many callers that wait is a large part of a call
+    with step("pairhmm.free"):
+        del tables, rd, q, rl, hp, hl, pr, ph, tiles, logp
+    return out

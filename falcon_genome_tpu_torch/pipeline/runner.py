@@ -16,7 +16,8 @@ Semantics carried over from the reference's Executor (src/Executor.cpp):
   stage returns its declared outputs so downstream gather steps still
   see the per-task artifact paths;
 * ``profile_dir`` wraps each stage in a ``torch.profiler`` trace (the
-  ``tpu.profile`` option), written as a Chrome trace per stage.
+  ``tpu.profile`` option) of every thread, written as a Chrome trace per
+  stage; it holds the entries' spans (``utils/spans.py``).
 
 Concurrency is a thread pool (tasks are IO + device-dispatch bound; the
 GIL is released inside native code); ``nprocs`` mirrors
@@ -237,7 +238,10 @@ class PipelineRunner:
             acts.append(tp.ProfilerActivity.CUDA)
         safe = re.sub(r"[^\w.-]+", "_", f"{self.name}-{s.name}")
         path = Path(self.profile_dir) / f"{safe}-{int(time.time())}.json"
-        with tp.profile(activities=acts) as prof:
+        # every thread's host events: a stage's tasks run on a pool
+        every_thread = tp._ExperimentalConfig(profile_all_threads=True)
+        with tp.profile(activities=acts,
+                        experimental_config=every_thread) as prof:
             out = self.run_stage(s)
         prof.export_chrome_trace(str(path))
         log.info("[%s] %s: profiler trace → %s", self.name, s.name, path)

@@ -1,4 +1,4 @@
-"""Common utilities: typed errors, filesystem helpers, shard naming, timing.
+"""Common utilities: typed errors, filesystem helpers, shard naming.
 
 TPU-native re-expression of the reference's L1 utils layer
 (/root/reference/src/common.cpp, include/fcs-genome/common.h).
@@ -29,9 +29,6 @@ from .common import (
     get_basename_wo_ext,
     get_fname_by_ext,
     get_absolute_path,
-    now_ts,
-    Timer,
-    log_time,
 )
 from .logutils import find_error
 
@@ -42,5 +39,5 @@ __all__ = [
     "check_input", "check_output", "check_dir", "create_dir", "remove_path",
     "get_input_list", "get_contig_fname", "get_bucket_fname",
     "get_basename", "get_basename_wo_ext", "get_fname_by_ext",
-    "get_absolute_path", "now_ts", "Timer", "log_time", "find_error",
+    "get_absolute_path", "find_error",
 ]

@@ -1,10 +1,10 @@
-"""Filesystem helpers, deterministic shard naming, and timing.
+"""Filesystem helpers and deterministic shard naming.
 
 Re-expresses the reference's common utils (src/common.cpp,
 include/fcs-genome/common.h): input/output validation with overwrite policy
-(common.cpp:60-114), recursive regex dir listing (common.cpp:116-162), the
+(common.cpp:60-114), recursive regex dir listing (common.cpp:116-162) and the
 deterministic shard filename scheme ``part-%06d.<ext>`` (common.h:232-245,
-common.cpp:226-233), and wall-clock stage timing (common.h:93-108).
+common.cpp:226-233).
 
 Deterministic artifact naming is load-bearing: it is what makes every pipeline
 stage individually re-runnable (the reference's checkpoint/resume story,
@@ -18,7 +18,6 @@ import os
 import re
 import shutil
 import sys
-import time
 from pathlib import Path
 from typing import Iterable
 
@@ -195,39 +194,6 @@ def get_fname_by_ext(fname: str | os.PathLike, ext: str) -> str:
 def get_files_by_ext(dir_: str | os.PathLike, ext: str) -> list[str]:
     return sorted(str(p) for p in Path(dir_).iterdir()
                   if p.is_file() and p.suffix == f".{ext.lstrip('.')}")
-
-
-# ---------------------------------------------------------------------------
-# timing (ref: common.h:93-108)
-# ---------------------------------------------------------------------------
-
-def now_ts() -> float:
-    return time.time()
-
-
-def log_time(stage_name: str, t_start: float) -> float:
-    """Log "<stage> finishes in N seconds" like the reference (common.h:104-108)."""
-    elapsed = time.time() - t_start
-    log.info("%s finishes in %d seconds", stage_name, int(elapsed))
-    return elapsed
-
-
-class Timer:
-    """Context-manager wall-clock timer for pipeline stages."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.elapsed = 0.0
-
-    def __enter__(self):
-        self._t0 = time.time()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed = time.time() - self._t0
-        if exc[0] is None:
-            log.info("%s finishes in %d seconds", self.name, int(self.elapsed))
-        return False
 
 
 def rss_suffix() -> str:
