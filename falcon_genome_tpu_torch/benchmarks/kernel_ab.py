@@ -1,7 +1,8 @@
 """Kernel times of several checkouts of the port, interleaved on one NVIDIA
 GPU: Smith-Waterman K1-K3, PairHMM K4/K5 and the ablation kernel K7.
 
-    python -m falcon_genome_tpu_torch.benchmarks.kernel_ab ROOT [ROOT ...]
+    python -m falcon_genome_tpu_torch.benchmarks.kernel_ab [--pairhmm]
+        ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository (an unpacked ``git archive`` of
 another commit, say).  In the order given, each runs in a process of its
@@ -18,7 +19,10 @@ then times, each through its wrapper:
   for k3;
 * K4 (``pairhmm_sc``, 45/45/10) and K5 (``pairhmm_pb``, per-base planes)
   at HaplotypeCaller's shape (R=160, H=384, 8192 pairs, the inputs of
-  ``chip_smoke.py``'s phase 3 without its crafted pairs);
+  ``chip_smoke.py``'s phase 3 without its crafted pairs: reads of 100-152
+  bases), K4 on reads that fill the bucket (160 bases, key ``k4_full``)
+  and K4 on the same pairs with a quality-0 first base, whose rescale
+  can fire past their end (key ``k4_late``);
 
 each three ways; and K7 (``sw_score_ablate``) in the ablation's four
 variants at its bucket (R=160, W=416, 2048 lanes; ``ablate_sw.inputs``),
@@ -37,8 +41,9 @@ per step (``cuobjdump -sass``, null where the toolkit's ``cuobjdump`` is
 missing); K3's registers and the instructions of one trip of its walk
 loop (``k3_per_trip``); K7's registers and instructions per sweep step
 of each variant's instantiation at R = 160 (``k7_<variant>_registers``,
-``k7_<variant>_per_step``).  Give the roots as parent, change, change,
-parent, so that drift of the card between runs shows.
+``k7_<variant>_per_step``).  With ``--pairhmm`` it times K4 and K5
+alone (``k4_*``, ``k4_full_*``, ``k4_late_*`` and ``k5_*``).  Give the roots as parent, change, change, parent,
+so that drift of the card between runs shows.
 Prints one JSON line per run; without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
@@ -92,6 +97,24 @@ def inputs(rng):
     for x in (ins, dele, gcp):
         x[pad] = 0
     return reads, quals, ins, dele, gcp, rlen, haps, hl
+
+
+def full_reads(rng):
+    """Lane-major K4 arguments (read, q, rlen, hap, hlen) whose reads fill
+    the bucket: 160 bases cut from haplotypes of 250-384 with 1%
+    substitutions, base qualities 10-40."""
+    haps = rng.integers(0, 4, (B, H)).astype(np.uint8)
+    hl = rng.integers(250, H + 1, B).astype(np.int32)
+    rlen = np.full(B, R, np.int32)
+    reads = np.empty((B, R), np.uint8)
+    for b in range(B):
+        s = int(rng.integers(0, hl[b] - R))
+        seg = haps[b, s:s + R].copy()
+        m = rng.random(R) < 0.01
+        seg[m] = (seg[m] + 1) % 4
+        reads[b] = seg
+    quals = rng.integers(10, 41, (B, R)).astype(np.uint8)
+    return reads, quals, rlen, haps, hl
 
 
 def sw_lanes(rng, genome, n, r, w, rl_range, sub=0.01, decoys=0.25):
@@ -230,9 +253,9 @@ def build_counts(so: Path) -> dict:
     return out
 
 
-def time_root(root: Path) -> dict:
-    """Build ``root``'s kernels and time its K1-K5 and K7 (this process
-    imports only ``root``'s package)."""
+def time_root(root: Path, pairhmm_only: bool = False) -> dict:
+    """Build ``root``'s kernels and time its K1-K5 and K7, or K4 and K5
+    alone (this process imports only ``root``'s package)."""
     sys.path.insert(0, str(root))
     from falcon_genome_tpu_torch.benchmarks import ablate_sw as A
     from falcon_genome_tpu_torch.ops import _build
@@ -243,11 +266,32 @@ def time_root(root: Path) -> dict:
         raise RuntimeError(f"imported {P.__file__}, not {root}'s package")
     so = _build.build()
     dev = torch.device("cuda", 0)
-    res = {"root": str(root), **build_counts(so)}
+    res = {"root": str(root)}
 
     def to(*xs):
         return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                 for x in xs]
+
+    # K5's arguments; K4's are the same less the indel planes
+    hmm = to(*inputs(np.random.default_rng(7)))
+    k4_args = [hmm[i] for i in (0, 1, 5, 6, 7)]
+    res.update(three_ways(
+        "k4", lambda: P.pairhmm_sc(*k4_args, 45, 45, 10), "pairhmm_kernel"))
+    full = to(*full_reads(np.random.default_rng(8)))
+    res.update(three_ways(
+        "k4_full", lambda: P.pairhmm_sc(*full, 45, 45, 10),
+        "pairhmm_kernel"))
+    late = list(k4_args)
+    late[1] = late[1].clone()
+    late[1][:, 0] = 0      # a quality-0 first base: every pair is late
+    res.update(three_ways(
+        "k4_late", lambda: P.pairhmm_sc(*late, 45, 45, 10),
+        "pairhmm_kernel"))
+    res.update(three_ways(
+        "k5", lambda: P.pairhmm_pb(*hmm), "pairhmm_kernel"))
+    if pairhmm_only:
+        return res
+    res.update(build_counts(so))
 
     rng = np.random.default_rng(7)
     genome = rng.integers(0, 4, 1_000_000).astype(np.int8)
@@ -275,14 +319,6 @@ def time_root(root: Path) -> dict:
             "sw_traceback_kernel", queued=not label))
         del ptr
 
-    t = to(*inputs(np.random.default_rng(7)))
-    read, q, ins, dele, gcp, rlen, hap, hlen = t
-    res.update(three_ways(
-        "k4", lambda: P.pairhmm_sc(read, q, rlen, hap, hlen, 45, 45, 10),
-        "pairhmm_kernel"))
-    res.update(three_ways(
-        "k5", lambda: P.pairhmm_pb(read, q, ins, dele, gcp, rlen, hap,
-                                   hlen), "pairhmm_kernel"))
     args = A.inputs(np.random.default_rng(0), dev)
     p = S.SWParams()
     for name, kw in A.VARIANTS:
@@ -297,16 +333,21 @@ def main(argv: list[str]) -> int:
         print("kernel_ab: no CUDA device; it times the card's kernels and "
               "has no CPU mode", file=sys.stderr)
         return 1
+    pairhmm = argv[:1] == ["--pairhmm"]
+    argv = argv[pairhmm:]
     if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(time_root(Path(argv[1]).resolve())), flush=True)
+        print(json.dumps(time_root(Path(argv[1]).resolve(), pairhmm)),
+              flush=True)
         return 0
     if not argv:
-        print("usage: kernel_ab ROOT [ROOT ...]", file=sys.stderr)
+        print("usage: kernel_ab [--pairhmm] ROOT [ROOT ...]",
+              file=sys.stderr)
         return 2
     rc = 0
     for root in argv:   # a root that fails is reported, the others still run
         res = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--one", root],
+            [sys.executable, str(Path(__file__).resolve()),
+             *(["--pairhmm"] if pairhmm else []), "--one", root],
             capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             print(res.stdout + res.stderr, file=sys.stderr)

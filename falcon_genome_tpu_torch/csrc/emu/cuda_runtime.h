@@ -20,10 +20,12 @@
 // value to an exchange slot, wait for the warp, read the source lane's slot
 // (the ballot: every live lane's) and wait again.  __syncthreads is the same
 // barrier over the live threads of the block.  Hopper's DPX intrinsics are
-// their plain definitions.  Dynamic shared memory is one buffer per block,
-// filled with 0x55 bytes: a kernel that reads what it did not write sees
-// large values, not zeros.  Only what the package's kernels use is here;
-// every pointer is a host pointer.
+// their plain definitions; atomics are plain read-modify-writes, since no
+// thread is interrupted between two warp-wide operations.  The card has
+// kEmuSMs multiprocessors of one resident block each.  Dynamic shared
+// memory is one buffer per block, filled with 0x55 bytes: a kernel that
+// reads what it did not write sees large values, not zeros.  Only what the
+// package's kernels use is here; every pointer is a host pointer.
 #pragma once
 
 #include <math.h>
@@ -53,18 +55,37 @@ struct dim3 {
   unsigned x = 1, y = 1, z = 1;
 };
 
-inline dim3 threadIdx, blockIdx, blockDim;
+inline dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 typedef int cudaError_t;
 enum : int { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+
+// the stand-in card: one device of kEmuSMs multiprocessors, each holding one
+// block at a time
+constexpr int kEmuSMs = 2;
 
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = kEmuSMs;
+  return cudaSuccess;
+}
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F,
+                                                                 int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
@@ -198,6 +219,7 @@ inline void launch(int grid, int block, size_t smem, F kernel) {
   const int warps = (block + 31) / 32;
   rt.slot.assign(block, 0);
   blockDim.x = block;
+  gridDim.x = grid;
   for (int bx = 0; bx < grid; ++bx) {
     blockIdx.x = bx;
     rt.smem.assign(smem + 16, 0x55);  // not zeroed: as on the card
@@ -280,6 +302,16 @@ inline float __uint_as_float(unsigned u) {
 }
 
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+
+// a thread runs until its next warp-wide operation, so a read-modify-write
+// between two of them is atomic
+inline int atomicAdd(int* p, int v) {
+  const int old = *p;
+  *p = old + v;
+  return old;
+}
+
+inline void __threadfence() {}
 
 inline void __syncwarp(unsigned = 0xffffffffu) { fgt_emu::warp_barrier(); }
 

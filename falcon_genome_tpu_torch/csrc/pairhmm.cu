@@ -1,6 +1,7 @@
 // PairHMM forward likelihood for NVIDIA Hopper (sm_90a).
 //
-// Two entry points share one kernel template:
+// Two entry points, each with its kernel (two overloads of one template
+// name) over the same sweep steps:
 //   fgt_pairhmm     replaces K4, _pairhmm_kernel_sc of
 //                   falcon_genome_tpu/ops/pairhmm.py: scalar insertion,
 //                   deletion and gap-continuation penalties (GATK
@@ -57,15 +58,28 @@
 // only cross-thread values -- the last row's M, I, D -- to the next thread
 // with __shfl_up_sync.
 //
-// The sweep must stay a wavefront over ALL rows of a pair: the rescale test
-// takes the largest |M|+|I|+|D| over every row of diagonals d and d - 1 at
-// each d that is a multiple of 64, and a pair that fires is flushed
-// differently from one that does not.  A column-per-thread skew (one
-// column per thread per step, as gpuPairHMM sweeps) puts the cells of one
-// diagonal at different steps and cannot give the same rescale decisions.
-// Cells right of the haplotype (j > hlen) and pad rows past rlen (phred 0:
-// p_ins = p_cont = 1, a_mm = a_im = 0) feed that maximum too, so they are
-// computed like any other cell, as in the plain version.
+// Where the rescale can fire, the sweep must stay a wavefront over ALL
+// rows of the bucket: the rescale test takes the largest |M|+|I|+|D| over
+// every row of diagonals d and d - 1 at each d that is a multiple of 64,
+// and a pair that fires is flushed differently from one that does not.  A
+// column-per-thread skew (one column per thread per step, as gpuPairHMM
+// sweeps) puts the cells of one diagonal at different steps and cannot give
+// the same rescale decisions.  Cells right of the haplotype (j > hlen) and
+// pad rows past rlen (phred 0: p_ins = p_cont = 1, a_mm = a_im = 0) feed
+// that maximum too, so there they are computed like any other cell, as in
+// the plain version.
+//
+// For most pairs the test cannot fire (K4): row 0 lies on every tested
+// diagonal, its M there is prior * (bound * a_im) with row 0's own prior
+// and a_im, and the boundary changes only through a rescale.  So while the
+// smaller prior times bound * a_im is at least 2^-60 (`late` false, the
+// same rounding), the largest cell of every tested diagonal is too, and no
+// rescale fires.  Rows at or past rlen then feed nothing: the recurrence
+// flows downward, and only row rlen - 1's sum is the pair's.  K4 sweeps
+// such a pair over its own ceil(rlen / 32) rows a thread, rlen + hlen
+// diagonals and no test; a `late` pair (a quality-0 first base, a gap
+// continuation phred of 0) takes the bucket's rows and the full sweep.
+// Each cell's arithmetic is the same either way, so are the bits.
 //
 // What the design does about that bound (per diagonal of a thread's
 // NR rows: 3 shuffles, 3 selects for the boundary, one shared-memory byte,
@@ -95,19 +109,25 @@
 //     out of the cell; up to diagonal rlen that row is left of the matrix,
 //     so the trips before it skip the sums;
 //   * rows past R (R not 32 NR) are cut by a select, in an instantiation
-//     of its own (kRagged) that the full buckets do not pay for.
+//     (K5) or a sweep (K4's late pairs) of its own (kRagged) that the full
+//     buckets do not pay for.
 //   * phreds arrive as the uint8 they are and turn into probabilities
 //     through the 256-entry float32 table that the plain version indexes
 //     (the wrapper puts it on the device once), so no float32 planes are
 //     made, written and read back around the launch.
+//   * K4's warps take pairs from a queue of the launch (an atomic ticket),
+//     each until none is left, and the grid holds as many blocks as the
+//     card runs at once: a block's slot is not held by its slowest pair
+//     while its other warps idle, which a pair of its own rows a thread
+//     would otherwise make worse.
 // The per-thread state is kept in plain arrays passed by reference: the
 // same state gathered into one struct went to local memory and cost half
 // of the gain.  The rescale test is a warp max-reduction with shuffles,
 // at the same diagonals and with the same threshold and factor as the
-// reference; no float64 anywhere.  Left for later: the 57% of cell slots
-// that lie outside the matrix at HaplotypeCaller's shape (a warp computes
-// all 32 NR rows on every one of rlen + hlen diagonals), by streaming the
-// next pair into idle lanes.
+// reference; no float64 anywhere.  Left for later: the wavefront's ramps
+// (a warp's rows enter and leave the matrix over 32 rows a thread of
+// diagonals; about 37% of K4's slots at HaplotypeCaller's shape), by
+// streaming the next pair into lanes that are done.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -170,8 +190,10 @@ struct Rows {
 // Diagonal d from X (diagonal d - 1) and Y (d - 2); the result overwrites
 // Y, rows last to first, so that row k - 1 of Y is still d - 2 when row k
 // reads it.  uX receives the row above at d - 1 (the next step's d - 2),
-// uY holds the one the previous step received.
-template <int NR, bool kPerBase, bool kRagged, bool kSum>
+// uY holds the one the previous step received.  kFused: the row sums of a
+// bucket of 33 rows and more (fma(X, prior, I)), whatever NR is.
+template <int NR, bool kPerBase, bool kRagged, bool kSum,
+          bool kFused = (NR > 1)>
 __device__ __forceinline__ void sweep_step(
     const Rows<NR>& c, const Trans& tr, bool lane0, float bound,
     unsigned hap_byte, Window<NR>& win, const Diag<NR>& X, Diag<NR>& Y,
@@ -209,21 +231,22 @@ __device__ __forceinline__ void sweep_step(
     Y.I[k] = In;
     Y.D[k] = Dn;
     // a row past R is never the pair's last row: its sum is dropped
-    if (kSum) acc[k] += NR > 1 ? __fmaf_rn(Xm, prior, In) : Mn + In;
+    if (kSum) acc[k] += kFused ? __fmaf_rn(Xm, prior, In) : Mn + In;
   }
 }
 
 // Diagonals d (odd) and d + 1: S1 and S0 hold d - 1 and d - 2 going in,
 // d + 1 and d coming out; hp[d] is the thread's new haplotype byte at d.
-template <int NR, bool kPerBase, bool kRagged, bool kSum>
+template <int NR, bool kPerBase, bool kRagged, bool kSum,
+          bool kFused = (NR > 1)>
 __device__ __forceinline__ void sweep_two(
     const Rows<NR>& c, const Trans& tr, bool lane0, float bound,
     const uint8_t* hp, int d, Window<NR>& win, Diag<NR>& S0, Diag<NR>& S1,
     Above& u0, Above& u1, float (&acc)[NR]) {
-  sweep_step<NR, kPerBase, kRagged, kSum>(c, tr, lane0, bound, hp[d], win,
-                                          S1, S0, u1, u0, acc);
-  sweep_step<NR, kPerBase, kRagged, kSum>(c, tr, lane0, bound, hp[d + 1],
-                                          win, S0, S1, u0, u1, acc);
+  sweep_step<NR, kPerBase, kRagged, kSum, kFused>(c, tr, lane0, bound, hp[d],
+                                                  win, S1, S0, u1, u0, acc);
+  sweep_step<NR, kPerBase, kRagged, kSum, kFused>(
+      c, tr, lane0, bound, hp[d + 1], win, S0, S1, u0, u1, acc);
 }
 
 // The rescale test after diagonal d (a multiple of 64): A and B hold
@@ -298,32 +321,48 @@ __device__ __forceinline__ float finish(float acc, float sh) {
   return __fmaf_rn(r, 0.434294492f, -sh) + -36.1236f;
 }
 
-template <int NR, bool kPerBase, bool kRagged>
-__global__ void __launch_bounds__(kWarps * 32)
-pairhmm_kernel(const uint8_t* __restrict__ read,
-               const uint8_t* __restrict__ base_q,
-               const float* __restrict__ prob,
-               const int* __restrict__ rlen, const uint8_t* __restrict__ hap,
-               const int* __restrict__ hlen, int B, int R, int H, Trans tr,
-               float* __restrict__ logp_out) {
-  FGT_DYNAMIC_SMEM(uint8_t, hs_all);
-  constexpr int kPad = 32 * NR;  // bytes in front of the haplotype
-  const int lane = threadIdx.x & 31;
-  const int wib = threadIdx.x >> 5;
-  const int b = blockIdx.x * kWarps + wib;
-  if (b >= B) return;  // uniform across the warp
-  // the haplotype's masks: zeros in front (read only by cells left of the
-  // matrix), the last base repeated behind (the clipped gather)
+// Whether a pair's state can still be rescaled past its own rows and
+// diagonals: row 0's smaller prior times bound * a_im, the M of row 0 on
+// every tested diagonal, below the threshold (or NaN)
+__device__ __forceinline__ bool late_rescale(float pm, float pmm, float bound,
+                                             float a_im) {
+  return !(fminf(pm, pmm) * (bound * a_im) >= 0x1p-60f);
+}
+
+// Pair b's haplotype as masks into the warp's window hs: 32 NR zeros in
+// front (read only by cells left of the matrix), then the haplotype and
+// its last base repeated R times (the clipped gather)
+template <int NR>
+__device__ __forceinline__ void load_hap(uint8_t* hs,
+                                         const uint8_t* __restrict__ hap,
+                                         int b, int R, int H, int lane) {
+  constexpr int kPad = 32 * NR;
   const int span = kPad + H + R;
-  uint8_t* hs = hs_all + wib * span;
   for (int p = lane; p < span; p += 32)
     hs[p] = p < kPad
                 ? 0
                 : base_mask(hap[(size_t)b * H + min(p - kPad, H - 1)]);
-  __syncwarp();
+}
 
-  const int rl = rlen[b];
-  const int hl = hlen[b];
+// The pair's sum (row rlen - 1's; 0 where it has no such row) and its
+// log10 shift
+struct Sum {
+  float acc, sh;
+};
+
+// Pair b on the calling warp, thread `lane` holding rows lane NR .. lane NR
+// + NR - 1; hs is the warp's haplotype window past its front zeros (at
+// least 32 NR of them).  kAllRows: the bucket's rows (32 NR >= R), with the
+// rescale test every 64 diagonals and, for a `late` pair, the sweep on to
+// R + H.  Otherwise the pair's own rows (32 NR >= rlen), for a pair with
+// 1 <= rlen <= R whose `late` is false: no test, since none can fire, and
+// no select for rows past rlen, whose values reach nothing.  kFused: the
+// bucket's row-sum rule.
+template <int NR, bool kPerBase, bool kRagged, bool kFused, bool kAllRows>
+__device__ __forceinline__ Sum sweep_pair(
+    const uint8_t* __restrict__ read, const uint8_t* __restrict__ base_q,
+    const float* __restrict__ prob, int b, int rl, int hl, int R, int H,
+    const Trans& tr, const uint8_t* hs, int lane) {
   Rows<NR> c;
   c.rmask = 0u;
   c.inside = 0u;
@@ -348,7 +387,7 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   }
   // row r at diagonal d reads the haplotype at d - r - 2, clipped to
   // [0, H): with the padding, byte d of hp for this thread's first row
-  const uint8_t* hp = hs + kPad - lane * NR - 2;
+  const uint8_t* hp = hs - lane * NR - 2;
   const bool lane0 = lane == 0;
   float bound = 0x1p120f / fmaxf((float)hl, 1.0f);
   float sh = 0.0f;
@@ -368,51 +407,59 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   const bool has_row = rl >= 1 && rl <= R;
   // a pair whose row 0 can fall below the rescale threshold sweeps on to
   // R + H, as the reference does: a rescale there still scales its sum
-  // (row 0's M past the pair's end is prior * (bound * a_im), the largest
-  // cell while that is at least the threshold)
   const float a_im0 = kPerBase ? c.tim[0] : tr.a_im;
   const bool late =
+      kAllRows &&
       __shfl_sync(kFull,
-                  (int)(has_row && !(fminf(c.pm[0], c.pmm[0]) *
-                                         (bound * a_im0) >= 0x1p-60f)),
+                  (int)(has_row && late_rescale(c.pm[0], c.pmm[0], bound,
+                                                a_im0)),
                   0) != 0;
   // up to diagonal rlen, row rlen - 1 is left of the matrix and its sum
   // stays +0: those trips leave the sums out
   const int dquiet = has_row ? min(rl, dmax) : dmax;
   int d = 1;
   for (; d + 3 <= dquiet; d += 4) {
-    sweep_two<NR, kPerBase, kRagged, false>(c, tr, lane0, bound, hp, d, win,
-                                            S0, S1, u0, u1, acc);
-    sweep_two<NR, kPerBase, kRagged, false>(c, tr, lane0, bound, hp, d + 2,
-                                            win, S0, S1, u0, u1, acc);
+    sweep_two<NR, kPerBase, kRagged, false, kFused>(c, tr, lane0, bound, hp,
+                                                    d, win, S0, S1, u0, u1,
+                                                    acc);
+    sweep_two<NR, kPerBase, kRagged, false, kFused>(c, tr, lane0, bound, hp,
+                                                    d + 2, win, S0, S1, u0,
+                                                    u1, acc);
     // S1 is diagonal d + 3, S0 d + 2, u0 the row above at d + 2
-    if ((d + 3) % kRescaleEvery == 0) rescale(S1, S0, u0, bound, acc, sh);
+    if (kAllRows && (d + 3) % kRescaleEvery == 0)
+      rescale(S1, S0, u0, bound, acc, sh);
   }
   for (; d + 3 <= dmax; d += 4) {
-    sweep_two<NR, kPerBase, kRagged, true>(c, tr, lane0, bound, hp, d, win,
-                                           S0, S1, u0, u1, acc);
-    sweep_two<NR, kPerBase, kRagged, true>(c, tr, lane0, bound, hp, d + 2,
-                                           win, S0, S1, u0, u1, acc);
-    if ((d + 3) % kRescaleEvery == 0) rescale(S1, S0, u0, bound, acc, sh);
+    sweep_two<NR, kPerBase, kRagged, true, kFused>(c, tr, lane0, bound, hp,
+                                                   d, win, S0, S1, u0, u1,
+                                                   acc);
+    sweep_two<NR, kPerBase, kRagged, true, kFused>(c, tr, lane0, bound, hp,
+                                                   d + 2, win, S0, S1, u0,
+                                                   u1, acc);
+    if (kAllRows && (d + 3) % kRescaleEvery == 0)
+      rescale(S1, S0, u0, bound, acc, sh);
   }
   // at most three diagonals are left, none of them a multiple of 64
   if (d + 1 <= dmax) {
-    sweep_two<NR, kPerBase, kRagged, true>(c, tr, lane0, bound, hp, d, win,
-                                           S0, S1, u0, u1, acc);
+    sweep_two<NR, kPerBase, kRagged, true, kFused>(c, tr, lane0, bound, hp,
+                                                   d, win, S0, S1, u0, u1,
+                                                   acc);
     d += 2;
   }
   if (d <= dmax)  // an odd rlen + hlen ends on a first half
-    sweep_step<NR, kPerBase, kRagged, true>(c, tr, lane0, bound, hp[d], win,
-                                            S1, S0, u1, u0, acc);
+    sweep_step<NR, kPerBase, kRagged, true, kFused>(
+        c, tr, lane0, bound, hp[d], win, S1, S0, u1, u0, acc);
   // past the pair's end: no sums, the rescale test on every multiple of 64
-  for (int e = late ? dmax + 1 : R + H + 1; e <= R + H; ++e) {
-    if (e & 1)
-      sweep_step<NR, kPerBase, kRagged, false>(c, tr, lane0, bound, hp[e],
-                                               win, S1, S0, u1, u0, acc);
-    else
-      sweep_step<NR, kPerBase, kRagged, false>(c, tr, lane0, bound, hp[e],
-                                               win, S0, S1, u0, u1, acc);
-    if (e % kRescaleEvery == 0) rescale(S1, S0, u0, bound, acc, sh);
+  if (kAllRows) {
+    for (int e = late ? dmax + 1 : R + H + 1; e <= R + H; ++e) {
+      if (e & 1)
+        sweep_step<NR, kPerBase, kRagged, false, kFused>(
+            c, tr, lane0, bound, hp[e], win, S1, S0, u1, u0, acc);
+      else
+        sweep_step<NR, kPerBase, kRagged, false, kFused>(
+            c, tr, lane0, bound, hp[e], win, S0, S1, u0, u1, acc);
+      if (e % kRescaleEvery == 0) rescale(S1, S0, u0, bound, acc, sh);
+    }
   }
   // the pair's sum is row rlen - 1's
   const int last = has_row ? rl - 1 : 0;
@@ -421,7 +468,102 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
   for (int k = 0; k < NR; ++k)
     if (k == last % NR) mine = acc[k];
   mine = __shfl_sync(kFull, mine, last / NR);
-  if (lane0) logp_out[b] = finish(has_row ? mine : 0.0f, sh);
+  return Sum{has_row ? mine : 0.0f, sh};
+}
+
+// K4's sweep of a pair over its own rows, `rows` = ceil(rlen / 32) a thread
+// (1 .. NR, the same across the warp): one inlined sweep_pair for each, all
+// inside the bucket's kernel, whose registers the NR sweep sets
+template <int NR, int N = 1>
+__device__ __forceinline__ Sum sweep_own_rows(
+    int rows, const uint8_t* __restrict__ read,
+    const uint8_t* __restrict__ base_q, const float* __restrict__ prob,
+    int b, int rl, int hl, int R, int H, const Trans& tr, const uint8_t* hs,
+    int lane) {
+  if constexpr (N < NR) {
+    if (rows > N)
+      return sweep_own_rows<NR, N + 1>(rows, read, base_q, prob, b, rl, hl,
+                                       R, H, tr, hs, lane);
+  }
+  return sweep_pair<N, false, false, (NR > 1), false>(
+      read, base_q, prob, b, rl, hl, R, H, tr, hs, lane);
+}
+
+// K5: one pair a warp, the pair of its index, over the bucket's rows
+template <int NR, bool kPerBase, bool kRagged>
+__global__ void __launch_bounds__(kWarps * 32)
+pairhmm_kernel(const uint8_t* __restrict__ read,
+               const uint8_t* __restrict__ base_q,
+               const float* __restrict__ prob,
+               const int* __restrict__ rlen, const uint8_t* __restrict__ hap,
+               const int* __restrict__ hlen, int B, int R, int H, Trans tr,
+               float* __restrict__ logp_out) {
+  FGT_DYNAMIC_SMEM(uint8_t, hs_all);
+  constexpr int kPad = 32 * NR;  // bytes in front of the haplotype
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarps + wib;
+  if (b >= B) return;  // uniform across the warp
+  uint8_t* hs = hs_all + wib * (kPad + H + R);
+  load_hap<NR>(hs, hap, b, R, H, lane);
+  __syncwarp();
+  const Sum s = sweep_pair<NR, kPerBase, kRagged, (NR > 1), true>(
+      read, base_q, prob, b, rlen[b], hlen[b], R, H, tr, hs + kPad, lane);
+  if (lane == 0) logp_out[b] = finish(s.acc, s.sh);
+}
+
+// K4: each warp takes pairs from the launch's queue until none is left.
+// queue[0] is the next pair, queue[1] the warps done; the last warp done
+// sets both back to 0, so the next launch on the stream finds them so.
+template <int NR, bool kPerBase, bool kRagged>
+__global__ void __launch_bounds__(kWarps * 32)
+pairhmm_kernel(const uint8_t* __restrict__ read,
+               const uint8_t* __restrict__ base_q,
+               const float* __restrict__ prob,
+               const int* __restrict__ rlen, const uint8_t* __restrict__ hap,
+               const int* __restrict__ hlen, int B, int R, int H, Trans tr,
+               float* __restrict__ logp_out, int* __restrict__ queue) {
+  static_assert(!kPerBase && kRagged,
+                "K4: one instantiation a row count, every bucket");
+  FGT_DYNAMIC_SMEM(uint8_t, hs_all);
+  constexpr int kPad = 32 * NR;
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    int b = lane == 0 ? atomicAdd(queue, 1) : 0;
+    b = __shfl_sync(kFull, b, 0);
+    if (b >= B) break;
+    __syncwarp();  // every lane is done with the window's last pair
+    uint8_t* hs = hs_all + (threadIdx.x >> 5) * (kPad + H + R);
+    load_hap<NR>(hs, hap, b, R, H, lane);
+    __syncwarp();
+    const int rl = rlen[b];
+    const int hl = hlen[b];
+    // row 0's prior on the pair's first tested diagonal, as sweep_pair
+    // forms it, decides whether the rescale can fire (every lane alike)
+    const float pe = __ldg(prob + base_q[(size_t)b * R]);
+    const bool own =
+        rl >= 1 && rl <= R &&
+        !late_rescale(1.0f - pe, pe * (1.0f / 3.0f),
+                      0x1p120f / fmaxf((float)hl, 1.0f), tr.a_im);
+    // a late pair: the bucket's rows, with the row select only where the
+    // bucket does not fill them (uniform across the launch)
+    const Sum s =
+        own ? sweep_own_rows<NR>((rl + 31) / 32, read, base_q, prob, b, rl,
+                                 hl, R, H, tr, hs + kPad, lane)
+        : R == 32 * NR
+            ? sweep_pair<NR, false, false, (NR > 1), true>(
+                  read, base_q, prob, b, rl, hl, R, H, tr, hs + kPad, lane)
+            : sweep_pair<NR, false, true, (NR > 1), true>(
+                  read, base_q, prob, b, rl, hl, R, H, tr, hs + kPad, lane);
+    if (lane == 0) logp_out[b] = finish(s.acc, s.sh);
+  }
+  if (lane == 0) {
+    __threadfence();  // this warp's last ticket before its count
+    if (atomicAdd(queue + 1, 1) == (int)gridDim.x * kWarps - 1) {
+      queue[0] = 0;
+      queue[1] = 0;
+    }
+  }
 }
 
 // The arguments of one call, as the C entry points receive them.
@@ -435,39 +577,96 @@ struct Call {
   int B, R, H;
   Trans tr;
   void* logp_out;
+  void* queue;  // K4's int32[2], zero; null for K5
   void* stream;
 };
+
+// the kernels' parameters; K4 adds its queue
+template <class... Queue>
+using Kernel = void (*)(const uint8_t*, const uint8_t*, const float*,
+                        const int*, const uint8_t*, const int*, int, int, int,
+                        Trans, float*, Queue...);
+
+// lets `kernel` take `smem` bytes of dynamic shared memory
+template <class K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  return smem > 48 * 1024
+             ? cudaFuncSetAttribute(
+                   kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                   (int)smem)
+             : cudaSuccess;
+}
 
 template <int NR, bool kPerBase, bool kRagged>
 int launch_pairhmm(const Call& a) {
   const size_t smem = (size_t)kWarps * (32 * NR + a.H + a.R);
-  auto* kernel = pairhmm_kernel<NR, kPerBase, kRagged>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if constexpr (kPerBase) {
+    Kernel<> kernel = pairhmm_kernel<NR, kPerBase, kRagged>;
+    cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return (int)e;
-  }
-  const int grid = (a.B + kWarps - 1) / kWarps;
-  if (grid > 0) {
-    FGT_LAUNCH(kernel, grid, kWarps * 32, smem, (cudaStream_t)a.stream,
-               (const uint8_t*)a.read, (const uint8_t*)a.base_q,
-               (const float*)a.prob, (const int*)a.rlen,
-               (const uint8_t*)a.hap, (const int*)a.hlen, a.B, a.R, a.H,
-               a.tr, (float*)a.logp_out);
+    const int grid = (a.B + kWarps - 1) / kWarps;
+    if (grid > 0) {
+      FGT_LAUNCH(kernel, grid, kWarps * 32, smem, (cudaStream_t)a.stream,
+                 (const uint8_t*)a.read, (const uint8_t*)a.base_q,
+                 (const float*)a.prob, (const int*)a.rlen,
+                 (const uint8_t*)a.hap, (const int*)a.hlen, a.B, a.R, a.H,
+                 a.tr, (float*)a.logp_out);
+    }
+  } else {
+    Kernel<int*> kernel = pairhmm_kernel<NR, kPerBase, kRagged>;
+    cudaError_t e = allow_smem(kernel, smem);
+    // the blocks the card runs at once (asked once a thread for each card
+    // and size), and no more than the pairs fill
+    thread_local int held_dev = -1;
+    thread_local size_t held_smem = 0;
+    thread_local int held = 0;
+    int dev = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev != held_dev || smem != held_smem) {
+      int per_sm = 0, sms = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kWarps * 32, smem);
+      if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e != cudaSuccess) return (int)e;
+      held = per_sm * sms > 1 ? per_sm * sms : 1;
+      held_dev = dev;
+      held_smem = smem;
+    }
+    const int grid = min(held, (a.B + kWarps - 1) / kWarps);
+    if (grid > 0) {
+      FGT_LAUNCH(kernel, grid, kWarps * 32, smem, (cudaStream_t)a.stream,
+                 (const uint8_t*)a.read, (const uint8_t*)a.base_q,
+                 (const float*)a.prob, (const int*)a.rlen,
+                 (const uint8_t*)a.hap, (const int*)a.hlen, a.B, a.R, a.H,
+                 a.tr, (float*)a.logp_out, (int*)a.queue);
+    }
   }
   return (int)cudaGetLastError();
 }
 
-// NR rows per thread for the bucket R; a bucket that fills all 32 NR rows
-// takes the instantiation without the row select.
+// The bucket R at NR = N rows a thread.  K5: where the bucket fills all 32
+// N rows, the instantiation without the row select.  K4: one instantiation
+// (<N, false, true>) for every bucket, so that each N compiles K4's own-rows
+// sweeps once; none of them has the select, and its late pairs choose the
+// sweep with or without it in the kernel.
+template <bool kPerBase, int N>
+int launch_rows(const Call& a) {
+  if constexpr (kPerBase)
+    return a.R == 32 * N ? launch_pairhmm<N, true, false>(a)
+                         : launch_pairhmm<N, true, true>(a);
+  else
+    return launch_pairhmm<N, false, true>(a);
+}
+
 template <bool kPerBase>
 int dispatch_rows(const Call& a) {
   if (a.R < 1 || a.H < 1) return (int)cudaErrorInvalidValue;
   switch ((a.R + 31) / 32) {
-#define FGT_CASE(N)                                             \
-  case N:                                                       \
-    return a.R == 32 * N ? launch_pairhmm<N, kPerBase, false>(a) \
-                         : launch_pairhmm<N, kPerBase, true>(a);
+#define FGT_CASE(N) \
+  case N:           \
+    return launch_rows<kPerBase, N>(a);
     FGT_CASE(1)
     FGT_CASE(2)
     FGT_CASE(3)
@@ -493,11 +692,11 @@ extern "C" int fgt_pairhmm(const void* read, const void* base_q,
                            const void* hap, const void* hlen, int B, int R,
                            int H, float p_ins, float p_del, float p_cont,
                            float a_mm, float a_im, void* logp_out,
-                           void* stream) {
+                           void* queue, void* stream) {
   const Trans tr{p_ins, p_del, p_cont, a_mm, a_im, nullptr, nullptr,
                  nullptr};
   return dispatch_rows<false>(Call{read, base_q, table, rlen, hap, hlen, B,
-                                   R, H, tr, logp_out, stream});
+                                   R, H, tr, logp_out, queue, stream});
 }
 
 extern "C" int fgt_pairhmm_pb(const void* read, const void* base_q,
@@ -509,5 +708,5 @@ extern "C" int fgt_pairhmm_pb(const void* read, const void* base_q,
   const Trans tr{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, (const uint8_t*)ins_q,
                  (const uint8_t*)del_q, (const uint8_t*)gcp};
   return dispatch_rows<true>(Call{read, base_q, table, rlen, hap, hlen, B, R,
-                                  H, tr, logp_out, stream});
+                                  H, tr, logp_out, nullptr, stream});
 }

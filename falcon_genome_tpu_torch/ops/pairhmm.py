@@ -130,6 +130,8 @@ _PHRED_PROB_BITS = (
 )
 
 _prob_tables: dict[torch.device, torch.Tensor] = {}
+_PHRED_PROB = np.array(_PHRED_PROB_BITS, np.uint32).view(np.float32)
+_queues: dict[tuple, torch.Tensor] = {}   # K4's, by (device, stream)
 
 
 def _prob_table(device: torch.device) -> torch.Tensor:
@@ -139,8 +141,7 @@ def _prob_table(device: torch.device) -> torch.Tensor:
     with _launch_lock:
         table = _prob_tables.get(device)
         if table is None:
-            bits = np.array(_PHRED_PROB_BITS, np.uint32).view(np.float32)
-            table = torch.from_numpy(bits).to(device)
+            table = torch.from_numpy(_PHRED_PROB.copy()).to(device)
             _prob_tables[device] = table
         return table
 
@@ -407,6 +408,54 @@ def _late_rescale(min_prior, bound, a_im):
     return ~(_mul(min_prior, _mul(bound, a_im)) >= RESCALE_THRESH)
 
 
+def _k4_work(quals, read_lens, hap_lens, pair_read, pair_hap,
+             ins_q: int, del_q: int, gcp: int, R: int, H: int) -> dict:
+    """What K4 sweeps for a call of :func:`pairhmm_logp_pairs` with these
+    arguments in the bucket (R, H), by the kernel's own rule.  A pair with
+    1 <= rlen <= R whose row 0 stays above the rescale threshold
+    (:func:`_late_rescale` false, in the kernel's float32 arithmetic)
+    sweeps its own ceil(rlen / 32) rows a thread over rlen + hlen
+    diagonals (``fitted``); any other pair the bucket's ceil(R / 32) rows
+    over min(rlen + hlen, R + H) diagonals, or R + H where late.
+    ``cells``: the matrices' cells, sum rlen x hlen; ``slots``: the cells
+    swept, sum 32 x rows a thread x diagonals."""
+    f32 = np.float32
+    first_q = _host_plane(quals, len(read_lens), R, 0, False).numpy()[:, 0]
+    rl = np.asarray(read_lens, np.int64)
+    hl = np.asarray(hap_lens, np.int64)
+    pe = _PHRED_PROB[first_q]
+    prior = np.minimum(f32(1.0) - pe, pe * f32(1.0 / 3.0))
+    row0 = f32(2.0 ** 120) / np.maximum(hl.astype(f32), f32(1.0)) * \
+        f32(_transitions(ins_q, del_q, gcp)[4])   # row 0's M over its prior
+    has_row = (rl >= 1) & (rl <= R)
+    pair_read, pair_hap = np.asarray(pair_read), np.asarray(pair_hap)
+    prl, phl = rl[pair_read], hl[pair_hap]
+    fitted = (prior[pair_read] * row0[pair_hap] >= f32(RESCALE_THRESH)) \
+        & has_row[pair_read]
+    rows = np.where(fitted, (prl + 31) // 32, (R + 31) // 32)
+    diags = np.where(has_row[pair_read] & ~fitted, R + H,
+                     np.minimum(prl + phl, R + H))
+    return {"pairs": len(fitted), "fitted": int(fitted.sum()),
+            "cells": int(prl @ phl), "slots": 32 * int(rows @ diags)}
+
+
+def _launch_queue(device: torch.device, stream) -> torch.Tensor:
+    """K4's queue for launches on ``stream`` (the device's current one;
+    None on the CPU): int32[2], zeroed once.  Each launch's last warp sets
+    it back to zero, and the launches of one stream run one after
+    another, so each starts from zero; launches on other streams or
+    devices take queues of their own."""
+    key = (device, stream)
+    queue = _queues.get(key)
+    if queue is None:
+        with _launch_lock:
+            queue = _queues.get(key)
+            if queue is None:
+                queue = _queues[key] = torch.zeros(2, dtype=torch.int32,
+                                                   device=device)
+    return queue
+
+
 def _check_kernel_inputs(name: str, R: int, typed) -> None:
     """What the kernels do not take: a read bucket past 384 rows, or a
     tensor (``typed`` pairs each with its dtype) of another dtype or on
@@ -428,11 +477,12 @@ def _pairhmm_sc_launch(lib, read, base_q, rlen, hap, hlen, trans, stream
     B, R = read.shape
     H = hap.shape[1]
     table = _prob_table(read.device)
+    queue = _launch_queue(read.device, stream)
     logp = torch.empty(B, dtype=torch.float32, device=read.device)
     err = lib.fgt_pairhmm(
         read.data_ptr(), base_q.data_ptr(), table.data_ptr(),
         rlen.data_ptr(), hap.data_ptr(), hlen.data_ptr(), B, R, H, *trans,
-        logp.data_ptr(), stream)
+        logp.data_ptr(), queue.data_ptr(), stream)
     _build.check(err, "fgt_pairhmm")
     return logp
 
@@ -637,8 +687,10 @@ def pairhmm_logp_pairs(reads, quals, read_lens, haps, hap_lens,
     of its devices (``parallel.mesh.call_device``).  Under a profiler
     session the call and its steps are spans (``utils/spans.py``):
     ``pairhmm.call``, then ``pairhmm.tables``, ``pairhmm.copy_in``,
-    ``pairhmm.gather``, ``pairhmm.launch``, ``pairhmm.wait`` and
-    ``pairhmm.free``."""
+    ``pairhmm.gather``, ``pairhmm.launch`` (with K4's work,
+    :func:`_k4_work`, counted when the spans are read, from references to
+    the call's arguments: the caller leaves them as they are until then),
+    ``pairhmm.wait`` and ``pairhmm.free``."""
     B = len(pair_read)
     if B == 0:
         return np.zeros(0, np.float32)
@@ -681,8 +733,14 @@ def _logp_pairs(reads, quals, read_lens, haps, hap_lens, pair_read,
                                      for t in tables]
     with step("pairhmm.gather"):
         tiles = (rd[pr], q[pr], rl[pr], hp[ph], hl[ph])
-    with step("pairhmm.launch"):
+    with step("pairhmm.launch") as launch:
         logp = pairhmm_sc(*tiles, int(ins_q), int(del_q), int(gcp))
+        if launch is not None:
+            # a dozen numpy calls on the pairs: at read time, not here,
+            # where they wait for the GIL behind the other callers
+            launch.later(functools.partial(
+                _k4_work, quals, read_lens, hap_lens, pair_read, pair_hap,
+                int(ins_q), int(del_q), int(gcp), R, H))
     with step("pairhmm.wait", cpu=True):
         out = logp.cpu().numpy()
     # the call's tensors are released in a step of their own and not at

@@ -28,7 +28,9 @@ session an entry pays one check a call: :func:`active`, then :func:`off`
 for its steps, which hands back one shared context that does nothing.
 
 Records go to a buffer per thread (no lock a span); :func:`spans`
-returns them all and :func:`reset` drops them.  Nothing is written: the
+returns them all and :func:`reset` drops them.  Attributes that cost
+work to find can be left to :func:`spans`, which adds them when it reads
+the span (``_Open.later``), off the path that the span times.  Nothing is written: the
 profiler's trace is the export.
 """
 from __future__ import annotations
@@ -62,6 +64,7 @@ _calls = itertools.count(1)
 _local = threading.local()
 _buffers: list[tuple[threading.Thread, list[Span]]] = []
 _buffers_lock = threading.Lock()
+_LATER = "_later"   # the attributes a span leaves to spans()
 
 
 def active() -> bool:
@@ -115,6 +118,11 @@ class _Open:
         self.t0 = time.perf_counter_ns()
         return self
 
+    def later(self, attrs) -> None:
+        """Add ``attrs()`` (a dict) to the span's attributes when
+        :func:`spans` reads it, and not now."""
+        self.attrs.setdefault(_LATER, []).append(attrs)
+
     def __exit__(self, exc_type, exc, tb):
         t1 = time.perf_counter_ns()
         cpu = time.thread_time_ns() - self.c0 if self.cpu else None
@@ -136,11 +144,16 @@ def span(name: str, cpu: bool = False, **attrs):
 
 
 def spans() -> list[Span]:
-    """Every recorded span of every thread, by start."""
+    """Every recorded span of every thread, by start, each with the
+    attributes that it left for now (``_Open.later``)."""
     with _buffers_lock:
         buffers = [b for _, b in _buffers]
-    return sorted((s for b in buffers for s in list(b)),
-                  key=lambda s: (s.start_ns, s.id))
+    out = sorted((s for b in buffers for s in list(b)),
+                 key=lambda s: (s.start_ns, s.id))
+    for s in out:
+        for attrs in s.attrs.pop(_LATER, ()):
+            s.attrs.update(attrs())
+    return out
 
 
 def reset() -> None:

@@ -185,6 +185,41 @@ def phred_planes(rl, R, ins, dele, gcp):
                  for v in (ins, dele, gcp))
 
 
+# read lengths on both sides of each step of K4's own rows a thread
+# (ceil(rlen / 32)), up to the cells' 150-base reads
+OWN_LENGTHS = (1, 31, 32, 33, 64, 65, 96, 97, 128, 129, 150)
+
+
+def own_rows_pairs(seed, R, H, copies):
+    """``copies`` pairs of each of ``OWN_LENGTHS`` and R - 1, R (where
+    they fit the bucket), each read cut from a haplotype of its own with
+    4% substitutions, base qualities 10-40: pairs whose rescale cannot
+    fire, which K4 sweeps over their own rows."""
+    rng = np.random.default_rng(seed)
+    rl = np.array(sorted({n for n in OWN_LENGTHS + (R - 1, R) if n <= R})
+                  * copies, np.int32)
+    n = len(rl)
+    hl = rng.integers(rl, H + 1).astype(np.int32)
+    haps = rng.integers(0, 4, (n, H)).astype(np.uint8)
+    reads = np.full((n, R), 4, np.uint8)
+    for b in range(n):
+        s = int(rng.integers(0, hl[b] - rl[b] + 1))
+        seg = haps[b, s:s + rl[b]].copy()
+        m = rng.random(rl[b]) < 0.04
+        seg[m] = (seg[m] + 1) % 4
+        reads[b, :rl[b]] = seg
+    q = rng.integers(10, 41, (n, R)).astype(np.uint8)
+    return reads, q, rl, haps, hl
+
+
+def shuffled(seed, *parts):
+    """The pairs of ``parts`` (lane-major tuples) in one launch, in an
+    order drawn from ``seed``."""
+    lanes = [np.concatenate(x) for x in zip(*parts)]
+    order = np.random.default_rng(seed).permutation(len(lanes[2]))
+    return tuple(x[order] for x in lanes)
+
+
 # read and haplotype buckets of the card tests: the main shape, then one
 # bucket for each kind of instantiation (rows not a multiple of 32, one
 # row per thread, eight rows per thread) with short and long haplotypes,
@@ -366,6 +401,33 @@ def test_pairhmm_kernels_rescale_at_diagonal_64_on_card(cuda_device, R, H):
                   [p.to(cuda_device) for p in planes]).cpu().numpy()
         assert np.isfinite(want).all(), name
         np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,H,copies", [(152, 384, 270), (384, 384, 121)])
+def test_pairhmm_k4_own_rows_and_queue_on_card(cuda_device, R, H, copies):
+    """K4 bit-equal to the plain version on launches that mix pairs over
+    their own rows (every step of ceil(rlen / 32) up to the bucket's) with
+    pairs that need the bucket's rows: the quality-0 rescue pairs at
+    45/45/10, the pairs rescaled at diagonal 64 at 45/0/13.  Each launch
+    holds more pairs than the card runs warps at once, a count that is
+    not a multiple of 8, and runs twice on its stream's queue, which it
+    leaves at zero."""
+    cases = (((INS, DEL, GCP), rescale_pairs(3, 16, R, H)),
+             ((EARLY_INS, EARLY_DEL, EARLY_GCP),
+              early_rescale_pairs(R, H)))
+    for i, (scalars, late) in enumerate(cases):
+        lanes = shuffled(i, own_rows_pairs(20 + i, R, H, copies), late)
+        args = [torch.from_numpy(x) for x in lanes]
+        assert len(args[2]) > 1500 and len(args[2]) % 8
+        want = P.pairhmm_sc(*args, *scalars)
+        on_card = [a.to(cuda_device) for a in args]
+        for _ in range(2):
+            got = P.pairhmm_sc(*on_card, *scalars).cpu()
+            assert torch.equal(got, want), (i, (got != want).sum())
+        stream = torch.cuda.current_stream(cuda_device).cuda_stream
+        queue = P._launch_queue(on_card[0].device, stream)
+        assert queue.tolist() == [0, 0]
 
 
 @pytest.mark.cuda

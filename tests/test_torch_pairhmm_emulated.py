@@ -17,8 +17,14 @@ and (from 64 rows on) with the card tests' pairs that are finite only
 through the 2^100 rescale at diagonal 64; and on the card tests' pairs
 rescaled through pad rows and at diagonal 320, with one whose mass
 passes through float32's subnormal range, and quality-0 pairs rescaled
-on a multiple of 64 past their own last diagonal.  Each case checks that its
-inputs do what it says.  Skips only where g++ is missing.
+on a multiple of 64 past their own last diagonal.  K4 sweeps a pair over
+its own ceil(rlen / 32) rows a thread where its rescale cannot fire, and
+its warps take pairs from a queue: launches that mix such pairs of every
+rows-a-thread step with pairs that need the bucket's rows (quality-0
+first bases; the pairs rescaled at diagonal 64), more pairs than the
+emulated grid has warps, hold K4 to the plain version too.  Each case
+checks that its inputs do what it says.  Skips only where g++ is
+missing.
 """
 import ctypes
 import math
@@ -37,7 +43,7 @@ from falcon_genome_tpu_torch.ops import pairhmm as P
 sys.path.insert(0, str(Path(__file__).parent))
 from test_torch_kernels import (  # noqa: E402
     EARLY_DEL, EARLY_GCP, EARLY_INS, GCP, early_rescale_pairs, indel_planes,
-    pad_row_pairs, phred_planes, rescale_pairs)
+    own_rows_pairs, pad_row_pairs, phred_planes, rescale_pairs, shuffled)
 
 torch.set_num_threads(1)
 
@@ -213,3 +219,92 @@ def test_emulated_kernels_flush_as_plain(emu_lib):
     for want in (want4, want5):
         assert torch.isfinite(want[:-1]).any()
         assert torch.isneginf(want[-1])
+
+
+# the emulated card's warps: kEmuSMs blocks of 8 (csrc/emu/cuda_runtime.h)
+EMU_WARPS = 16
+
+
+def _late(lanes, scalars, R, H):
+    """Which pairs need the bucket's rows (the plain version's
+    ``_late_rescale``), and how many take their own (``_k4_work``)."""
+    _, q, rl, _, hl = lanes
+    p_err = P._phred_to_prob(torch.from_numpy(q[:, 0]))
+    prior = torch.minimum(1.0 - p_err, p_err * torch.tensor(
+        1.0 / 3.0, dtype=torch.float32))
+    bound = torch.tensor(2.0 ** 120, dtype=torch.float32) / torch.clamp(
+        torch.from_numpy(hl).float(), min=1.0)
+    a_im = torch.tensor(P._transitions(*scalars)[4], dtype=torch.float32)
+    late = P._late_rescale(prior, bound, a_im).numpy()
+    pairs = np.arange(len(rl))
+    own = P._k4_work(q, rl, hl, pairs, pairs, *scalars, R, H)["fitted"]
+    return late, own
+
+
+def _in_bucket(lanes, R):
+    """Lane-major pairs of a smaller read bucket in the bucket R: N bases
+    and phred 0 past their reads."""
+    reads, q, rl, haps, hl = lanes
+    pad = ((0, 0), (0, R - reads.shape[1]))
+    return (np.pad(reads, pad, constant_values=4), np.pad(q, pad), rl,
+            haps, hl)
+
+
+@pytest.mark.parametrize("R,H", [(152, 384), (384, 384)])
+def test_emulated_k4_own_rows_and_queue(emu_lib, R, H, monkeypatch):
+    """K4 bit-equal to the plain version on launches that mix pairs over
+    their own rows (every step of ceil(rlen / 32) up to the bucket's) with
+    pairs that need the bucket's rows: the quality-0 rescue pairs of up to
+    160 bases at 45/45/10 (rescaled, all but the last, which has no
+    rescale diagonal), the pairs rescaled at diagonal 64 at 45/0/13, and
+    in the 384-row bucket quality-0 pairs of 380-384 bases, which no
+    rescale keeps finite.  Each launch holds more pairs than the emulated
+    grid has warps, a count that is not a multiple of 8, and leaves its
+    queue at zero for the next.  ``rescued``: how many of a case's late
+    pairs, from its first, the rescale keeps finite."""
+    cases = [(SCALARS, _in_bucket(rescale_pairs(3, 5, min(R, 160), H), R),
+              4),
+             (EARLY, early_rescale_lanes(R, H), len(
+                 early_rescale_lanes(R, H)[2]))]
+    if R > 160:
+        cases.append((SCALARS, rescale_pairs(3, 5, R, H), 0))
+    for i, (scalars, late_pairs, rescued) in enumerate(cases):
+        own_pairs = own_rows_pairs(10 + i, R, H, 3)
+        n_late = len(late_pairs[2])
+        # each late pair tagged with its index, the others with -1
+        *lanes, tag = shuffled(i, (*own_pairs, np.full(len(own_pairs[2]),
+                                                      -1)),
+                               (*late_pairs, np.arange(n_late)))
+        lanes = tuple(lanes)
+        B = len(lanes[2])
+        assert B > EMU_WARPS and B % 8
+        late, own = _late(lanes, scalars, R, H)
+        assert late.sum() == n_late and (late == (tag >= 0)).all()
+        assert own == B - n_late
+        want = _hold_k4(emu_lib, lanes, scalars)
+        assert torch.isfinite(want[torch.from_numpy(~late)]).any()
+        queue = P._launch_queue(torch.device("cpu"), None)
+        assert queue.tolist() == [0, 0]
+        # the rescued pairs: finite, and each that goes on past diagonal 64
+        # (one that ends there has its sum rescaled, not its cells) another
+        # value in the plain version without the rescale
+        kept = (tag >= 0) & (tag < rescued)
+        assert torch.isfinite(want[torch.from_numpy(kept)]).all()
+        assert torch.isneginf(want[torch.from_numpy(tag >= rescued)]).all()
+        kept &= lanes[2] + lanes[4] > 64
+        assert kept.sum() >= min(rescued, 3)
+        rescaled = want[torch.from_numpy(kept)]
+        with monkeypatch.context() as m:
+            m.setattr(P, "RESCALE_THRESH", 0.0)
+            unscaled = P.pairhmm_sc(*_tensors(*(x[kept] for x in lanes)),
+                                    *scalars)
+        assert (unscaled != rescaled).all(), (unscaled, rescaled)
+
+
+def test_emulated_k4_queue_over_many_launches(emu_lib):
+    """Launches of 1 to 37 pairs back to back on one queue, each
+    bit-equal to the plain version: a launch that left its queue short
+    of zero would skip pairs of the next."""
+    lanes = own_rows_pairs(5, 64, 72, 3)
+    for n in (37, 1, 9, 16, 17):
+        _hold_k4(emu_lib, tuple(x[:n] for x in lanes), SCALARS)

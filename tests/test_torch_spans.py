@@ -106,12 +106,13 @@ def check_call(group, steps):
 
 @pytest.mark.parametrize("entry", sorted(ENTRIES))
 def test_no_profiler_records_nothing(entry, monkeypatch):
-    """Without a profiler session a call records no span and makes no
-    profiler annotation."""
-    def refuse(name):
-        raise AssertionError(f"annotation {name!r} without a session")
+    """Without a profiler session a call records no span, makes no
+    profiler annotation and leaves no K4 work to count."""
+    def refuse(*args):
+        raise AssertionError(f"{args!r} without a session")
 
     monkeypatch.setattr(spans, "_annotate", refuse)
+    monkeypatch.setattr(P, "_k4_work", refuse)
     fn, _ = ENTRIES[entry]
     assert not spans.active()
     fn(1)
@@ -146,6 +147,84 @@ def test_call_spans_nest_in_order(entry, tmp_path):
     a, b = marks[0]["ts"], marks[0]["ts"] + marks[0]["dur"]
     for e in marks[1:]:
         assert a <= e["ts"] and e["ts"] + e["dur"] <= b
+
+
+def crafted_pairs(R=72, H=80):
+    """Reads of 0, 1, 31, 32, 33, 40 and R bases, the second of each
+    length with a quality-0 first base (its rescale can fire late), each
+    against two haplotypes of 1 and H bases."""
+    rng = np.random.default_rng(7)
+    rl = np.repeat(np.array([0, 1, 31, 32, 33, 40, R], np.int32), 2)
+    reads = rng.integers(0, 4, (len(rl), R)).astype(np.uint8)
+    quals = rng.integers(10, 41, reads.shape).astype(np.uint8)
+    quals[1::2, 0] = 0
+    haps = rng.integers(0, 4, (2, H)).astype(np.uint8)
+    hl = np.array([1, H], np.int32)
+    pr = np.repeat(np.arange(len(rl)), 2)
+    ph = np.tile(np.arange(2), len(rl))
+    return reads, quals, rl, haps, hl, pr, ph
+
+
+def k4_count(q0, rl, hl, gcp, R, H):
+    """K4's work pair by pair, apart from ``_k4_work``: the plain
+    version's ``_late_rescale`` on row 0's priors, then the rows a thread
+    and diagonals the kernel's source gives a pair."""
+    f32 = torch.float32
+    a_im = 1.0 - P._phred_to_prob(gcp)
+    work = {"pairs": len(rl), "fitted": 0, "cells": 0, "slots": 0}
+    for q, r, h in zip(q0.tolist(), rl.tolist(), hl.tolist()):
+        p_err = P._phred_to_prob(q)
+        prior = torch.minimum(1.0 - p_err,
+                              p_err * torch.tensor(1.0 / 3.0, dtype=f32))
+        bound = torch.tensor(2.0 ** 120, dtype=f32) / max(float(h), 1.0)
+        late = bool(P._late_rescale(prior, bound, a_im))
+        has_row = 1 <= r <= R
+        own = has_row and not late
+        rows = -(-r // 32) if own else -(-R // 32)
+        diags = R + H if has_row and late else min(r + h, R + H)
+        work["fitted"] += own
+        work["cells"] += r * h
+        work["slots"] += 32 * rows * diags
+    return work
+
+
+@pytest.mark.parametrize("gcp", [10, 0])
+def test_launch_counts_k4_work(gcp):
+    """The ``pairhmm.launch`` span of ``pairhmm_logp_pairs`` carries K4's
+    work (pairs, those over their own rows, matrix cells, cell slots
+    swept), equal to a count pair by pair; at gap continuation phred 0
+    every pair with a row is late."""
+    reads, quals, rl, haps, hl, pr, ph = crafted_pairs()
+    want = k4_count(quals[pr, 0], rl[pr], hl[ph], gcp, 72, 80)
+    assert 0 < want["fitted"] < want["pairs"] - 2 if gcp else \
+        want["fitted"] == 0
+    params = P.PairHMMParams(max_read_len=72, max_hap_len=80, device=CPU)
+    with profile(activities=[ProfilerActivity.CPU]):
+        P.pairhmm_logp_pairs(reads, quals, rl, haps, hl, pr, ph, 45, 45,
+                             gcp, params=params)
+    launch, = [s for s in spans.spans() if s.name == "pairhmm.launch"]
+    assert launch.attrs == want
+
+
+def test_k4_work_counted_when_read(monkeypatch):
+    """A traced call leaves K4's work to the reading of its spans: the
+    count runs once, in ``spans.spans()``, and not inside the call."""
+    counted = []
+
+    def count(*args):
+        counted.append(args)
+        return {"pairs": len(args[3])}
+
+    monkeypatch.setattr(P, "_k4_work", count)
+    reads, quals, rl, haps, hl, pr, ph = crafted_pairs()
+    params = P.PairHMMParams(max_read_len=72, max_hap_len=80, device=CPU)
+    with profile(activities=[ProfilerActivity.CPU]):
+        P.pairhmm_logp_pairs(reads, quals, rl, haps, hl, pr, ph, 45, 45,
+                             10, params=params)
+        assert counted == []
+    for _ in range(2):
+        launch, = [s for s in spans.spans() if s.name == "pairhmm.launch"]
+        assert launch.attrs == {"pairs": len(pr)} and len(counted) == 1
 
 
 def test_threads_keep_their_calls():
