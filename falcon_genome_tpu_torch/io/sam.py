@@ -10,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 import re
 
+import numpy as np
+
 from ..utils.errors import InvalidParam
 
 # --- flags (SAM spec) -------------------------------------------------------
@@ -150,6 +152,37 @@ class SamRecord:
     def get_tag(self, name: str):
         t = self.tags.get(name)
         return None if t is None else t[1]
+
+
+# GATK 3's BQSR writes a read's recalibrated insertion and deletion
+# qualities as the ``BI`` and ``BD`` tags (phred + 33, one a base)
+INDEL_QUAL_TAGS = ("BI", "BD")
+
+
+def indel_quals(rec: SamRecord) -> tuple[np.ndarray | None,
+                                         np.ndarray | None]:
+    """The read's ``BI`` and ``BD`` phreds (uint8, one a base), each None
+    where the read lacks the tag.  A read whose raw BAM tags hold neither
+    tag's name is answered without decoding its tags."""
+    raw = rec._raw_tags
+    if raw is not None and not rec._tags:
+        raw = bytes(raw)
+        if b"BIZ" not in raw and b"BDZ" not in raw:
+            return None, None
+    out = []
+    for name in INDEL_QUAL_TAGS:
+        t = rec.tags.get(name)
+        if t is None:
+            out.append(None)
+            continue
+        if t[0] != "Z":
+            raise InvalidParam(f"{rec.qname}: {name} tag of type {t[0]!r}")
+        phreds = np.frombuffer(t[1].encode(), np.uint8) - np.uint8(33)
+        if rec.seq not in ("*", "") and len(phreds) != len(rec.seq):
+            raise InvalidParam(f"{rec.qname}: {name} has {len(phreds)} "
+                               f"qualities for {len(rec.seq)} bases")
+        out.append(phreds)
+    return out[0], out[1]
 
 
 @dataclasses.dataclass

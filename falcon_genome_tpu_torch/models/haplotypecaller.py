@@ -22,7 +22,7 @@ import torch
 
 from ..device import DEFAULT_DEVICE
 from ..io.dna import decode_seq, encode_seq
-from ..io.sam import CIGAR_D, CIGAR_M, SamRecord, cigar_ref_len
+from ..io.sam import CIGAR_D, CIGAR_M, SamRecord, cigar_ref_len, indel_quals
 from ..io.vcf import VcfRecord
 
 from ..ops.pairhmm import PairHMMParams, pairhmm_logp, pairhmm_logp_pairs
@@ -38,20 +38,17 @@ LIKELIHOOD_CAP = 6.0  # per-read dynamic-range cap in log10 (GATK's global
                       # read-mismapping floor): L(r|h) is floored at
                       # best_h L(r|h) - cap, which also absorbs f32
                       # underflow (-inf) for hopeless read×hap pairs
+# the PairHMM's gap-open phred of a read without BI/BD tags (GATK 3's
+# default insertion and deletion quality; HaplotypeCaller's constant)
+GAP_OPEN_PHRED = 45
 
 
-def clip_read_to_region(rec: SamRecord, rstart: int, rend: int
-                        ) -> tuple[str, str]:
-    """Trim a read's seq/qual to the part aligned inside [rstart, rend).
-
-    GATK hard-clips reads to the padded active region before PairHMM;
-    without this, the out-of-region tail mismatches every haplotype and
-    destroys the likelihood's dynamic range.
-    """
+def _clip_bounds(rec: SamRecord, rstart: int, rend: int
+                 ) -> tuple[int, int] | None:
+    """The query span [lo, hi) of a read aligned inside [rstart, rend),
+    None where no aligned base falls there."""
     from ..io.sam import (
         CIGAR_EQ, CIGAR_I as CI, CIGAR_S as CS, CIGAR_X)
-    seq, qual = rec.seq, rec.qual
-    qlo, qhi = 0, len(seq)
     i, rpos = 0, rec.pos
     lo_q, hi_q = None, None
     for op, n in rec.cigar:
@@ -69,10 +66,54 @@ def clip_read_to_region(rec: SamRecord, rstart: int, rend: int
             rpos += n
         if consumes_q:
             i += n
-    if lo_q is None:
+    return None if lo_q is None else (lo_q, hi_q)
+
+
+def clip_read_to_region(rec: SamRecord, rstart: int, rend: int
+                        ) -> tuple[str, str]:
+    """Trim a read's seq/qual to the part aligned inside [rstart, rend).
+
+    GATK hard-clips reads to the padded active region before PairHMM;
+    without this, the out-of-region tail mismatches every haplotype and
+    destroys the likelihood's dynamic range.
+    """
+    bounds = _clip_bounds(rec, rstart, rend)
+    if bounds is None:
         return "", ""
-    qlo, qhi = lo_q, hi_q
+    qlo, qhi = bounds
+    seq, qual = rec.seq, rec.qual
     return seq[qlo:qhi], (qual[qlo:qhi] if qual not in ("*", "") else qual)
+
+
+def clip_read(rec: SamRecord, rstart: int, rend: int):
+    """A read clipped to [rstart, rend) as the PairHMM takes it: (base
+    codes, base phreds, BI phreds, BD phreds), the tags clipped with the
+    bases and each None where the read lacks it.  A read without
+    qualities takes phred 30 a base.  BI/BD are taken as written: the
+    port floors no quality before the PairHMM."""
+    lo, hi = _clip_bounds(rec, rstart, rend) or (0, 0)
+    codes = (encode_seq(rec.seq[lo:hi]) if hi > lo
+             else np.zeros(0, np.uint8))
+    q = (np.frombuffer(rec.qual[lo:hi].encode(), np.uint8) - 33
+         if rec.qual not in ("*", "") and hi > lo
+         else np.full(len(codes), 30, np.uint8))
+    return (codes, q, *(None if t is None else t[lo:hi]
+                        for t in indel_quals(rec)))
+
+
+def gap_open_row(out: np.ndarray, tag, n: int) -> None:
+    """A read's gap-open phreds into ``out`` (its row of a plane, phred 0
+    past the read): the tag's values, and :data:`GAP_OPEN_PHRED` over the
+    first ``n`` rows where it has none (GATK 3's
+    ``getBaseInsertionQualities`` for a read without the tag)."""
+    out[:n] = GAP_OPEN_PHRED
+    if tag is not None:
+        out[:len(tag)] = tag
+
+
+def _has_indel_quals(clipped) -> bool:
+    return any(bi is not None or bd is not None
+               for _, _, bi, bd in clipped)
 
 
 def normalize_read_likelihoods(logp: np.ndarray,
@@ -145,26 +186,27 @@ def read_hap_likelihood_matrix(reads: list[SamRecord],
                                ) -> tuple[np.ndarray, list[np.ndarray]]:
     """Clip reads to the region, batch PairHMM over read×hap pairs, floor.
 
+    Reads that carry BQSR's BI/BD tags give the PairHMM per-base gap-open
+    planes (kernel K5; :func:`gap_open_row` for the reads without them);
+    with no tag in the region the gap opens are the constant
+    :data:`GAP_OPEN_PHRED` (kernel K4).
     Returns ((n_reads, n_haps) log10 matrix, clipped read code arrays).
     """
-    clipped: list[tuple[np.ndarray, np.ndarray]] = []
-    for rec in reads:
-        seq, qual = clip_read_to_region(rec, rstart, rend)
-        codes = encode_seq(seq) if seq else np.zeros(0, np.uint8)
-        q = (np.frombuffer(qual.encode(), np.uint8) - 33
-             if qual not in ("*", "") and qual
-             else np.full(len(codes), 30, np.uint8))
-        clipped.append((codes, q))
+    clipped = [clip_read(rec, rstart, rend) for rec in reads]
 
     n_r, n_h = len(reads), len(haps)
-    maxrl = max(8, max((len(c) for c, _ in clipped), default=8))
+    maxrl = max(8, max((len(c) for c, *_ in clipped), default=8))
     maxhl = max(8, max(len(h) for h in haps))
     codes = np.full((n_r * n_h, maxrl), 4, np.uint8)
     quals = np.zeros((n_r * n_h, maxrl), np.uint8)
     rlens = np.zeros(n_r * n_h, np.int32)
     hcodes = np.full((n_r * n_h, maxhl), 4, np.uint8)
     hlens = np.zeros(n_r * n_h, np.int32)
-    for ri, (rc, q) in enumerate(clipped):
+    ins = dels = GAP_OPEN_PHRED
+    if _has_indel_quals(clipped):
+        ins = np.zeros((n_r * n_h, maxrl), np.uint8)
+        dels = np.zeros((n_r * n_h, maxrl), np.uint8)
+    for ri, (rc, q, bi, bd) in enumerate(clipped):
         for hi, h in enumerate(haps):
             b = ri * n_h + hi
             codes[b, :len(rc)] = rc
@@ -172,11 +214,15 @@ def read_hap_likelihood_matrix(reads: list[SamRecord],
             rlens[b] = max(len(rc), 1)
             hcodes[b, :len(h)] = h
             hlens[b] = len(h)
+        if np.ndim(ins):    # the read's row, then its other pairs'
+            for plane, tag in ((ins, bi), (dels, bd)):
+                gap_open_row(plane[ri * n_h], tag, rlens[ri * n_h])
+                plane[ri * n_h:(ri + 1) * n_h] = plane[ri * n_h]
     logp = np.asarray(pairhmm_logp(
-        codes, quals, 45, 45, gcp, rlens, hcodes, hlens,
+        codes, quals, ins, dels, gcp, rlens, hcodes, hlens,
         params=_default_pairhmm_params(maxrl, maxhl, device)))
     mat = normalize_read_likelihoods(logp.reshape(n_r, n_h))
-    return mat, [c for c, _ in clipped]
+    return mat, [c for c, *_ in clipped]
 
 
 def _hap_to_ref_events_multi(items: list[tuple[list[np.ndarray],
@@ -222,10 +268,13 @@ def _likelihoods_multi(staged: list[dict], gcp: int,
     """Batched PairHMM across regions via the pair-indexed dispatch:
     unique reads/haps ship once per chunk and the (read ⊗ hap) cross
     products expand on device (ops/pairhmm.pairhmm_logp_pairs) —
-    returns per-region floored matrices."""
+    returns per-region floored matrices.  Each region's ``clipped`` holds
+    its reads as :func:`clip_read` gives them; a chunk in which any read
+    carries BI/BD passes (n_reads, maxrl) gap-open tables (kernel K5),
+    any other the constant :data:`GAP_OPEN_PHRED` (kernel K4)."""
     maxrl, maxhl = 8, 8
     for s in staged:
-        maxrl = max(maxrl, max((len(c) for c, _ in s["clipped"]),
+        maxrl = max(maxrl, max((len(c) for c, *_ in s["clipped"]),
                                default=8))
         maxhl = max(maxhl, max(len(h) for h in s["haps"]))
     params = _default_pairhmm_params(maxrl, maxhl, device)
@@ -252,14 +301,21 @@ def _likelihoods_multi(staged: list[dict], gcp: int,
         rlv = np.ones(n_reads, np.int32)
         htab = np.full((n_haps, maxhl), 4, np.uint8)
         hlv = np.ones(n_haps, np.int32)
+        ins = dels = GAP_OPEN_PHRED
+        if any(_has_indel_quals(s["clipped"]) for s in chunk):
+            ins = np.zeros((n_reads, maxrl), np.uint8)
+            dels = np.zeros((n_reads, maxrl), np.uint8)
         pr_parts, ph_parts, spans = [], [], []
         roff = hoff = poff = 0
         for s in chunk:
             n_r, n_h = len(s["clipped"]), len(s["haps"])
-            for ri, (rc, q) in enumerate(s["clipped"]):
+            for ri, (rc, q, bi, bd) in enumerate(s["clipped"]):
                 rtab[roff + ri, :len(rc)] = rc
                 qtab[roff + ri, :len(q)] = q
                 rlv[roff + ri] = max(len(rc), 1)
+                if np.ndim(ins):
+                    gap_open_row(ins[roff + ri], bi, rlv[roff + ri])
+                    gap_open_row(dels[roff + ri], bd, rlv[roff + ri])
             for hi, h in enumerate(s["haps"]):
                 htab[hoff + hi, :len(h)] = h
                 hlv[hoff + hi] = len(h)
@@ -282,7 +338,7 @@ def _likelihoods_multi(staged: list[dict], gcp: int,
             pairhmm_logp_pairs(rtab, qtab, rlv, htab, hlv,
                                pr[s0:s0 + MAX_PAIRS],
                                ph[s0:s0 + MAX_PAIRS],
-                               45, 45, gcp, params=params)
+                               ins, dels, gcp, params=params)
             for s0 in range(0, len(pr), MAX_PAIRS)]
         logp = (np.concatenate(logp_parts) if len(logp_parts) > 1
                 else logp_parts[0])
@@ -408,16 +464,9 @@ class HaplotypeCaller:
             if not reads:
                 continue
             region_ref = ref[rstart:rend]
-            clipped = []
-            for rec in reads:
-                seq, qual = clip_read_to_region(rec, rstart, rend)
-                codes = encode_seq(seq) if seq else np.zeros(0, np.uint8)
-                q = (np.frombuffer(qual.encode(), np.uint8) - 33
-                     if qual not in ("*", "") and qual
-                     else np.full(len(codes), 30, np.uint8))
-                clipped.append((codes, q))
+            clipped = [clip_read(rec, rstart, rend) for rec in reads]
             asm = assemble_region(region_ref,
-                                  [c for c, _ in clipped if len(c)],
+                                  [c for c, *_ in clipped if len(c)],
                                   p.assembly)
             if len(asm.haplotypes) == 1:
                 continue

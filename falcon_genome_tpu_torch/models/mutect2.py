@@ -32,7 +32,8 @@ from ..io.vcf import VcfRecord
 from .activeregion import ActiveRegionParams, find_active_regions
 from .assembly import AssemblyParams, assemble_region
 from .haplotypecaller import (
-    _hap_to_ref_events, clip_read_to_region, read_hap_likelihood_matrix)
+    _hap_to_ref_events, clip_read, clip_read_to_region,
+    read_hap_likelihood_matrix)
 
 TLOD_THRESHOLD = 5.3
 NLOD_THRESHOLD = 2.2
@@ -247,7 +248,6 @@ class Mutect2:
         """Batched like the HaplotypeCaller: one SW call and one PairHMM
         call per interval, covering every staged region's tumor+normal
         reads (tumor rows first per region, split after)."""
-        from ..io.dna import encode_seq
         from .haplotypecaller import (
             _hap_to_ref_events_multi, _likelihoods_multi)
 
@@ -271,16 +271,10 @@ class Mutect2:
             n_reads = (n_sel(rstart, rend, p.max_reads_per_region)
                        if n_sel is not None else [])
             region_ref = ref[rstart:rend]
-            clipped = []
-            for rec in t_reads + n_reads:
-                seq, qual = clip_read_to_region(rec, rstart, rend)
-                codes = encode_seq(seq) if seq else np.zeros(0, np.uint8)
-                q = (np.frombuffer(qual.encode(), np.uint8) - 33
-                     if qual not in ("*", "") and qual
-                     else np.full(len(codes), 30, np.uint8))
-                clipped.append((codes, q))
+            clipped = [clip_read(rec, rstart, rend)
+                       for rec in t_reads + n_reads]
             asm = assemble_region(region_ref,
-                                  [c for c, _ in clipped if len(c)],
+                                  [c for c, *_ in clipped if len(c)],
                                   p.assembly)
             if len(asm.haplotypes) == 1:
                 continue

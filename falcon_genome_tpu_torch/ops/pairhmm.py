@@ -36,8 +36,9 @@ host build of the CUDA source runs them on CPU tensors (see
 ``tests/test_torch_pairhmm_emulated.py``).
 :func:`pairhmm_logp` routes as the reference does: all three transitions
 scalar → K4, any of them a plane → K5 with the scalars broadcast to
-planes; under an active device mesh (``parallel.mesh``) a call runs
-whole on the device ``parallel.mesh.call_device`` gives it.
+planes; :func:`pairhmm_logp_pairs` likewise, with a gap-open table a read
+(BQSR's BI/BD) → K5.  Under an active device mesh (``parallel.mesh``) a
+call runs whole on the device ``parallel.mesh.call_device`` gives it.
 """
 from __future__ import annotations
 
@@ -408,35 +409,61 @@ def _late_rescale(min_prior, bound, a_im):
     return ~(_mul(min_prior, _mul(bound, a_im)) >= RESCALE_THRESH)
 
 
-def _k4_work(quals, read_lens, hap_lens, pair_read, pair_hap,
-             ins_q: int, del_q: int, gcp: int, R: int, H: int) -> dict:
-    """What K4 sweeps for a call of :func:`pairhmm_logp_pairs` with these
-    arguments in the bucket (R, H), by the kernel's own rule.  A pair with
-    1 <= rlen <= R whose row 0 stays above the rescale threshold
-    (:func:`_late_rescale` false, in the kernel's float32 arithmetic)
-    sweeps its own ceil(rlen / 32) rows a thread over rlen + hlen
-    diagonals (``fitted``); any other pair the bucket's ceil(R / 32) rows
-    over min(rlen + hlen, R + H) diagonals, or R + H where late.
-    ``cells``: the matrices' cells, sum rlen x hlen; ``slots``: the cells
-    swept, sum 32 x rows a thread x diagonals."""
+def _pair_rows(quals, read_lens, hap_lens, pair_read, pair_hap, gcp: int,
+               R: int):
+    """Per pair of a :func:`pairhmm_logp_pairs` call in the read bucket R:
+    (rlen, hlen, whether it has a last row, 1 <= rlen <= R, and whether
+    row 0's M stays at or above the rescale threshold, so that no rescale
+    can fire: :func:`_late_rescale` false in the kernels' float32
+    arithmetic, with row 0's prior and a_im)."""
     f32 = np.float32
     first_q = _host_plane(quals, len(read_lens), R, 0, False).numpy()[:, 0]
     rl = np.asarray(read_lens, np.int64)
     hl = np.asarray(hap_lens, np.int64)
     pe = _PHRED_PROB[first_q]
     prior = np.minimum(f32(1.0) - pe, pe * f32(1.0 / 3.0))
+    # a_im = 1 - p_cont: the gap continuation's alone
     row0 = f32(2.0 ** 120) / np.maximum(hl.astype(f32), f32(1.0)) * \
-        f32(_transitions(ins_q, del_q, gcp)[4])   # row 0's M over its prior
+        f32(_transitions(0, 0, gcp)[4])   # row 0's M over its prior
     has_row = (rl >= 1) & (rl <= R)
     pair_read, pair_hap = np.asarray(pair_read), np.asarray(pair_hap)
-    prl, phl = rl[pair_read], hl[pair_hap]
-    fitted = (prior[pair_read] * row0[pair_hap] >= f32(RESCALE_THRESH)) \
-        & has_row[pair_read]
+    holds = prior[pair_read] * row0[pair_hap] >= f32(RESCALE_THRESH)
+    return rl[pair_read], hl[pair_hap], has_row[pair_read], holds
+
+
+def _k4_work(quals, read_lens, hap_lens, pair_read, pair_hap,
+             ins_q: int, del_q: int, gcp: int, R: int, H: int) -> dict:
+    """What K4 sweeps for a call of :func:`pairhmm_logp_pairs` with these
+    arguments in the bucket (R, H), by the kernel's own rule.  A pair with
+    1 <= rlen <= R whose row 0 stays above the rescale threshold
+    (:func:`_pair_rows`) sweeps its own ceil(rlen / 32) rows a thread over
+    rlen + hlen diagonals (``fitted``); any other pair the bucket's
+    ceil(R / 32) rows over min(rlen + hlen, R + H) diagonals, or R + H
+    where late.  ``cells``: the matrices' cells, sum rlen x hlen;
+    ``slots``: the cells swept, sum 32 x rows a thread x diagonals."""
+    prl, phl, has_row, holds = _pair_rows(quals, read_lens, hap_lens,
+                                          pair_read, pair_hap, gcp, R)
+    fitted = holds & has_row
     rows = np.where(fitted, (prl + 31) // 32, (R + 31) // 32)
-    diags = np.where(has_row[pair_read] & ~fitted, R + H,
-                     np.minimum(prl + phl, R + H))
+    diags = np.where(has_row & ~fitted, R + H, np.minimum(prl + phl, R + H))
     return {"pairs": len(fitted), "fitted": int(fitted.sum()),
             "cells": int(prl @ phl), "slots": 32 * int(rows @ diags)}
+
+
+def _k5_work(quals, read_lens, hap_lens, pair_read, pair_hap, gcp: int,
+             R: int, H: int) -> dict:
+    """What K5 sweeps for a call of :func:`pairhmm_logp_pairs` with
+    gap-open tables in the bucket (R, H), by the kernel's own rule: every
+    pair the bucket's ceil(R / 32) rows a thread, over min(rlen + hlen,
+    R + H) diagonals, or R + H for a pair with 1 <= rlen <= R whose row 0
+    can fall below the rescale threshold (:func:`_pair_rows`; row 0's
+    a_im is the constant gap continuation's).  The gap opens do not
+    enter the rule.  Keys as :func:`_k4_work`'s, less ``fitted``."""
+    prl, phl, has_row, holds = _pair_rows(quals, read_lens, hap_lens,
+                                          pair_read, pair_hap, gcp, R)
+    diags = np.where(has_row & ~holds, R + H, np.minimum(prl + phl, R + H))
+    return {"pairs": len(prl), "cells": int(prl @ phl),
+            "slots": 32 * ((R + 31) // 32) * int(diags.sum())}
 
 
 def _launch_queue(device: torch.device, stream) -> torch.Tensor:
@@ -659,7 +686,7 @@ def _logp_chunks(read_codes, base_q, ins_q, del_q, gcp, read_lens,
         with step("pairhmm.copy_in"):
             read, bq, rl, hap, hl, *planes = [t.to(dev, non_blocking=True)
                                               for t in host]
-        with step("pairhmm.launch"):
+        with step("pairhmm.launch", kernel="K5" if per_base else "K4"):
             if per_base:
                 chunks.append(pairhmm_pb(read, bq, *planes, rl, hap, hl))
             else:
@@ -672,8 +699,7 @@ def _logp_chunks(read_codes, base_q, ins_q, del_q, gcp, read_lens,
 
 
 def pairhmm_logp_pairs(reads, quals, read_lens, haps, hap_lens,
-                       pair_read, pair_hap,
-                       ins_q: int, del_q: int, gcp: int,
+                       pair_read, pair_hap, ins_q, del_q, gcp: int,
                        params: PairHMMParams = PairHMMParams()
                        ) -> np.ndarray:
     """log10 P(read | hap) for pairs given as (read index, hap index).
@@ -683,12 +709,18 @@ def pairhmm_logp_pairs(reads, quals, read_lens, haps, hap_lens,
     the (B, R) / (B, H) pair tiles are gathered on the device.
     reads (NR, R') codes, quals (NR, R') phreds, haps (NH, H'),
     read_lens (NR,), hap_lens (NH,), pair_read/pair_hap (B,) with
-    B <= 8192 (callers chunk).  Under an active mesh the call runs on one
-    of its devices (``parallel.mesh.call_device``).  Under a profiler
-    session the call and its steps are spans (``utils/spans.py``):
-    ``pairhmm.call``, then ``pairhmm.tables``, ``pairhmm.copy_in``,
-    ``pairhmm.gather``, ``pairhmm.launch`` (with K4's work,
-    :func:`_k4_work`, counted when the spans are read, from references to
+    B <= 8192 (callers chunk).  ``ins_q`` and ``del_q`` are each a scalar
+    phred or an (NR, R') uint8 table of a read's gap-open phreds (BQSR's
+    BI/BD), padded with phred 0 as ``quals`` is; ``gcp`` a scalar.  All
+    scalar → kernel K4; a table → kernel K5, the tables shipped with the
+    reads and gathered to the pairs, a scalar's plane made on the device.
+    Under an active mesh the call runs on one of its devices
+    (``parallel.mesh.call_device``).  Under a profiler session the call
+    and its steps are spans (``utils/spans.py``): ``pairhmm.call``, then
+    ``pairhmm.tables`` (``planes``: the tables among them),
+    ``pairhmm.copy_in``, ``pairhmm.gather``, ``pairhmm.launch``
+    (``kernel``, and the kernel's work, :func:`_k4_work` or
+    :func:`_k5_work`, counted when the spans are read, from references to
     the call's arguments: the caller leaves them as they are until then),
     ``pairhmm.wait`` and ``pairhmm.free``."""
     B = len(pair_read)
@@ -701,6 +733,10 @@ def pairhmm_logp_pairs(reads, quals, read_lens, haps, hap_lens,
     R, H = params.max_read_len, params.max_hap_len
     if ((max(Rin, 8) + 7) // 8) * 8 > R or Hin > H:
         raise ValueError("input exceeds PairHMM bucket shape")
+    if any(_is_plane(x) and np.shape(x) != reads.shape
+           for x in (ins_q, del_q)):
+        raise ValueError("pairhmm_logp_pairs: a gap-open table is not "
+                         "the reads' shape")
     from ..parallel.mesh import call_device, get_active_mesh
     mesh = get_active_mesh()
     dev = call_device(mesh.flat if mesh is not None else [params.device])
@@ -718,9 +754,10 @@ def _logp_pairs(reads, quals, read_lens, haps, hap_lens, pair_read,
     """:func:`pairhmm_logp_pairs` on ``dev``, each of its steps inside
     ``step(name)``."""
     NR, NH = reads.shape[0], haps.shape[0]
+    gap_tables = [x for x in (ins_q, del_q) if _is_plane(x)]
     # tens of kilobytes: pinning them costs more host time than the
     # copies save (traced on the card)
-    with step("pairhmm.tables"):
+    with step("pairhmm.tables", planes=len(gap_tables)):
         tables = (_host_plane(reads, NR, R, 4, False),
                   _host_plane(quals, NR, R, 0, False),
                   _host_vector(read_lens, torch.int32, False),
@@ -728,19 +765,38 @@ def _logp_pairs(reads, quals, read_lens, haps, hap_lens, pair_read,
                   _host_vector(hap_lens, torch.int32, False),
                   _host_vector(pair_read, torch.int64, False),
                   _host_vector(pair_hap, torch.int64, False))
+        gap_tables = [_host_plane(x, NR, R, 0, False) for x in gap_tables]
     with step("pairhmm.copy_in"):
         rd, q, rl, hp, hl, pr, ph = [t.to(dev, non_blocking=True)
                                      for t in tables]
+        gap_tables = [t.to(dev, non_blocking=True) for t in gap_tables]
     with step("pairhmm.gather"):
         tiles = (rd[pr], q[pr], rl[pr], hp[ph], hl[ph])
-    with step("pairhmm.launch") as launch:
-        logp = pairhmm_sc(*tiles, int(ins_q), int(del_q), int(gcp))
-        if launch is not None:
-            # a dozen numpy calls on the pairs: at read time, not here,
-            # where they wait for the GIL behind the other callers
-            launch.later(functools.partial(
-                _k4_work, quals, read_lens, hap_lens, pair_read, pair_hap,
-                int(ins_q), int(del_q), int(gcp), R, H))
+        if gap_tables:
+            # the (B, R) planes of K5, in the order (ins, del, gcp): each
+            # table gathered with the reads, each scalar made on the device
+            B = len(pair_read)
+            given = iter(gap_tables)
+            planes = [next(given)[pr] if _is_plane(x) else
+                      torch.full((B, R), int(x), dtype=torch.uint8,
+                                 device=dev) for x in (ins_q, del_q, gcp)]
+    with step("pairhmm.launch", kernel="K5" if gap_tables else "K4"
+              ) as launch:
+        # a dozen numpy calls on the pairs for the kernel's work, left to
+        # the reading of the spans: here they would wait for the GIL
+        # behind the other callers
+        if gap_tables:
+            logp = pairhmm_pb(*tiles[:2], *planes, *tiles[2:])
+            if launch is not None:
+                launch.later(functools.partial(
+                    _k5_work, quals, read_lens, hap_lens, pair_read,
+                    pair_hap, int(gcp), R, H))
+        else:
+            logp = pairhmm_sc(*tiles, int(ins_q), int(del_q), int(gcp))
+            if launch is not None:
+                launch.later(functools.partial(
+                    _k4_work, quals, read_lens, hap_lens, pair_read,
+                    pair_hap, int(ins_q), int(del_q), int(gcp), R, H))
     with step("pairhmm.wait", cpu=True):
         out = logp.cpu().numpy()
     # the call's tensors are released in a step of their own and not at
@@ -748,4 +804,6 @@ def _logp_pairs(reads, quals, read_lens, haps, hap_lens, pair_read,
     # under many callers that wait is a large part of a call
     with step("pairhmm.free"):
         del tables, rd, q, rl, hp, hl, pr, ph, tiles, logp
+        if gap_tables:
+            del gap_tables, given, planes
     return out

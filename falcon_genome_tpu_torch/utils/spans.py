@@ -85,7 +85,7 @@ class _Off:
 OFF = _Off()
 
 
-def off(name: str, cpu: bool = False) -> _Off:
+def off(name: str, cpu: bool = False, **attrs) -> _Off:
     """The step of an entry that found no session: does nothing."""
     return OFF
 

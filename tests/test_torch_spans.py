@@ -203,7 +203,7 @@ def test_launch_counts_k4_work(gcp):
         P.pairhmm_logp_pairs(reads, quals, rl, haps, hl, pr, ph, 45, 45,
                              gcp, params=params)
     launch, = [s for s in spans.spans() if s.name == "pairhmm.launch"]
-    assert launch.attrs == want
+    assert launch.attrs == {"kernel": "K4", **want}
 
 
 def test_k4_work_counted_when_read(monkeypatch):
@@ -224,7 +224,8 @@ def test_k4_work_counted_when_read(monkeypatch):
         assert counted == []
     for _ in range(2):
         launch, = [s for s in spans.spans() if s.name == "pairhmm.launch"]
-        assert launch.attrs == {"pairs": len(pr)} and len(counted) == 1
+        assert launch.attrs == {"kernel": "K4", "pairs": len(pr)} and \
+            len(counted) == 1
 
 
 def test_threads_keep_their_calls():
