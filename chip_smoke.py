@@ -2316,14 +2316,13 @@ def main() -> int:
         for row in sass.ptxas_summary(report):
             say(f"  {row}")
         # the PairHMM instantiations of the main path (five rows per
-        # thread at R = 160; K4 has the row select at every bucket)
-        for name, per_base, ragged in (("K4 fgt_pairhmm", 0, 1),
-                                       ("K5 fgt_pairhmm_pb", 1, 0)):
+        # thread at R = 160; one instantiation a row count, every bucket)
+        for name, per_base in (("K4 fgt_pairhmm", 0),
+                               ("K5 fgt_pairhmm_pb", 1)):
             c = sass.sass_sweep_counts(
-                so, f"pairhmm_kernelILi5ELb{per_base}ELb{ragged}EEEv")
+                so, f"pairhmm_kernelILi5ELb{per_base}ELb1EEEv")
             say(f"{name} pairhmm_kernel<5, {str(bool(per_base)).lower()}, "
-                f"{str(bool(ragged)).lower()}>: {c['per_step']:.1f} "
-                f"instructions per "
+                f"true>: {c['per_step']:.1f} instructions per "
                 f"anti-diagonal step, {c['counted_per_step']:.1f} of them "
                 f"FFMA/FMUL/FADD ({c['trip']} in a trip of "
                 f"{c['steps_per_trip']:.0f} steps; the rescale block of "

@@ -20,9 +20,10 @@ then times, each through its wrapper:
 * K4 (``pairhmm_sc``, 45/45/10) and K5 (``pairhmm_pb``, per-base planes)
   at HaplotypeCaller's shape (R=160, H=384, 8192 pairs, the inputs of
   ``chip_smoke.py``'s phase 3 without its crafted pairs: reads of 100-152
-  bases), K4 on reads that fill the bucket (160 bases, key ``k4_full``)
-  and K4 on the same pairs with a quality-0 first base, whose rescale
-  can fire past their end (key ``k4_late``);
+  bases), each also on reads that fill the bucket (160 bases, keys
+  ``k4_full``, ``k5_full``: the same pairs, K5 with their planes) and on
+  the main pairs with a quality-0 first base, whose rescale can fire past
+  their end (``k4_late``, ``k5_late``);
 
 each three ways; and K7 (``sw_score_ablate``) in the ablation's four
 variants at its bucket (R=160, W=416, 2048 lanes; ``ablate_sw.inputs``),
@@ -42,7 +43,7 @@ missing); K3's registers and the instructions of one trip of its walk
 loop (``k3_per_trip``); K7's registers and instructions per sweep step
 of each variant's instantiation at R = 160 (``k7_<variant>_registers``,
 ``k7_<variant>_per_step``).  With ``--pairhmm`` it times K4 and K5
-alone (``k4_*``, ``k4_full_*``, ``k4_late_*`` and ``k5_*``).  Give the roots as parent, change, change, parent,
+alone (``k4_*``, ``k4_full_*``, ``k4_late_*`` and the same for k5).  Give the roots as parent, change, change, parent,
 so that drift of the card between runs shows.
 Prints one JSON line per run; without a CUDA device it exits non-zero.
 """
@@ -90,13 +91,19 @@ def inputs(rng):
     reads[unrelated] = rng.integers(0, 4, (int(unrelated.sum()), R))
     rlen[unrelated] = 150
     quals = rng.integers(10, 41, (B, R)).astype(np.uint8)
+    return (reads, quals, *gap_planes(rng, rlen), rlen, haps, hl)
+
+
+def gap_planes(rng, rlen):
+    """K5's (ins, del, gcp) planes: indel phreds 25-45, gcp 10, phred 0
+    past each read."""
     pad = np.arange(R)[None, :] >= rlen[:, None]
     ins = rng.integers(25, 46, (B, R)).astype(np.uint8)
     dele = rng.integers(25, 46, (B, R)).astype(np.uint8)
     gcp = np.full((B, R), 10, np.uint8)
     for x in (ins, dele, gcp):
         x[pad] = 0
-    return reads, quals, ins, dele, gcp, rlen, haps, hl
+    return ins, dele, gcp
 
 
 def full_reads(rng):
@@ -289,6 +296,13 @@ def time_root(root: Path, pairhmm_only: bool = False) -> dict:
         "pairhmm_kernel"))
     res.update(three_ways(
         "k5", lambda: P.pairhmm_pb(*hmm), "pairhmm_kernel"))
+    full5 = [*full[:2], *to(*gap_planes(np.random.default_rng(9),
+                                        np.full(B, R))), *full[2:]]
+    res.update(three_ways(
+        "k5_full", lambda: P.pairhmm_pb(*full5), "pairhmm_kernel"))
+    late5 = [hmm[0], late[1], *hmm[2:]]
+    res.update(three_ways(
+        "k5_late", lambda: P.pairhmm_pb(*late5), "pairhmm_kernel"))
     if pairhmm_only:
         return res
     res.update(build_counts(so))

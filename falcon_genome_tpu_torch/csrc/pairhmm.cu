@@ -1,7 +1,6 @@
 // PairHMM forward likelihood for NVIDIA Hopper (sm_90a).
 //
-// Two entry points, each with its kernel (two overloads of one template
-// name) over the same sweep steps:
+// Two entry points over one kernel template (kPerBase):
 //   fgt_pairhmm     replaces K4, _pairhmm_kernel_sc of
 //                   falcon_genome_tpu/ops/pairhmm.py: scalar insertion,
 //                   deletion and gap-continuation penalties (GATK
@@ -69,17 +68,19 @@
 // that maximum too, so there they are computed like any other cell, as in
 // the plain version.
 //
-// For most pairs the test cannot fire (K4): row 0 lies on every tested
+// For most pairs the test cannot fire: row 0 lies on every tested
 // diagonal, its M there is prior * (bound * a_im) with row 0's own prior
-// and a_im, and the boundary changes only through a rescale.  So while the
-// smaller prior times bound * a_im is at least 2^-60 (`late` false, the
-// same rounding), the largest cell of every tested diagonal is too, and no
+// and a_im (K5's from its gcp plane's row 0; the gap opens do not enter),
+// and the boundary changes only through a rescale.  So while the smaller
+// prior times bound * a_im is at least 2^-60 (`late` false, the same
+// rounding), the largest cell of every tested diagonal is too, and no
 // rescale fires.  Rows at or past rlen then feed nothing: the recurrence
-// flows downward, and only row rlen - 1's sum is the pair's.  K4 sweeps
-// such a pair over its own ceil(rlen / 32) rows a thread, rlen + hlen
-// diagonals and no test; a `late` pair (a quality-0 first base, a gap
-// continuation phred of 0) takes the bucket's rows and the full sweep.
-// Each cell's arithmetic is the same either way, so are the bits.
+// flows downward, with row i's transitions its own, and only row
+// rlen - 1's sum is the pair's.  K4 and K5 sweep such a pair over its own
+// ceil(rlen / 32) rows a thread, rlen + hlen diagonals and no test; a
+// `late` pair (a quality-0 first base, a gap continuation phred of 0 on
+// row 0) takes the bucket's rows and the full sweep.  Each cell's
+// arithmetic is the same either way, so are the bits.
 //
 // What the design does about that bound (per diagonal of a thread's
 // NR rows: 3 shuffles, 3 selects for the boundary, one shared-memory byte,
@@ -108,14 +109,13 @@
 //     dropped.  This takes the test of "last row, inside the haplotype"
 //     out of the cell; up to diagonal rlen that row is left of the matrix,
 //     so the trips before it skip the sums;
-//   * rows past R (R not 32 NR) are cut by a select, in an instantiation
-//     (K5) or a sweep (K4's late pairs) of its own (kRagged) that the full
-//     buckets do not pay for.
+//   * rows past R (R not 32 NR) are cut by a select, in a sweep of its own
+//     (kRagged) that only the late pairs of such a bucket take.
 //   * phreds arrive as the uint8 they are and turn into probabilities
 //     through the 256-entry float32 table that the plain version indexes
 //     (the wrapper puts it on the device once), so no float32 planes are
 //     made, written and read back around the launch.
-//   * K4's warps take pairs from a queue of the launch (an atomic ticket),
+//   * the warps take pairs from a queue of the launch (an atomic ticket),
 //     each until none is left, and the grid holds as many blocks as the
 //     card runs at once: a block's slot is not held by its slowest pair
 //     while its other warps idle, which a pair of its own rows a thread
@@ -471,10 +471,10 @@ __device__ __forceinline__ Sum sweep_pair(
   return Sum{has_row ? mine : 0.0f, sh};
 }
 
-// K4's sweep of a pair over its own rows, `rows` = ceil(rlen / 32) a thread
+// The sweep of a pair over its own rows, `rows` = ceil(rlen / 32) a thread
 // (1 .. NR, the same across the warp): one inlined sweep_pair for each, all
 // inside the bucket's kernel, whose registers the NR sweep sets
-template <int NR, int N = 1>
+template <int NR, bool kPerBase, int N = 1>
 __device__ __forceinline__ Sum sweep_own_rows(
     int rows, const uint8_t* __restrict__ read,
     const uint8_t* __restrict__ base_q, const float* __restrict__ prob,
@@ -482,39 +482,19 @@ __device__ __forceinline__ Sum sweep_own_rows(
     int lane) {
   if constexpr (N < NR) {
     if (rows > N)
-      return sweep_own_rows<NR, N + 1>(rows, read, base_q, prob, b, rl, hl,
-                                       R, H, tr, hs, lane);
+      return sweep_own_rows<NR, kPerBase, N + 1>(rows, read, base_q, prob, b,
+                                                 rl, hl, R, H, tr, hs, lane);
   }
-  return sweep_pair<N, false, false, (NR > 1), false>(
+  return sweep_pair<N, kPerBase, false, (NR > 1), false>(
       read, base_q, prob, b, rl, hl, R, H, tr, hs, lane);
 }
 
-// K5: one pair a warp, the pair of its index, over the bucket's rows
-template <int NR, bool kPerBase, bool kRagged>
-__global__ void __launch_bounds__(kWarps * 32)
-pairhmm_kernel(const uint8_t* __restrict__ read,
-               const uint8_t* __restrict__ base_q,
-               const float* __restrict__ prob,
-               const int* __restrict__ rlen, const uint8_t* __restrict__ hap,
-               const int* __restrict__ hlen, int B, int R, int H, Trans tr,
-               float* __restrict__ logp_out) {
-  FGT_DYNAMIC_SMEM(uint8_t, hs_all);
-  constexpr int kPad = 32 * NR;  // bytes in front of the haplotype
-  const int lane = threadIdx.x & 31;
-  const int wib = threadIdx.x >> 5;
-  const int b = blockIdx.x * kWarps + wib;
-  if (b >= B) return;  // uniform across the warp
-  uint8_t* hs = hs_all + wib * (kPad + H + R);
-  load_hap<NR>(hs, hap, b, R, H, lane);
-  __syncwarp();
-  const Sum s = sweep_pair<NR, kPerBase, kRagged, (NR > 1), true>(
-      read, base_q, prob, b, rlen[b], hlen[b], R, H, tr, hs + kPad, lane);
-  if (lane == 0) logp_out[b] = finish(s.acc, s.sh);
-}
-
-// K4: each warp takes pairs from the launch's queue until none is left.
+// Each warp takes pairs from the launch's queue until none is left.
 // queue[0] is the next pair, queue[1] the warps done; the last warp done
-// sets both back to 0, so the next launch on the stream finds them so.
+// sets both back to 0, so the next launch on the stream, K4's or K5's,
+// finds them so.  kRagged is true in every instantiation (a late pair
+// chooses the row select in the kernel); it stays a parameter so that the
+// kernels keep the names that traces and SASS comparisons match.
 template <int NR, bool kPerBase, bool kRagged>
 __global__ void __launch_bounds__(kWarps * 32)
 pairhmm_kernel(const uint8_t* __restrict__ read,
@@ -523,8 +503,7 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
                const int* __restrict__ rlen, const uint8_t* __restrict__ hap,
                const int* __restrict__ hlen, int B, int R, int H, Trans tr,
                float* __restrict__ logp_out, int* __restrict__ queue) {
-  static_assert(!kPerBase && kRagged,
-                "K4: one instantiation a row count, every bucket");
+  static_assert(kRagged, "one instantiation a row count, every bucket");
   FGT_DYNAMIC_SMEM(uint8_t, hs_all);
   constexpr int kPad = 32 * NR;
   const int lane = threadIdx.x & 31;
@@ -538,22 +517,27 @@ pairhmm_kernel(const uint8_t* __restrict__ read,
     __syncwarp();
     const int rl = rlen[b];
     const int hl = hlen[b];
-    // row 0's prior on the pair's first tested diagonal, as sweep_pair
-    // forms it, decides whether the rescale can fire (every lane alike)
-    const float pe = __ldg(prob + base_q[(size_t)b * R]);
+    // row 0's prior and a_im on the pair's first tested diagonal, as
+    // sweep_pair forms them, decide whether the rescale can fire (every
+    // lane alike)
+    const size_t row0 = (size_t)b * R;
+    const float pe = __ldg(prob + base_q[row0]);
+    const float a_im0 =
+        kPerBase ? 1.0f - __ldg(prob + tr.cont[row0]) : tr.a_im;
     const bool own =
         rl >= 1 && rl <= R &&
         !late_rescale(1.0f - pe, pe * (1.0f / 3.0f),
-                      0x1p120f / fmaxf((float)hl, 1.0f), tr.a_im);
+                      0x1p120f / fmaxf((float)hl, 1.0f), a_im0);
     // a late pair: the bucket's rows, with the row select only where the
     // bucket does not fill them (uniform across the launch)
     const Sum s =
-        own ? sweep_own_rows<NR>((rl + 31) / 32, read, base_q, prob, b, rl,
-                                 hl, R, H, tr, hs + kPad, lane)
+        own ? sweep_own_rows<NR, kPerBase>((rl + 31) / 32, read, base_q, prob,
+                                           b, rl, hl, R, H, tr, hs + kPad,
+                                           lane)
         : R == 32 * NR
-            ? sweep_pair<NR, false, false, (NR > 1), true>(
+            ? sweep_pair<NR, kPerBase, false, (NR > 1), true>(
                   read, base_q, prob, b, rl, hl, R, H, tr, hs + kPad, lane)
-            : sweep_pair<NR, false, true, (NR > 1), true>(
+            : sweep_pair<NR, kPerBase, true, (NR > 1), true>(
                   read, base_q, prob, b, rl, hl, R, H, tr, hs + kPad, lane);
     if (lane == 0) logp_out[b] = finish(s.acc, s.sh);
   }
@@ -577,15 +561,9 @@ struct Call {
   int B, R, H;
   Trans tr;
   void* logp_out;
-  void* queue;  // K4's int32[2], zero; null for K5
+  void* queue;  // int32[2], zero
   void* stream;
 };
-
-// the kernels' parameters; K4 adds its queue
-template <class... Queue>
-using Kernel = void (*)(const uint8_t*, const uint8_t*, const float*,
-                        const int*, const uint8_t*, const int*, int, int, int,
-                        Trans, float*, Queue...);
 
 // lets `kernel` take `smem` bytes of dynamic shared memory
 template <class K>
@@ -597,67 +575,43 @@ cudaError_t allow_smem(K kernel, size_t smem) {
              : cudaSuccess;
 }
 
-template <int NR, bool kPerBase, bool kRagged>
+// The bucket R at NR = N rows a thread: one instantiation (<N, kPerBase,
+// true>) for every bucket, so that each N compiles its own-rows sweeps
+// once; none of them has the row select, and the late pairs choose the
+// sweep with or without it in the kernel.
+template <int NR, bool kPerBase>
 int launch_pairhmm(const Call& a) {
   const size_t smem = (size_t)kWarps * (32 * NR + a.H + a.R);
-  if constexpr (kPerBase) {
-    Kernel<> kernel = pairhmm_kernel<NR, kPerBase, kRagged>;
-    cudaError_t e = allow_smem(kernel, smem);
+  const auto kernel = pairhmm_kernel<NR, kPerBase, true>;
+  cudaError_t e = allow_smem(kernel, smem);
+  // the blocks the card runs at once (asked once a thread for each card
+  // and size), and no more than the pairs fill
+  thread_local int held_dev = -1;
+  thread_local size_t held_smem = 0;
+  thread_local int held = 0;
+  int dev = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev != held_dev || smem != held_smem) {
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kWarps * 32, smem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
-    const int grid = (a.B + kWarps - 1) / kWarps;
-    if (grid > 0) {
-      FGT_LAUNCH(kernel, grid, kWarps * 32, smem, (cudaStream_t)a.stream,
-                 (const uint8_t*)a.read, (const uint8_t*)a.base_q,
-                 (const float*)a.prob, (const int*)a.rlen,
-                 (const uint8_t*)a.hap, (const int*)a.hlen, a.B, a.R, a.H,
-                 a.tr, (float*)a.logp_out);
-    }
-  } else {
-    Kernel<int*> kernel = pairhmm_kernel<NR, kPerBase, kRagged>;
-    cudaError_t e = allow_smem(kernel, smem);
-    // the blocks the card runs at once (asked once a thread for each card
-    // and size), and no more than the pairs fill
-    thread_local int held_dev = -1;
-    thread_local size_t held_smem = 0;
-    thread_local int held = 0;
-    int dev = 0;
-    if (e == cudaSuccess) e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    if (dev != held_dev || smem != held_smem) {
-      int per_sm = 0, sms = 0;
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kWarps * 32, smem);
-      if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (e != cudaSuccess) return (int)e;
-      held = per_sm * sms > 1 ? per_sm * sms : 1;
-      held_dev = dev;
-      held_smem = smem;
-    }
-    const int grid = min(held, (a.B + kWarps - 1) / kWarps);
-    if (grid > 0) {
-      FGT_LAUNCH(kernel, grid, kWarps * 32, smem, (cudaStream_t)a.stream,
-                 (const uint8_t*)a.read, (const uint8_t*)a.base_q,
-                 (const float*)a.prob, (const int*)a.rlen,
-                 (const uint8_t*)a.hap, (const int*)a.hlen, a.B, a.R, a.H,
-                 a.tr, (float*)a.logp_out, (int*)a.queue);
-    }
+    held = per_sm * sms > 1 ? per_sm * sms : 1;
+    held_dev = dev;
+    held_smem = smem;
+  }
+  const int grid = min(held, (a.B + kWarps - 1) / kWarps);
+  if (grid > 0) {
+    FGT_LAUNCH(kernel, grid, kWarps * 32, smem, (cudaStream_t)a.stream,
+               (const uint8_t*)a.read, (const uint8_t*)a.base_q,
+               (const float*)a.prob, (const int*)a.rlen,
+               (const uint8_t*)a.hap, (const int*)a.hlen, a.B, a.R, a.H,
+               a.tr, (float*)a.logp_out, (int*)a.queue);
   }
   return (int)cudaGetLastError();
-}
-
-// The bucket R at NR = N rows a thread.  K5: where the bucket fills all 32
-// N rows, the instantiation without the row select.  K4: one instantiation
-// (<N, false, true>) for every bucket, so that each N compiles K4's own-rows
-// sweeps once; none of them has the select, and its late pairs choose the
-// sweep with or without it in the kernel.
-template <bool kPerBase, int N>
-int launch_rows(const Call& a) {
-  if constexpr (kPerBase)
-    return a.R == 32 * N ? launch_pairhmm<N, true, false>(a)
-                         : launch_pairhmm<N, true, true>(a);
-  else
-    return launch_pairhmm<N, false, true>(a);
 }
 
 template <bool kPerBase>
@@ -666,7 +620,7 @@ int dispatch_rows(const Call& a) {
   switch ((a.R + 31) / 32) {
 #define FGT_CASE(N) \
   case N:           \
-    return launch_rows<kPerBase, N>(a);
+    return launch_pairhmm<N, kPerBase>(a);
     FGT_CASE(1)
     FGT_CASE(2)
     FGT_CASE(3)
@@ -704,9 +658,9 @@ extern "C" int fgt_pairhmm_pb(const void* read, const void* base_q,
                               const void* gcp, const void* table,
                               const void* rlen, const void* hap,
                               const void* hlen, int B, int R, int H,
-                              void* logp_out, void* stream) {
+                              void* logp_out, void* queue, void* stream) {
   const Trans tr{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, (const uint8_t*)ins_q,
                  (const uint8_t*)del_q, (const uint8_t*)gcp};
   return dispatch_rows<true>(Call{read, base_q, table, rlen, hap, hlen, B, R,
-                                  H, tr, logp_out, nullptr, stream});
+                                  H, tr, logp_out, queue, stream});
 }

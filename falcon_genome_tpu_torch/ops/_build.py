@@ -57,9 +57,9 @@ SIGNATURES = {
     "fgt_pairhmm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
                     _P, _P, _P),
     # read, base_q, ins_q, del_q, gcp, table, rlen, hap, hlen, B, R, H,
-    # logp_out, stream
+    # logp_out, queue, stream
     "fgt_pairhmm_pb": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
-                       _P),
+                       _P, _P),
     # x, R, B, trips, a, b, zero, out, stream
     "fgt_fma_ceiling": (_P, _I, _I, _I, _F, _F, _F, _P, _P),
     # read, win, rlen, wlen, B, R, W, match, mismatch, go, ge, flags,

@@ -132,7 +132,7 @@ _PHRED_PROB_BITS = (
 
 _prob_tables: dict[torch.device, torch.Tensor] = {}
 _PHRED_PROB = np.array(_PHRED_PROB_BITS, np.uint32).view(np.float32)
-_queues: dict[tuple, torch.Tensor] = {}   # K4's, by (device, stream)
+_queues: dict[tuple, torch.Tensor] = {}   # the kernels', by (device, stream)
 
 
 def _prob_table(device: torch.device) -> torch.Tensor:
@@ -431,8 +431,8 @@ def _pair_rows(quals, read_lens, hap_lens, pair_read, pair_hap, gcp: int,
     return rl[pair_read], hl[pair_hap], has_row[pair_read], holds
 
 
-def _k4_work(quals, read_lens, hap_lens, pair_read, pair_hap,
-             ins_q: int, del_q: int, gcp: int, R: int, H: int) -> dict:
+def _k4_work(quals, read_lens, hap_lens, pair_read, pair_hap, gcp: int,
+             R: int, H: int) -> dict:
     """What K4 sweeps for a call of :func:`pairhmm_logp_pairs` with these
     arguments in the bucket (R, H), by the kernel's own rule.  A pair with
     1 <= rlen <= R whose row 0 stays above the rescale threshold
@@ -450,26 +450,15 @@ def _k4_work(quals, read_lens, hap_lens, pair_read, pair_hap,
             "cells": int(prl @ phl), "slots": 32 * int(rows @ diags)}
 
 
-def _k5_work(quals, read_lens, hap_lens, pair_read, pair_hap, gcp: int,
-             R: int, H: int) -> dict:
-    """What K5 sweeps for a call of :func:`pairhmm_logp_pairs` with
-    gap-open tables in the bucket (R, H), by the kernel's own rule: every
-    pair the bucket's ceil(R / 32) rows a thread, over min(rlen + hlen,
-    R + H) diagonals, or R + H for a pair with 1 <= rlen <= R whose row 0
-    can fall below the rescale threshold (:func:`_pair_rows`; row 0's
-    a_im is the constant gap continuation's).  The gap opens do not
-    enter the rule.  Keys as :func:`_k4_work`'s, less ``fitted``."""
-    prl, phl, has_row, holds = _pair_rows(quals, read_lens, hap_lens,
-                                          pair_read, pair_hap, gcp, R)
-    diags = np.where(has_row & ~holds, R + H, np.minimum(prl + phl, R + H))
-    return {"pairs": len(prl), "cells": int(prl @ phl),
-            "slots": 32 * ((R + 31) // 32) * int(diags.sum())}
+# What K5 sweeps for a call with gap-open tables: K4's rule, since the gap
+# opens do not enter it and row 0's a_im is the constant gap continuation's
+_k5_work = _k4_work
 
 
 def _launch_queue(device: torch.device, stream) -> torch.Tensor:
-    """K4's queue for launches on ``stream`` (the device's current one;
-    None on the CPU): int32[2], zeroed once.  Each launch's last warp sets
-    it back to zero, and the launches of one stream run one after
+    """K4's and K5's queue for launches on ``stream`` (the device's current
+    one; None on the CPU): int32[2], zeroed once.  Each launch's last warp
+    sets it back to zero, and the launches of one stream run one after
     another, so each starts from zero; launches on other streams or
     devices take queues of their own."""
     key = (device, stream)
@@ -521,11 +510,12 @@ def _pairhmm_pb_launch(lib, read, planes, rlen, hap, hlen, stream
     B, R = read.shape
     H = hap.shape[1]
     table = _prob_table(read.device)
+    queue = _launch_queue(read.device, stream)
     logp = torch.empty(B, dtype=torch.float32, device=read.device)
     err = lib.fgt_pairhmm_pb(
         read.data_ptr(), *(q.data_ptr() for q in planes), table.data_ptr(),
         rlen.data_ptr(), hap.data_ptr(), hlen.data_ptr(), B, R, H,
-        logp.data_ptr(), stream)
+        logp.data_ptr(), queue.data_ptr(), stream)
     _build.check(err, "fgt_pairhmm_pb")
     return logp
 
@@ -787,16 +777,12 @@ def _logp_pairs(reads, quals, read_lens, haps, hap_lens, pair_read,
         # behind the other callers
         if gap_tables:
             logp = pairhmm_pb(*tiles[:2], *planes, *tiles[2:])
-            if launch is not None:
-                launch.later(functools.partial(
-                    _k5_work, quals, read_lens, hap_lens, pair_read,
-                    pair_hap, int(gcp), R, H))
         else:
             logp = pairhmm_sc(*tiles, int(ins_q), int(del_q), int(gcp))
-            if launch is not None:
-                launch.later(functools.partial(
-                    _k4_work, quals, read_lens, hap_lens, pair_read,
-                    pair_hap, int(ins_q), int(del_q), int(gcp), R, H))
+        if launch is not None:
+            launch.later(functools.partial(
+                _k5_work if gap_tables else _k4_work, quals, read_lens,
+                hap_lens, pair_read, pair_hap, int(gcp), R, H))
     with step("pairhmm.wait", cpu=True):
         out = logp.cpu().numpy()
     # the call's tensors are released in a step of their own and not at

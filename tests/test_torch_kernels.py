@@ -212,6 +212,56 @@ def own_rows_pairs(seed, R, H, copies):
     return reads, q, rl, haps, hl
 
 
+def with_planes(lanes, phreds, R):
+    """Lane-major pairs (read, q, rlen, hap, hlen) followed by K5's (ins,
+    del, gcp) planes holding ``phreds`` on every row of the bucket, pad
+    rows too: K5 then sweeps what K4 sweeps with them as scalars."""
+    n = len(lanes[2])
+    return (*lanes, *(np.full((n, R), v, np.uint8) for v in phreds))
+
+
+def gcp0_row0_pairs(seed, R, H, copies):
+    """``own_rows_pairs`` followed by BI/BD-like planes (``indel_planes``)
+    whose gap continuation phred is 0 on row 0 alone: row 0's a_im is 0,
+    so each pair is late, a kind that only K5's per-row gap continuation
+    gives, and its row 0 (so all its mass) is 0: -inf."""
+    lanes = own_rows_pairs(seed, R, H, copies)
+    ins, dele, gcp = indel_planes(seed + 1, lanes[2], R)
+    gcp[:, 0] = 0
+    return (*lanes, ins, dele, gcp)
+
+
+def queue_cases(kernel, R, H, seed, copies):
+    """The launches of the own-rows and queue tests, (phreds, own pairs,
+    late pairs): pairs over their own rows with the pairs that need the
+    bucket's rows, the quality-0 rescue pairs at 45/45/10 and the pairs
+    rescaled at diagonal 64 at 45/0/13.  K5's pairs carry their planes
+    after them: BI/BD-like ones on the own-rows pairs, the case's phreds
+    on every row of the late ones, and its late pairs add the pairs late
+    through row 0's gap continuation alone (``gcp0_row0_pairs``)."""
+    cases = [((INS, DEL, GCP), rescale_pairs(3, 16, R, H)),
+             ((EARLY_INS, EARLY_DEL, EARLY_GCP), early_rescale_pairs(R, H))]
+    out = []
+    for i, (phreds, late) in enumerate(cases):
+        own = own_rows_pairs(seed + i, R, H, copies)
+        if kernel == "K5":
+            own = (*own, *indel_planes(seed + 10 + i, own[2], R))
+            late = [np.concatenate(x) for x in zip(
+                with_planes(late, phreds, R),
+                gcp0_row0_pairs(seed + 20 + i, R, H, 1))]
+        out.append((phreds, own, tuple(late)))
+    return out
+
+
+def run_kernel(kernel, lanes, phreds):
+    """K4 (``phreds`` as scalars) or K5 (the planes after the pairs) on
+    tensors ``lanes``."""
+    if kernel == "K4":
+        return P.pairhmm_sc(*lanes, *phreds)
+    read, q, rl, hap, hl, *planes = lanes
+    return P.pairhmm_pb(read, q, *planes, rl, hap, hl)
+
+
 def shuffled(seed, *parts):
     """The pairs of ``parts`` (lane-major tuples) in one launch, in an
     order drawn from ``seed``."""
@@ -404,26 +454,28 @@ def test_pairhmm_kernels_rescale_at_diagonal_64_on_card(cuda_device, R, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,H,copies", [(152, 384, 270), (384, 384, 121)])
-def test_pairhmm_k4_own_rows_and_queue_on_card(cuda_device, R, H, copies):
-    """K4 bit-equal to the plain version on launches that mix pairs over
-    their own rows (every step of ceil(rlen / 32) up to the bucket's) with
-    pairs that need the bucket's rows: the quality-0 rescue pairs at
-    45/45/10, the pairs rescaled at diagonal 64 at 45/0/13.  Each launch
+@pytest.mark.parametrize("kernel,R,H,copies", [
+    pytest.param("K4", 152, 384, 270, id="152-384-270"),
+    pytest.param("K4", 384, 384, 121, id="384-384-121"),
+    pytest.param("K5", 152, 384, 270, id="K5-152-384-270"),
+    pytest.param("K5", 384, 384, 121, id="K5-384-384-121")])
+def test_pairhmm_k4_own_rows_and_queue_on_card(cuda_device, kernel, R, H,
+                                               copies):
+    """K4 and K5 bit-equal to the plain version on launches that mix pairs
+    over their own rows (every step of ceil(rlen / 32) up to the bucket's)
+    with pairs that need the bucket's rows (``queue_cases``).  Each launch
     holds more pairs than the card runs warps at once, a count that is
     not a multiple of 8, and runs twice on its stream's queue, which it
     leaves at zero."""
-    cases = (((INS, DEL, GCP), rescale_pairs(3, 16, R, H)),
-             ((EARLY_INS, EARLY_DEL, EARLY_GCP),
-              early_rescale_pairs(R, H)))
-    for i, (scalars, late) in enumerate(cases):
-        lanes = shuffled(i, own_rows_pairs(20 + i, R, H, copies), late)
+    for i, (phreds, own, late) in enumerate(queue_cases(kernel, R, H, 20,
+                                                        copies)):
+        lanes = shuffled(i, own, late)
         args = [torch.from_numpy(x) for x in lanes]
         assert len(args[2]) > 1500 and len(args[2]) % 8
-        want = P.pairhmm_sc(*args, *scalars)
+        want = run_kernel(kernel, args, phreds)
         on_card = [a.to(cuda_device) for a in args]
         for _ in range(2):
-            got = P.pairhmm_sc(*on_card, *scalars).cpu()
+            got = run_kernel(kernel, on_card, phreds).cpu()
             assert torch.equal(got, want), (i, (got != want).sum())
         stream = torch.cuda.current_stream(cuda_device).cuda_stream
         queue = P._launch_queue(on_card[0].device, stream)

@@ -17,14 +17,15 @@ and (from 64 rows on) with the card tests' pairs that are finite only
 through the 2^100 rescale at diagonal 64; and on the card tests' pairs
 rescaled through pad rows and at diagonal 320, with one whose mass
 passes through float32's subnormal range, and quality-0 pairs rescaled
-on a multiple of 64 past their own last diagonal.  K4 sweeps a pair over
-its own ceil(rlen / 32) rows a thread where its rescale cannot fire, and
-its warps take pairs from a queue: launches that mix such pairs of every
-rows-a-thread step with pairs that need the bucket's rows (quality-0
-first bases; the pairs rescaled at diagonal 64), more pairs than the
-emulated grid has warps, hold K4 to the plain version too.  Each case
-checks that its inputs do what it says.  Skips only where g++ is
-missing.
+on a multiple of 64 past their own last diagonal.  K4 and K5 sweep a pair
+over its own ceil(rlen / 32) rows a thread where its rescale cannot fire,
+and their warps take pairs from a queue: launches that mix such pairs of
+every rows-a-thread step with pairs that need the bucket's rows
+(quality-0 first bases; the pairs rescaled at diagonal 64; for K5 a gap
+continuation phred of 0 on row 0), more pairs than the emulated grid has
+warps, hold both to the plain version too, K4's and K5's launches in
+turn on one queue.  Each case checks that its inputs do what it says.
+Skips only where g++ is missing.
 """
 import ctypes
 import math
@@ -42,8 +43,9 @@ from falcon_genome_tpu_torch.ops import pairhmm as P
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_torch_kernels import (  # noqa: E402
-    EARLY_DEL, EARLY_GCP, EARLY_INS, GCP, early_rescale_pairs, indel_planes,
-    own_rows_pairs, pad_row_pairs, phred_planes, rescale_pairs, shuffled)
+    EARLY_DEL, EARLY_GCP, EARLY_INS, GCP, early_rescale_pairs,
+    gcp0_row0_pairs, indel_planes, own_rows_pairs, pad_row_pairs,
+    phred_planes, rescale_pairs, run_kernel, shuffled, with_planes)
 
 torch.set_num_threads(1)
 
@@ -225,20 +227,16 @@ def test_emulated_kernels_flush_as_plain(emu_lib):
 EMU_WARPS = 16
 
 
-def _late(lanes, scalars, R, H):
-    """Which pairs need the bucket's rows (the plain version's
-    ``_late_rescale``), and how many take their own (``_k4_work``)."""
-    _, q, rl, _, hl = lanes
+def _late(lanes, a_im0):
+    """Which pairs need the bucket's rows: the plain version's
+    ``_late_rescale`` on row 0's priors and ``a_im0``, row 0's a_im."""
+    _, q, _, _, hl = lanes[:5]
     p_err = P._phred_to_prob(torch.from_numpy(q[:, 0]))
     prior = torch.minimum(1.0 - p_err, p_err * torch.tensor(
         1.0 / 3.0, dtype=torch.float32))
     bound = torch.tensor(2.0 ** 120, dtype=torch.float32) / torch.clamp(
         torch.from_numpy(hl).float(), min=1.0)
-    a_im = torch.tensor(P._transitions(*scalars)[4], dtype=torch.float32)
-    late = P._late_rescale(prior, bound, a_im).numpy()
-    pairs = np.arange(len(rl))
-    own = P._k4_work(q, rl, hl, pairs, pairs, *scalars, R, H)["fitted"]
-    return late, own
+    return P._late_rescale(prior, bound, a_im0).numpy()
 
 
 def _in_bucket(lanes, R):
@@ -250,26 +248,48 @@ def _in_bucket(lanes, R):
             haps, hl)
 
 
-@pytest.mark.parametrize("R,H", [(152, 384), (384, 384)])
-def test_emulated_k4_own_rows_and_queue(emu_lib, R, H, monkeypatch):
-    """K4 bit-equal to the plain version on launches that mix pairs over
-    their own rows (every step of ceil(rlen / 32) up to the bucket's) with
-    pairs that need the bucket's rows: the quality-0 rescue pairs of up to
-    160 bases at 45/45/10 (rescaled, all but the last, which has no
+def _hold(kernel, lib, lanes, phreds):
+    """K4 (``phreds`` as scalars) or K5 (the planes after the pairs) from
+    ``lib`` against the plain version, bit for bit; returns the plain
+    log10."""
+    if kernel == "K4":
+        return _hold_k4(lib, lanes, phreds)
+    return _hold_k5(lib, lanes[:5], lanes[5:])
+
+
+@pytest.mark.parametrize("kernel,R,H", [
+    pytest.param("K4", 152, 384, id="152-384"),
+    pytest.param("K4", 384, 384, id="384-384"),
+    pytest.param("K5", 152, 384, id="K5-152-384"),
+    pytest.param("K5", 384, 384, id="K5-384-384")])
+def test_emulated_k4_own_rows_and_queue(emu_lib, kernel, R, H, monkeypatch):
+    """K4 and K5 bit-equal to the plain version on launches that mix pairs
+    over their own rows (every step of ceil(rlen / 32) up to the bucket's)
+    with pairs that need the bucket's rows: the quality-0 rescue pairs of
+    up to 160 bases at 45/45/10 (rescaled, all but the last, which has no
     rescale diagonal), the pairs rescaled at diagonal 64 at 45/0/13, and
     in the 384-row bucket quality-0 pairs of 380-384 bases, which no
-    rescale keeps finite.  Each launch holds more pairs than the emulated
-    grid has warps, a count that is not a multiple of 8, and leaves its
-    queue at zero for the next.  ``rescued``: how many of a case's late
-    pairs, from its first, the rescale keeps finite."""
+    rescale keeps finite.  K5 takes those phreds as planes on every row,
+    BI/BD-like planes on the own-rows pairs, and adds pairs late through a
+    gap continuation phred of 0 on row 0 alone (-inf).  Each launch holds
+    more pairs than the emulated grid has warps, a count that is not a
+    multiple of 8, and leaves its queue at zero for the next.
+    ``rescued``: how many of a case's late pairs, from its first, the
+    rescale keeps finite."""
     cases = [(SCALARS, _in_bucket(rescale_pairs(3, 5, min(R, 160), H), R),
               4),
              (EARLY, early_rescale_lanes(R, H), len(
                  early_rescale_lanes(R, H)[2]))]
     if R > 160:
         cases.append((SCALARS, rescale_pairs(3, 5, R, H), 0))
-    for i, (scalars, late_pairs, rescued) in enumerate(cases):
+    for i, (phreds, late_pairs, rescued) in enumerate(cases):
         own_pairs = own_rows_pairs(10 + i, R, H, 3)
+        if kernel == "K5":
+            own_pairs = (*own_pairs,
+                         *indel_planes(40 + i, own_pairs[2], R))
+            late_pairs = [np.concatenate(x) for x in zip(
+                with_planes(late_pairs, phreds, R),
+                (x[::2] for x in gcp0_row0_pairs(50 + i, R, H, 1)))]
         n_late = len(late_pairs[2])
         # each late pair tagged with its index, the others with -1
         *lanes, tag = shuffled(i, (*own_pairs, np.full(len(own_pairs[2]),
@@ -278,16 +298,22 @@ def test_emulated_k4_own_rows_and_queue(emu_lib, R, H, monkeypatch):
         lanes = tuple(lanes)
         B = len(lanes[2])
         assert B > EMU_WARPS and B % 8
-        late, own = _late(lanes, scalars, R, H)
+        a_im0 = (1.0 - P._phred_to_prob(torch.from_numpy(lanes[7][:, 0]))
+                 if kernel == "K5" else
+                 torch.tensor(P._transitions(*phreds)[4]))
+        late = _late(lanes, a_im0)
         assert late.sum() == n_late and (late == (tag >= 0)).all()
-        assert own == B - n_late
-        want = _hold_k4(emu_lib, lanes, scalars)
+        if kernel == "K4":
+            pairs = np.arange(B)
+            assert P._k4_work(lanes[1], lanes[2], lanes[4], pairs, pairs,
+                              phreds[2], R, H)["fitted"] == B - n_late
+        want = _hold(kernel, emu_lib, lanes, phreds)
         assert torch.isfinite(want[torch.from_numpy(~late)]).any()
         queue = P._launch_queue(torch.device("cpu"), None)
         assert queue.tolist() == [0, 0]
         # the rescued pairs: finite, and each that goes on past diagonal 64
         # (one that ends there has its sum rescaled, not its cells) another
-        # value in the plain version without the rescale
+        # value in the plain version without the rescale; the rest -inf
         kept = (tag >= 0) & (tag < rescued)
         assert torch.isfinite(want[torch.from_numpy(kept)]).all()
         assert torch.isneginf(want[torch.from_numpy(tag >= rescued)]).all()
@@ -296,15 +322,22 @@ def test_emulated_k4_own_rows_and_queue(emu_lib, R, H, monkeypatch):
         rescaled = want[torch.from_numpy(kept)]
         with monkeypatch.context() as m:
             m.setattr(P, "RESCALE_THRESH", 0.0)
-            unscaled = P.pairhmm_sc(*_tensors(*(x[kept] for x in lanes)),
-                                    *scalars)
+            unscaled = run_kernel(kernel, _tensors(*(x[kept] for x in lanes)),
+                                  phreds)
         assert (unscaled != rescaled).all(), (unscaled, rescaled)
 
 
 def test_emulated_k4_queue_over_many_launches(emu_lib):
-    """Launches of 1 to 37 pairs back to back on one queue, each
-    bit-equal to the plain version: a launch that left its queue short
-    of zero would skip pairs of the next."""
-    lanes = own_rows_pairs(5, 64, 72, 3)
+    """Launches of 1 to 37 pairs back to back on one queue, K4's and K5's
+    in turn, each bit-equal to the plain version and each leaving the
+    queue at zero: a launch that left it short of zero would skip pairs of
+    the next, whichever kernel that is."""
+    lanes = own_rows_pairs(5, 64, 72, 7)
+    planes = indel_planes(6, lanes[2], 64)
+    queue = P._launch_queue(torch.device("cpu"), None)
     for n in (37, 1, 9, 16, 17):
         _hold_k4(emu_lib, tuple(x[:n] for x in lanes), SCALARS)
+        assert queue.tolist() == [0, 0]
+        _hold_k5(emu_lib, tuple(x[:n] for x in lanes),
+                 tuple(x[:n] for x in planes))
+        assert queue.tolist() == [0, 0]

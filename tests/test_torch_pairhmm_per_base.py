@@ -29,6 +29,7 @@ from falcon_genome_tpu_torch.utils import spans
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_torch_pairhmm_emulated import emu_lib  # noqa: E402,F401
+from test_torch_spans import k4_count  # noqa: E402
 from torch_parity import jax_pairhmm  # noqa: E402
 
 torch.set_num_threads(1)
@@ -468,31 +469,13 @@ def test_gap_continuation_planes_match_float64_reference():
     assert not np.allclose(golden(*case), want, rtol=0, atol=1e-3)
 
 
-def k5_count(q0, rl, hl, R, H):
-    """K5's work pair by pair, apart from ``_k5_work``: the bucket's rows
-    a thread for every pair, over min(rlen + hlen, R + H) diagonals, or
-    R + H where row 0 can fall below the rescale threshold (the plain
-    version's ``_late_rescale`` on row 0's priors and a_im)."""
-    f32 = torch.float32
-    a_im = 1.0 - P._phred_to_prob(GCP)
-    work = {"pairs": len(rl), "cells": 0, "slots": 0}
-    for q, r, h in zip(q0.tolist(), rl.tolist(), hl.tolist()):
-        p_err = P._phred_to_prob(q)
-        prior = torch.minimum(1.0 - p_err,
-                              p_err * torch.tensor(1.0 / 3.0, dtype=f32))
-        bound = torch.tensor(2.0 ** 120, dtype=f32) / max(float(h), 1.0)
-        late = (1 <= r <= R) and bool(P._late_rescale(prior, bound, a_im))
-        work["cells"] += r * h
-        work["slots"] += 32 * math.ceil(R / 32) * (
-            R + H if late else min(r + h, R + H))
-    return work
-
-
 def test_spans_name_the_kernel_and_count_k5_work():
     """Under the profiler a call with tables records ``planes`` 2 on its
     tables step and ``kernel`` K5 on its launch with K5's work (equal to
-    a hand count, quality-0 first bases among the pairs); a scalar call
-    records 0 and K4; ``pairhmm_logp`` with planes names K5 too."""
+    a hand count by K4's rule, which the gap opens do not enter: pairs
+    over their own rows and, from quality-0 first bases, late pairs over
+    the bucket's); a scalar call records 0 and K4; ``pairhmm_logp`` with
+    planes names K5 too."""
     case = region_tables(10, R=72, H=80, quality0=True)
     reads, quals, rl, haps, hl, pr, ph, ins, dels = case
     spans.reset()
@@ -508,10 +491,10 @@ def test_spans_name_the_kernel_and_count_k5_work():
     tables = [s.attrs for s in rec if s.name == "pairhmm.tables"]
     launches = [s.attrs for s in rec if s.name == "pairhmm.launch"]
     assert tables[:2] == [{"planes": 2}, {"planes": 0}]
-    want = k5_count(quals[pr, 0], rl[pr], hl[ph], 72, 80)
-    assert 0 < want["slots"] and want["pairs"] == len(pr)
-    late = want["slots"] - k5_count(np.full(len(pr), 30), rl[pr], hl[ph],
-                                     72, 80)["slots"]
+    want = k4_count(quals[pr, 0], rl[pr], hl[ph], GCP, 72, 80)
+    assert 0 < want["fitted"] < want["pairs"] == len(pr)
+    late = want["slots"] - k4_count(np.full(len(pr), 30), rl[pr], hl[ph],
+                                    GCP, 72, 80)["slots"]
     assert late > 0                 # the quality-0 pairs sweep on
     assert launches[0] == {"kernel": "K5", **want}
     assert launches[1]["kernel"] == "K4" and "fitted" in launches[1]
@@ -520,13 +503,30 @@ def test_spans_name_the_kernel_and_count_k5_work():
 
 def test_k5_work_by_hand_at_gcp_0():
     """At gap continuation phred 0 row 0's a_im is 0: every pair with a
-    row sweeps to R + H."""
+    row is late, over the bucket's rows to R + H."""
     case = region_tables(11, R=40, H=64)
     reads, quals, rl, haps, hl, pr, ph, *_ = case
+    assert (rl >= 1).all()
     got = P._k5_work(quals, rl, hl, pr, ph, 0, 40, 64)
     rows = math.ceil(40 / 32)
-    assert got == {"pairs": len(pr), "cells": int(rl[pr] @ hl[ph]),
+    assert got == {"pairs": len(pr), "fitted": 0,
+                   "cells": int(rl[pr] @ hl[ph]),
                    "slots": 32 * rows * (40 + 64) * len(pr)}
+
+
+def test_k5_work_by_hand_late_and_fitted():
+    """One call in the bucket 40 x 64 at gap continuation phred 10: a read
+    of 20 bases sweeps its own row a thread over 20 + 64 diagonals
+    (fitted); one of 33 with a quality-0 first base is late, over the
+    bucket's 2 rows a thread to 40 + 64."""
+    quals = np.full((2, 40), 30, np.uint8)
+    quals[1, 0] = 0
+    rl = np.array([20, 33], np.int32)
+    hl = np.array([64], np.int32)
+    got = P._k5_work(quals, rl, hl, np.array([0, 1]), np.array([0, 0]),
+                     GCP, 40, 64)
+    assert got == {"pairs": 2, "fitted": 1, "cells": (20 + 33) * 64,
+                   "slots": 32 * (1 * (20 + 64) + 2 * (40 + 64))}
 
 
 @pytest.mark.cuda
